@@ -1,0 +1,196 @@
+"""Train-mode BatchNorm over channels-last activations, with CUDA statistics.
+
+Port of ``syncvsr_tpu/ops/pallas_bn.py`` (default math only):
+
+* statistics are per-channel f32 (sum x, sum x^2) over the free ``[N, C]``
+  view of a contiguous channels-last tensor, from kernel K3
+  (``csrc/bn_stats.cu::bn_stats_fwd``, replacing ``_stats_kernel``);
+* variance in the E[x^2] - E[x]^2 form, clamped at 0, biased; eps 1e-5;
+  ``y = x * a + b`` in the compute dtype with ``a = inv * scale`` and
+  ``b = bias - mean * inv * scale``;
+* the analytic backward ``dx = k * gy - (c1 + (x - mean) * c2)`` over
+  (sum g, sum g * xhat) from kernel K4 (``bn_stats_bwd``, replacing
+  ``_bwd_kernel``); the dx elementwise pass stays in PyTorch, as it stays
+  in XLA in the JAX package;
+* running stats ``ra = 0.9 * ra + 0.1 * batch`` with the biased variance
+  (flax's convention; ``nn.BatchNorm``'s momentum and unbiased running
+  variance differ, so it is not used); eval mode is the plain affine.
+
+Each statistics wrapper runs its kernel on a CUDA tensor and its plain
+PyTorch version on a CPU tensor; there is no other fallback.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from syncvsr_tpu_torch.utils import kernels
+
+Tensor = torch.Tensor
+
+_SMS = 132           # H100 SXM streaming multiprocessors
+_MAX_STRIPS = 8 * _SMS
+_STRIP_ELEMS = 16384  # least elements a strip reads before another strip pays
+
+
+def _strips(n: int, c: int) -> int:
+    return max(1, min(_MAX_STRIPS, -(-n * c // _STRIP_ELEMS)))
+
+
+def _check_2d(name: str, *ts: Tensor) -> None:
+    """The kernels' contract: matching contiguous, 16-byte aligned [N, C]
+    views of one dtype, bf16 or f32, each thread loading 16 bytes (VEC
+    channels) with C / VEC dividing the 256 threads of a block."""
+    if ts[0].dim() != 2:
+        raise ValueError(f"{name}: expected an [N, C] view, got {tuple(ts[0].shape)}")
+    n, c = ts[0].shape
+    dtype = ts[0].dtype
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: bf16 or f32 inputs, got {dtype}")
+    vec = 16 // ts[0].element_size()
+    if c % vec or 256 % (c // vec):
+        raise ValueError(f"{name}: C={c} must be a multiple of {vec} with C/{vec} "
+                         "dividing 256")
+    for t in ts:
+        if t.shape != ts[0].shape or t.dtype != dtype:
+            raise ValueError(f"{name}: inputs disagree: {tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the [N, C] view must be contiguous "
+                             "(channels-last activation)")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: input is not 16-byte aligned")
+
+
+def bn_stats_plain(x2d: Tensor) -> Tuple[Tensor, Tensor]:
+    """[N, C] -> per-channel f32 (sum x, sum x^2)."""
+    x32 = x2d.float()
+    return x32.sum(0), (x32 * x32).sum(0)
+
+
+def bn_stats(x2d: Tensor) -> Tuple[Tensor, Tensor]:
+    """K3: per-channel f32 (sum x, sum x^2) of a contiguous [N, C] tensor."""
+    if not x2d.is_cuda:
+        return bn_stats_plain(x2d)
+    _check_2d("bn_stats", x2d)
+    n, c = x2d.shape
+    strips = _strips(n, c)
+    partials = torch.empty((strips, 2 * c), device=x2d.device, dtype=torch.float32)
+    out = torch.empty((2, c), device=x2d.device, dtype=torch.float32)
+    status = kernels.library().bn_stats_fwd(
+        x2d.data_ptr(), partials.data_ptr(), out.data_ptr(), n, c, strips,
+        int(x2d.dtype == torch.bfloat16), torch.cuda.current_stream(x2d.device).cuda_stream)
+    kernels.check(status, "bn_stats_fwd")
+    bn_stats.launches += 1
+    return out[0], out[1]
+
+
+bn_stats.launches = 0
+
+
+def bn_bwd_stats_plain(g2d: Tensor, x2d: Tensor, mean: Tensor, inv: Tensor
+                       ) -> Tuple[Tensor, Tensor]:
+    """Per-channel f32 (sum g, sum g * xhat), xhat = (x - mean) * inv."""
+    g32 = g2d.float()
+    xhat = (x2d.float() - mean) * inv
+    return g32.sum(0), (g32 * xhat).sum(0)
+
+
+def bn_bwd_stats(g2d: Tensor, x2d: Tensor, mean: Tensor, inv: Tensor
+                 ) -> Tuple[Tensor, Tensor]:
+    """K4: per-channel f32 (sum g, sum g * xhat) in one pass over g and x."""
+    if not g2d.is_cuda:
+        return bn_bwd_stats_plain(g2d, x2d, mean, inv)
+    _check_2d("bn_bwd_stats", g2d, x2d)
+    n, c = g2d.shape
+    if mean.shape != (c,) or inv.shape != (c,) or not (mean.is_cuda and inv.is_cuda):
+        raise ValueError(f"bn_bwd_stats: mean and inv must be [{c}] tensors on the GPU")
+    mean = mean.float().contiguous()
+    inv = inv.float().contiguous()
+    strips = _strips(n, c)
+    partials = torch.empty((strips, 2 * c), device=g2d.device, dtype=torch.float32)
+    out = torch.empty((2, c), device=g2d.device, dtype=torch.float32)
+    status = kernels.library().bn_stats_bwd(
+        g2d.data_ptr(), x2d.data_ptr(), mean.data_ptr(), inv.data_ptr(),
+        partials.data_ptr(), out.data_ptr(), n, c, strips,
+        int(g2d.dtype == torch.bfloat16), torch.cuda.current_stream(g2d.device).cuda_stream)
+    kernels.check(status, "bn_stats_bwd")
+    bn_bwd_stats.launches += 1
+    return out[0], out[1]
+
+
+bn_bwd_stats.launches = 0
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, dtype):
+        c = x.shape[-1]
+        x2d = x.view(-1, c)
+        m = x2d.shape[0]
+        s, s2 = bn_stats(x2d)
+        mean = s / m
+        var = torch.clamp(s2 / m - mean * mean, min=0.0)
+        inv = torch.rsqrt(var + eps)
+        a = (inv * scale).to(dtype)
+        b = (bias - mean * inv * scale).to(dtype)
+        y = x.to(dtype) * a + b
+        ctx.save_for_backward(x, scale, mean, inv)
+        ctx.dtype = dtype
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        # cotangents of the batch statistics (running stats) are not propagated
+        x, scale, mean, inv = ctx.saved_tensors
+        dtype = ctx.dtype
+        c = x.shape[-1]
+        gy = gy.contiguous()
+        n = x.numel() // c
+        s1, s2 = bn_bwd_stats(gy.view(n, c), x.view(n, c), mean, inv)
+        k = (inv * scale).to(dtype)
+        c1 = (inv * scale * s1 / n).to(dtype)
+        c2 = (inv * inv * scale * s2 / n).to(dtype)
+        xc = x.to(dtype) - mean.to(dtype)
+        dx = gy.to(dtype) * k - (c1 + xc * c2)
+        return dx, s2, s1, None, None
+
+
+def batch_norm_train(x: Tensor, scale: Tensor, bias: Tensor, eps: float,
+                     dtype: torch.dtype) -> Tuple[Tensor, Tensor, Tensor]:
+    """Train-mode BN over all but the last axis of a contiguous tensor.
+    Returns (y, mean, var); mean and var carry no gradient."""
+    return _BatchNormTrain.apply(x, scale, bias, eps, dtype)
+
+
+class FastBatchNorm(nn.Module):
+    """BatchNorm with flax ``nn.BatchNorm`` semantics over the last axis;
+    ``weight``/``bias`` and ``running_mean``/``running_var`` map to flax's
+    ``scale``/``bias`` and ``batch_stats`` ``mean``/``var``."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
+                 momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.dtype = dtype
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: Tensor, train: bool) -> Tensor:
+        if not train:
+            inv = torch.rsqrt(self.running_var + self.eps)
+            a = (inv * self.weight).to(self.dtype)
+            b = (self.bias - self.running_mean * inv * self.weight).to(self.dtype)
+            return x.to(self.dtype) * a + b
+        y, mean, var = batch_norm_train(x, self.weight, self.bias, self.eps, self.dtype)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        return y

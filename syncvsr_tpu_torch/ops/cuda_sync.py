@@ -1,0 +1,119 @@
+"""Fused sync-head projection + cross-entropy on the GPU (port of
+``syncvsr_tpu/ops/pallas_sync.py``).
+
+``sync_ce_partials`` is kernel K1 (``csrc/sync_ce.cu::sync_ce_fwd``,
+replacing the Pallas ``_kernel``): the forward reduces the per-slot
+softmax-CE to a (sum, count) pair without writing the logits. It mirrors
+the TPU kernel's casts: features and weight go to bf16 before the product,
+the bias stays f32, accumulation is f32. The backward is the chunked
+recompute of ``ops/sync_loss.py`` in plain PyTorch, as the JAX package runs
+``_chunked_bwd`` in XLA, over the original f32 features.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from syncvsr_tpu_torch.ops.sync_loss import (
+    chunked_backward,
+    make_chunk_residuals,
+    regroup_tokens,
+)
+from syncvsr_tpu_torch.utils import kernels
+
+Tensor = torch.Tensor
+
+_ROWS = 32        # rows per block of sync_ce_fwd
+_MAX_VOCAB = 320  # vocabulary one block holds per slot
+
+
+def sync_ce_partials_plain(x: Tensor, w: Tensor, b: Tensor, tok: Tensor
+                           ) -> Tuple[Tensor, Tensor]:
+    """x [N, D], w [D, S*V], b [S*V], tok [N, S] (< 0 = ignore) ->
+    f32 (sum of CE over valid slots, valid count)."""
+    n = x.shape[0]
+    s = tok.shape[1]
+    xb = x.to(torch.bfloat16).float()
+    wb = w.to(torch.bfloat16).float()
+    logits = (torch.matmul(xb, wb) + b.float()).reshape(n, s, -1)
+    valid = tok >= 0
+    safe = torch.where(valid, tok, torch.zeros_like(tok)).long()
+    m = logits.amax(-1, keepdim=True)
+    lse = (m + torch.log(torch.exp(logits - m).sum(-1, keepdim=True)))[..., 0]
+    lab = torch.gather(logits, -1, safe[..., None])[..., 0]
+    ce = torch.where(valid, lse - lab, torch.zeros_like(lse))
+    return ce.sum(), valid.sum().float()
+
+
+def sync_ce_partials(x: Tensor, w: Tensor, b: Tensor, tok: Tensor
+                     ) -> Tuple[Tensor, Tensor]:
+    """K1 on CUDA tensors (the plain version on CPU tensors); same contract
+    as sync_ce_partials_plain."""
+    if not x.is_cuda:
+        return sync_ce_partials_plain(x, w, b, tok)
+    n, d = x.shape
+    s = tok.shape[1]
+    sv = w.shape[1]
+    if w.shape[0] != d or sv % s or b.shape != (sv,) or tok.shape[0] != n:
+        raise ValueError(f"sync_ce_partials: shapes x {tuple(x.shape)}, w {tuple(w.shape)}, "
+                         f"b {tuple(b.shape)}, tok {tuple(tok.shape)} disagree")
+    vocab = sv // s
+    if vocab > _MAX_VOCAB or vocab % 8:
+        raise ValueError(f"sync_ce_partials: vocab {vocab} per slot must be a multiple "
+                         f"of 8 and at most {_MAX_VOCAB}")
+    if not (w.is_cuda and b.is_cuda and tok.is_cuda):
+        raise ValueError("sync_ce_partials: all inputs must be on the GPU")
+    xb = x.to(torch.bfloat16).contiguous()
+    wb = w.to(torch.bfloat16).contiguous()
+    if wb.data_ptr() % 16:
+        raise ValueError("sync_ce_partials: the weight is not 16-byte aligned")
+    bf = b.float().contiguous()
+    ti = tok.to(torch.int32).contiguous()
+    tiles = -(-n // _ROWS)
+    partials = torch.empty((tiles * s, 2), device=x.device, dtype=torch.float32)
+    status = kernels.library().sync_ce_fwd(
+        xb.data_ptr(), wb.data_ptr(), bf.data_ptr(), ti.data_ptr(), partials.data_ptr(),
+        n, d, s, vocab, torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(status, "sync_ce_fwd")
+    sync_ce_partials.launches += 1
+    sums = partials.sum(0)
+    return sums[0], sums[1]
+
+
+sync_ce_partials.launches = 0
+
+
+class _FusedSyncCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features, kernel, bias, tokens, alignment, groups, vocab, chunk):
+        b, t, d = features.shape
+        slots = alignment * groups
+        tok = regroup_tokens(tokens, b, t, alignment, groups)
+        ce_sum, count = sync_ce_partials(features.reshape(b * t, d), kernel, bias,
+                                         tok.reshape(b * t, slots))
+        feats, tok_p, cnt = make_chunk_residuals(features, tokens, alignment, groups, chunk)
+        ctx.save_for_backward(feats, kernel, bias, tok_p, cnt)
+        ctx.meta = (t, alignment, groups, vocab, chunk)
+        return ce_sum / torch.clamp(count, min=1.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, kernel, bias, tok, count = ctx.saved_tensors
+        t, alignment, groups, vocab, chunk = ctx.meta
+        df, dk, db = chunked_backward(feats, kernel, bias, tok, count, t, alignment,
+                                      groups, vocab, chunk, g)
+        return df, dk, db, None, None, None, None, None
+
+
+def fused_sync_cross_entropy(features: Tensor, kernel: Tensor, bias: Tensor,
+                             tokens: Tensor, alignment: int, groups: int, vocab: int,
+                             chunk: int = 128) -> Tensor:
+    """Drop-in fused version of ops.sync_loss.sync_cross_entropy.
+
+    features [B, T, D]; kernel [D, A*G*V]; bias [A*G*V];
+    tokens [B, >= T*A, G] (-1 ignored); ``chunk`` is the backward's time chunk.
+    """
+    return _FusedSyncCE.apply(features, kernel, bias, tokens, alignment, groups,
+                              vocab, chunk)

@@ -1,0 +1,123 @@
+"""Build and load the hand-written CUDA kernels (``syncvsr_tpu_torch/csrc``).
+
+Every ``*.cu`` source is compiled by its own ``nvcc`` process, all started
+together, for ``sm_90a``; the objects are linked into one shared library
+with a plain C interface and loaded with ``ctypes``. The library lands in
+``build/syncvsr_tpu_torch/<hash>/`` at the repository root, keyed by a hash
+of the sources and flags, so a changed source rebuilds and an unchanged one
+is loaded as built. A failed build raises.
+
+Nothing here runs at import time: the first kernel launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import List, Optional, Tuple
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "syncvsr_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LIB_NAME = "libsyncvsr_kernels.so"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: name -> argtypes (pointers and the stream as void*)
+SIGNATURES = {
+    # x, w, b, tok, partials, n, d, slots, vocab, stream
+    "sync_ce_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, partials, out, n, c, n_strips, x_is_bf16, stream
+    "bn_stats_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # g, x, mean, inv, partials, out, n, c, n_strips, is_bf16, stream
+    "bn_stats_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cand = [shutil.which("nvcc")]
+    if CUDA_HOME:
+        cand.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    for c in cand:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(force: bool = False) -> Tuple[Path, str]:
+    """Compile the sources (in parallel) and link the library; returns its
+    path and the compiler's output (empty when an earlier build is reused)."""
+    out_dir = BUILD_ROOT / _digest()
+    lib = out_dir / LIB_NAME
+    if lib.exists() and not force:
+        return lib, ""
+    nvcc = _nvcc()
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="build-", dir=BUILD_ROOT))
+    try:
+        procs = []
+        for src in _sources():
+            obj = tmp / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for src, _, p in procs:
+            text, _ = p.communicate()
+            logs.append(f"== {src.name}\n{text}")
+            if p.returncode != 0:
+                failed.append(src.name)
+        build_log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n{build_log}")
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp / LIB_NAME), *[str(o) for _, o, _ in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        out_dir.mkdir(parents=True, exist_ok=True)
+        os.replace(tmp / LIB_NAME, lib)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lib, build_log
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()[0]))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(status: int, name: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA error {status} at launch")
