@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``syncvsr_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile DIR]
 
 Run from the root of a checkout. Phases, in order; any failure exits
 non-zero before the last line is printed:
@@ -9,19 +9,25 @@ non-zero before the last line is printed:
 1. device: a CUDA card is required (there is no CPU path); prints its name
    and power limit;
 2. build: compiles the hand-written kernels (``syncvsr_tpu_torch/csrc``)
-   with nvcc for sm_90a and prints ptxas's registers / shared memory /
-   spills;
+   with nvcc for sm_90a, one process per source, and prints ptxas's
+   registers / shared memory / spills;
 3. kernels: each kernel against its plain PyTorch version at the shapes
-   the ``lrw_video`` train step gives it, with its time (CUDA events, warm,
-   many launches) beside its bound, the plain version's time and one
-   PyTorch library call's;
+   its train steps give it (K1 at ``lrw_video``'s sync head, K2 at
+   ``lrs3``'s and at a ragged row count, K3/K4 at every BatchNorm shape of
+   both steps), with its time (CUDA events, warm, many launches) beside its
+   bound, the plain version's time and one PyTorch library call's;
 4. reference: two train steps of a small f32 model on the card (through
-   the kernels) against the same steps on the CPU (the plain versions);
-5. train: the full-width ``lrw_video`` train step (batch 96, 29 uint8
-   96x112 frames, bf16, augmentation, CutMix and dropout as configured),
-   3 warm-up and two windows of 5 timed steps, the kernels' launches per
-   step, then one eval step (and, with ``--profile DIR``, 3 profiled
-   steps: device time by kernel group and the device's idle share);
+   the kernels) against the same steps on the CPU (the plain versions),
+   for ``lrw_video`` and for ``lrs3`` (a 768-wide Conformer, so the sync
+   head takes K2): the metrics and Adam's first moment, less the ReLU units
+   whose input f32 rounding put on the other side of 0;
+5. train, for each path: the full-width train step (``lrw_video``: batch
+   96, 29 uint8 96x112 frames; ``lrs3``: batch 8, 160 uint8 128x128 frames,
+   12-layer Conformer + 6-layer decoder; bf16, augmentation and dropout as
+   configured), 3 warm-up and two windows of 5 timed steps with the
+   kernels' launches counted from 0, then one eval step (and, with
+   ``--profile DIR``, 3 profiled steps: device time by kernel group and the
+   device's idle share);
 6. the ``kernels`` JSON line, the card line and the ``ok`` line.
 """
 
@@ -83,10 +89,11 @@ def bound_ms(flops, peak_flops, nbytes):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def trunk_bn_shapes(cfg):
+def trunk_bn_shapes(cfg, frames):
     """(N, C, launches per step) of every BatchNorm statistics call of the
-    Conv3D ResNet-18 frontend: the stem BN, then layer1..layer4."""
-    b, t = cfg.data.batch_size, cfg.data.num_frames
+    Conv3D ResNet-18 frontend over ``frames`` frames a clip: the stem BN,
+    then layer1..layer4."""
+    b, t = cfg.data.batch_size, frames
     hw = -(-cfg.data.crop_size // 2)             # stem stride 2
     shapes = [(b * t * hw * hw, cfg.model.frontend.stem_channels, 1)]
     hw = -(-hw // 2)                             # max-pool stride 2
@@ -99,54 +106,99 @@ def trunk_bn_shapes(cfg):
     return shapes
 
 
-def check_k1(torch, dev):
+def lrw_video_cfg():
+    from syncvsr_tpu_torch.config import lrw_video_config
+
+    return lrw_video_config()   # bs 96, 29 frames, crop 96, 12 x 512 (+1) encoder, bf16
+
+
+LRS3_FRAMES, LRS3_LABEL_LEN, LRS3_SOURCE = 160, 48, 128
+
+
+def lrs3_cfg():
+    from syncvsr_tpu_torch.config import lrs3_config
+
+    # the JAX bench's single-chip bucket: bs 8 x 160 frames, 12 x 768 Conformer,
+    # 6 x 768 decoder, 5049 labels, bf16
+    return lrs3_config().override(**{"data.batch_size": 8})
+
+
+def bn_shapes():
+    """Per path, (N, C, launches per step) of every BatchNorm statistics call."""
+    lrw, lrs3 = lrw_video_cfg(), lrs3_cfg()
+    conformer = (lrs3.data.batch_size * LRS3_FRAMES, lrs3.model.encoder.dim,
+                 lrs3.model.encoder.layers)
+    return {"lrw_video": trunk_bn_shapes(lrw, lrw.data.num_frames),
+            "lrs3": trunk_bn_shapes(lrs3, LRS3_FRAMES) + [conformer]}
+
+
+def check_sync(torch, dev, kind):
+    """K1 (``kind`` "mono", at lrw_video's sync head) or K2 ("split", at
+    lrs3's, and at a ragged row count) against their plain version."""
     from syncvsr_tpu_torch.ops import cuda_sync
 
-    n, d, s, v = 29 * 96, 513, 8, 320          # lrw_video: B*T rows, 513 wide, A*G slots
+    if kind == "mono":
+        name, fn, d, rows = "K1 sync_ce_fwd", cuda_sync.sync_ce_mono_partials, 513, [29 * 96]
+    else:
+        name, fn, d, rows = ("K2 sync_ce_split_fwd", cuda_sync.sync_ce_split_partials, 768,
+                             [8 * LRS3_FRAMES, 1000])
+    s, v = 8, 320                                # A*G slots of the vq codec's vocab
+    if cuda_sync.uses_split_kernel(d, s, v) != (kind == "split"):
+        raise AssertionError(f"{name}: the dispatch rule does not pick it at D={d}")
     g = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn(n, d, device=dev, generator=g)
     w = torch.randn(d, s * v, device=dev, generator=g) * 0.05
     b = torch.randn(s * v, device=dev, generator=g) * 0.1
-    tok = torch.randint(0, v, (n, s), device=dev, generator=g, dtype=torch.int32)
-    tok[torch.rand(n, s, device=dev, generator=g) < 0.1] = -1
-    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)   # the kernel's operand types
-    ce, cnt = cuda_sync.sync_ce_partials(xb, wb, b, tok)
-    ce_p, cnt_p = cuda_sync.sync_ce_partials_plain(xb, wb, b, tok)
-    torch.cuda.synchronize()
-    err = abs(float(ce) - float(ce_p))
-    # same bf16 operands, f32 accumulation in other orders: ~1e-8 relative
-    # expected on the 22k-term sum; 1e-5 leaves room
-    tol = 1e-5 * abs(float(ce_p))
-    log(f"K1 sync_ce_fwd [{n}, {d}] x [{d}, {s}x{v}]: ce_sum {float(ce):.6f} vs plain "
-        f"{float(ce_p):.6f}, |err| {err:.3e} (tol {tol:.3e}); count {float(cnt):.0f} vs "
-        f"{float(cnt_p):.0f}")
-    if not (err <= tol and float(cnt) == float(cnt_p) == float((tok >= 0).sum())):
-        raise AssertionError("K1 disagrees with its plain version")
-    ms = cuda_ms(torch, lambda: cuda_sync.sync_ce_partials(xb, wb, b, tok))
-    plain = cuda_ms(torch, lambda: cuda_sync.sync_ce_partials_plain(xb, wb, b, tok))
-    b16, tok_l = b.to(torch.bfloat16), tok.reshape(-1).long()
-    lib = library_ms(torch, lambda: torch.nn.functional.cross_entropy(
-        torch.addmm(b16, xb, wb).reshape(n * s, v).float(), tok_l, ignore_index=-1,
-        reduction="sum"), "cross_entropy(addmm)")
-    tiles = -(-n // 32)
-    nbytes = n * d * 2 + d * s * v * 2 + s * v * 4 + n * s * 4 + tiles * s * 2 * 4
-    bound, by = bound_ms(2 * n * d * s * v, PEAK_BF16_FLOPS, nbytes)
-    log(f"  kernel_ms {ms:.4f}  plain_ms {plain:.4f}  library_ms {lib}  bound_ms {bound:.4f} ({by})")
-    return {"name": "sync_ce_fwd", "route": "cuda",
-            "source": "syncvsr_tpu_torch/csrc/sync_ce.cu",
-            "replaces": "syncvsr_tpu/ops/pallas_sync.py:36", "launches": 0,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+    wb = w.to(torch.bfloat16)
+    worst = 0.0
+    for n in rows:
+        x = torch.randn(n, d, device=dev, generator=g)
+        tok = torch.randint(0, v, (n, s), device=dev, generator=g, dtype=torch.int32)
+        tok[torch.rand(n, s, device=dev, generator=g) < 0.1] = -1
+        xb = x.to(torch.bfloat16)                # the kernel's operand types
+        ce, cnt = fn(xb, wb, b, tok)
+        ce_p, cnt_p = cuda_sync.sync_ce_partials_plain(xb, wb, b, tok)
+        torch.cuda.synchronize()
+        err = abs(float(ce) - float(ce_p))
+        worst = max(worst, err)
+        # same bf16 operands, f32 accumulation in other orders: ~1e-8
+        # relative expected on sums of ~1e4 terms; 1e-5 leaves room
+        tol = 1e-5 * abs(float(ce_p))
+        log(f"{name} [{n}, {d}] x [{d}, {s}x{v}]: ce_sum {float(ce):.6f} vs plain "
+            f"{float(ce_p):.6f}, |err| {err:.3e} (tol {tol:.3e}); count {float(cnt):.0f} vs "
+            f"{float(cnt_p):.0f}")
+        if not (err <= tol and float(cnt) == float(cnt_p) == float((tok >= 0).sum())):
+            raise AssertionError(f"{name} disagrees with its plain version at N={n}")
+        if n == rows[0]:                         # the train step's shape: time it
+            args = (xb, wb, b, tok)
+            ms = cuda_ms(torch, lambda: fn(*args))
+            plain = cuda_ms(torch, lambda: cuda_sync.sync_ce_partials_plain(*args))
+            b16, tok_l = b.to(torch.bfloat16), tok.reshape(-1).long()
+            lib = library_ms(torch, lambda: torch.nn.functional.cross_entropy(
+                torch.addmm(b16, xb, wb).reshape(n * s, v).float(), tok_l, ignore_index=-1,
+                reduction="sum"), "cross_entropy(addmm)")
+            parts = -(-n // 32) * (s if kind == "mono" else 1)
+            nbytes = n * d * 2 + d * s * v * 2 + s * v * 4 + n * s * 4 + parts * 2 * 4
+            bound, by = bound_ms(2 * n * d * s * v, PEAK_BF16_FLOPS, nbytes)
+            log(f"  kernel_ms {ms:.4f}  plain_ms {plain:.4f}  library_ms {lib}  "
+                f"bound_ms {bound:.4f} ({by})")
+    src, line = (("sync_ce.cu", 36) if kind == "mono" else ("sync_ce_split.cu", 66))
+    return {"name": name.split()[1], "route": "cuda",
+            "source": f"syncvsr_tpu_torch/csrc/{src}",
+            "replaces": f"syncvsr_tpu/ops/pallas_sync.py:{line}", "launches": 0,
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, "library_ms": lib}
 
 
-def check_bn(torch, dev, cfg):
-    """K3 and K4 at every trunk shape in bf16; per-step times are the
-    per-shape times weighted by the launches per step."""
+def check_bn(torch, dev):
+    """K3 and K4 at every BatchNorm shape of both train steps, in bf16. Each
+    entry's times are per step of the lrs3 step (the per-shape times
+    weighted by the launches per step); ``paths`` has both steps'."""
     from syncvsr_tpu_torch.ops import cuda_bn
 
     g = torch.Generator(device=dev).manual_seed(1)
-    rows = {"fwd": [], "bwd": []}
-    for n, c, per_step in trunk_bn_shapes(cfg):
+    paths = bn_shapes()
+    measured = {}                                # (kind, n, c) -> (err, ms, plain, lib, bound, by)
+    for n, c in sorted({(n, c) for shapes in paths.values() for n, c, _ in shapes}):
         x = (torch.randn(n, c, device=dev, generator=g) * 2 + 0.5).to(torch.bfloat16)
         gy = torch.randn(n, c, device=dev, generator=g).to(torch.bfloat16)
         x32 = x.float()
@@ -181,22 +233,30 @@ def check_bn(torch, dev, cfg):
                 nbytes, flops = 2 * n * c * 2 + 4 * c * 4, 5 * n * c
             bound, by = bound_ms(flops, PEAK_F32_FLOPS, nbytes)
             log(f"  kernel_ms {ms:.4f}  plain_ms {plain_t:.4f}  library_ms {lib}  "
-                f"bound_ms {bound:.4f} ({by}), {per_step} per step")
-            rows[kind].append((per_step, err, ms, plain_t, lib, bound, by))
+                f"bound_ms {bound:.4f} ({by})")
+            measured[kind, n, c] = (err, ms, plain_t, lib, bound, by)
         del x, gy, x32, xhat_abs
         torch.cuda.empty_cache()
 
+    def per_step(kind, shapes):
+        rows = [(k,) + measured[kind, n, c] for n, c, k in shapes]
+        libs = [k * lib for k, _, _, _, lib, _, _ in rows]
+        return {"launches_per_step": sum(k for k, *_ in rows),
+                "bound_by": rows[0][6],
+                "ms": sum(k * ms for k, _, ms, _, _, _, _ in rows),
+                "plain_ms": sum(k * p for k, _, _, p, _, _, _ in rows),
+                "bound_ms": sum(k * bd for k, _, _, _, _, bd, _ in rows),
+                "library_ms": None if None in libs else sum(libs)}
+
     def entry(name, src_line, kind):
-        r = rows[kind]
-        libs = [k * lib for k, _, _, _, lib, _, _ in r]
+        errs = [e for (k, _, _), (e, *_rest) in measured.items() if k == kind]
+        by_path = {p: per_step(kind, shapes) for p, shapes in paths.items()}
+        main = by_path["lrs3"]
         return {"name": name, "route": "cuda", "source": "syncvsr_tpu_torch/csrc/bn_stats.cu",
                 "replaces": f"syncvsr_tpu/ops/pallas_bn.py:{src_line}", "launches": 0,
-                "max_abs_err": max(e for _, e, _, _, _, _, _ in r),
-                "ms": sum(k * ms for k, _, ms, _, _, _, _ in r),
-                "plain_ms": sum(k * p for k, _, _, p, _, _, _ in r),
-                "bound_ms": sum(k * bd for k, _, _, _, _, bd, _ in r),
-                "bound_by": r[0][6],
-                "library_ms": None if None in libs else sum(libs)}
+                "max_abs_err": max(errs), "ms": main["ms"], "plain_ms": main["plain_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                "library_ms": main["library_ms"], "paths": by_path}
 
     return [entry("bn_stats_fwd", 47, "fwd"), entry("bn_stats_bwd", 68, "bwd")]
 
@@ -204,7 +264,8 @@ def check_bn(torch, dev, cfg):
 def counters():
     from syncvsr_tpu_torch.ops import cuda_bn, cuda_sync
 
-    return {"sync_ce_fwd": cuda_sync.sync_ce_partials,
+    return {"sync_ce_fwd": cuda_sync.sync_ce_mono_partials,
+            "sync_ce_split_fwd": cuda_sync.sync_ce_split_partials,
             "bn_stats_fwd": cuda_bn.bn_stats,
             "bn_stats_bwd": cuda_bn.bn_bwd_stats}
 
@@ -218,23 +279,68 @@ def read_counts():
     return {name: fn.launches for name, fn in counters().items()}
 
 
-def run_steps(torch, cfg, batch_np, device, n_steps):
+def relu_layers(model):
+    """name -> the first layer of each ReLU feed-forward (the Conformer's
+    and the decoder's): its output is the ReLU's input."""
+    from syncvsr_tpu_torch.models.conformer import ConformerFeedForward
+    from syncvsr_tpu_torch.models.decoder import FF
+
+    return {f"{n}.w1": m.w1 for n, m in model.named_modules()
+            if isinstance(m, (ConformerFeedForward, FF))}
+
+
+def zero_gradient_leaves(model):
+    """Leaves whose true gradient is 0: the key bias of attention without
+    RoPE (the softmax cancels a per-query constant) and the depthwise
+    conv's bias (the train-mode BatchNorm after it subtracts the mean)."""
+    from syncvsr_tpu_torch.models.conformer import ConvModule, RelPositionAttention
+    from syncvsr_tpu_torch.models.decoder import MHA
+
+    return ({f"{n}.wk.bias" for n, m in model.named_modules()
+             if isinstance(m, (RelPositionAttention, MHA))}
+            | {f"{n}.dw.bias" for n, m in model.named_modules() if isinstance(m, ConvModule)})
+
+
+def run_steps(torch, cfg, batch_np, device, n_steps, aug_fn):
     """Build the model on ``device`` (the same seeded weights on every
     device) and run ``n_steps`` train steps; returns (state, metrics of
-    each step)."""
+    each step, {ReLU layer: its output in each step, on the CPU})."""
     from syncvsr_tpu_torch.engine import build_train_step, create_train_state
     from syncvsr_tpu_torch.models import build_model
-    from syncvsr_tpu_torch.ops.image import build_word_aug
 
     model = build_model(cfg, device=device)
+    relu_in = {}
+    for name, layer in relu_layers(model).items():
+        layer.register_forward_hook(lambda m, i, o, name=name: relu_in.setdefault(
+            name, []).append(o.detach().cpu()))
     batch = {k: torch.from_numpy(v).to(device) for k, v in batch_np.items()}
     state = create_train_state(cfg, model, batch, device=device)
-    step = build_train_step(aug_fn=build_word_aug(cfg.data))
+    step = build_train_step(aug_fn=aug_fn)
     out = []
     for _ in range(n_steps):
         state, m = step(state, batch)
         out.append({k: float(v) for k, v in m.items()})
-    return state, out
+    return state, out, relu_in
+
+
+def relu_flips(cpu_in, gpu_in):
+    """Where f32 rounding leaves a ReLU's input on the other side of 0 on
+    the card than on the CPU, that unit's row of the first layer's gradient
+    (and its bias entry) differs by a whole term. Returns ({leaf: units to
+    leave out of the gradient comparison}, the number of flips, the largest
+    |input| that flipped as a share of its layer's largest)."""
+    skip, flips, worst = {}, 0, 0.0
+    for name, steps in cpu_in.items():
+        for hc, hg in zip(steps, gpu_in[name]):
+            flip = (hc > 0) != (hg > 0)
+            if not bool(flip.any()):
+                continue
+            flips += int(flip.sum())
+            worst = max(worst, float(hc[flip].abs().max()) / float(hc.abs().max()))
+            units = flip.reshape(-1, flip.shape[-1]).any(0).nonzero()[:, 0].tolist()
+            for leaf in (f"{name}.weight", f"{name}.bias"):
+                skip.setdefault(leaf, set()).update(units)
+    return skip, flips, worst
 
 
 def uint8_clips(np, cfg, seed):
@@ -249,71 +355,151 @@ def uint8_clips(np, cfg, seed):
     return batch
 
 
-def check_reference(torch, np):
+def uint8_sentences(np, cfg, frames, label_len, source, seed):
+    """sentence_batch with uint8 clips [B, T, source, source, 1], the face
+    crops of the LRS3 preprocessing (RandomResizedCrop to the crop size in
+    the step)."""
+    from syncvsr_tpu_torch.data.synthetic import sentence_batch
+
+    batch = sentence_batch(cfg, num_frames=frames, label_len=label_len, seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    batch["videos"] = rng.randint(
+        0, 256, (cfg.data.batch_size, frames, source, source, 1)).astype(np.uint8)
+    return batch
+
+
+# the kernels each path runs (the others must not launch there)
+PATH_KERNELS = {"lrw_video": {"sync_ce_fwd", "bn_stats_fwd", "bn_stats_bwd"},
+                "lrs3": {"sync_ce_split_fwd", "bn_stats_fwd", "bn_stats_bwd"}}
+
+
+def check_reference(torch, np, path):
     """Two f32 train steps of a small model through the kernels on the card
     against the same steps through the plain versions on the CPU. The
-    augmentation and CutMix draw from the same CPU generator on both sides;
-    dropout is off."""
-    from syncvsr_tpu_torch.config import lrw_video_config
+    augmentation (and CutMix) draw from the same CPU generator on both
+    sides; dropout is off."""
+    from syncvsr_tpu_torch.config import lrs3_config, lrw_video_config
+    from syncvsr_tpu_torch.ops.image import build_sentence_aug, build_word_aug
 
-    cfg = lrw_video_config().override(**{
-        "model.encoder.layers": 2, "model.encoder.dim": 64, "model.encoder.heads": 2,
-        "model.frontend.resnet_width": 16, "model.dtype": "float32",
-        "model.encoder.emb_dropout": 0.0, "model.encoder.msa_dropout": 0.0,
-        "model.encoder.mlp_dropout": 0.0, "data.batch_size": 4, "data.num_frames": 8,
-        "data.crop_size": 32, "optim.total_steps": 10, "optim.warmup_steps": 2})
-    batch = uint8_clips(np, cfg, seed=3)
-    cpu_state, cpu_m = run_steps(torch, cfg, batch, "cpu", 2)
+    common = {"model.dtype": "float32", "model.encoder.msa_dropout": 0.0,
+              "model.encoder.mlp_dropout": 0.0, "data.crop_size": 32,
+              "optim.total_steps": 10, "optim.warmup_steps": 2}
+    if path == "lrw_video":
+        cfg = lrw_video_config().override(**common, **{
+            "model.encoder.layers": 2, "model.encoder.dim": 64, "model.encoder.heads": 2,
+            "model.frontend.resnet_width": 16, "model.encoder.emb_dropout": 0.0,
+            "data.batch_size": 4, "data.num_frames": 8})
+        batch = uint8_clips(np, cfg, seed=3)
+        aug = build_word_aug(cfg.data)
+        keys = ("loss", "loss_word", "loss_audio", "grad_norm", "learning_rate")
+    else:
+        # small but for the Conformer's width, 768, which keeps the sync head
+        # on K2; the 64-wide decoder takes proj_decoder
+        cfg = lrs3_config().override(**common, **{
+            "model.encoder.layers": 2, "model.encoder.dim": 768, "model.encoder.heads": 12,
+            "model.frontend.resnet_width": 16, "model.decoder.layers": 1,
+            "model.decoder.dim": 64, "model.decoder.heads": 4, "model.decoder.hidden": 128,
+            "model.decoder.dropout": 0.0, "model.labels": 101, "data.batch_size": 4})
+        # 16 frames, clips of >= 8: labels of <= 4 keep every CTC alignment feasible
+        batch = uint8_sentences(np, cfg, 16, 4, 40, seed=3)
+        aug = build_sentence_aug(cfg.data)
+        keys = ("loss", "loss_ctc", "loss_att", "loss_audio", "grad_norm", "learning_rate")
+    cpu_state, cpu_m, cpu_relu = run_steps(torch, cfg, batch, "cpu", 2, aug)
     before = read_counts()
-    gpu_state, gpu_m = run_steps(torch, cfg, batch, "cuda", 2)
+    gpu_state, gpu_m, gpu_relu = run_steps(torch, cfg, batch, "cuda", 2, aug)
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in read_counts().items()}
-    log(f"reference: 2 f32 steps of a small model, card vs CPU; launches {launched}")
+    log(f"reference {path}: 2 f32 steps of a small model, card vs CPU; launches {launched}")
     log(f"  card step 1: {gpu_m[0]}")
     log(f"  cpu  step 1: {cpu_m[0]}")
-    if any(v == 0 for v in launched.values()):
-        raise AssertionError(f"a kernel was not launched in the reference run: {launched}")
-    # f32 on both sides with TF32 off. K1 rounds the sync head's operands
-    # to bf16 where the CPU head stays f32 (as on the TPU and CPU in the
-    # JAX package), which moves loss_audio by ~1e-4 relative; the rest are
-    # f32 sums in other orders
+    for k, n in launched.items():
+        if (n > 0) != (k in PATH_KERNELS[path]):
+            raise AssertionError(f"reference {path}: launches {launched}, expected exactly "
+                                 f"{sorted(PATH_KERNELS[path])}")
+    # f32 on both sides with TF32 off. K1/K2 round the sync head's operands
+    # to bf16 where the CPU head stays f32 (as on the TPU and CPU in the JAX
+    # package), which moves loss_audio by ~1e-4 relative; the rest are f32
+    # sums in other orders
     worst = 0.0
     for i, (a, e) in enumerate(zip(gpu_m, cpu_m)):
-        for k in ("loss", "loss_word", "loss_audio", "grad_norm", "learning_rate"):
+        for k in keys:
             rel = abs(a[k] - e[k]) / max(abs(e[k]), 1e-12)
             worst = max(worst, rel)
             if not (math.isfinite(a[k]) and rel <= 2e-3):
-                raise AssertionError(f"step {i + 1} {k}: card {a[k]} vs CPU {e[k]}")
+                raise AssertionError(f"{path} step {i + 1} {k}: card {a[k]} vs CPU {e[k]}")
     # Adam's first moment holds every (clipped) gradient of both steps; the
-    # backward is f32 on both sides, so it agrees to f32 noise (~2e-4 of a
-    # leaf's largest element through 20 BatchNorm backwards)
-    mu_ratio = 0.0
-    for name, g_mu, c_mu in zip(gpu_state.names, gpu_state.mu, cpu_state.mu):
-        scale = float(c_mu.abs().max())
-        if scale > 0:
-            mu_ratio = max(mu_ratio, float((g_mu.cpu() - c_mu).abs().max()) / scale)
-    log(f"  worst metric rel err {worst:.3e}; worst Adam mu err / leaf scale {mu_ratio:.3e}")
+    # backward is f32 on both sides, so it agrees to f32 noise, held at
+    # 2e-3 of each leaf's largest element. Two kinds of entries are held
+    # apart: the ReLU units whose input flipped sign (relu_flips: only
+    # inputs within rounding of 0 may flip, and only a few), and the leaves
+    # whose true gradient is 0, which must hold rounding noise on both sides
+    skip, flips, flip_size = relu_flips(cpu_relu, gpu_relu)
+    log(f"  ReLU inputs that changed sign: {flips}, the largest {flip_size:.2e} of its "
+        f"layer's largest; rows left out: { {k: sorted(v) for k, v in skip.items()} }")
+    if flips > 4 or flip_size > 1e-5:
+        raise AssertionError(f"{path}: {flips} ReLU inputs changed sign, up to {flip_size} "
+                             "of their layer's largest: more than f32 rounding")
+    zero = zero_gradient_leaves(cpu_state.model)
+    top = max(float(c_mu.abs().max()) for c_mu in cpu_state.mu)
+    ratios, noise = [], 0.0
+    for name, g_mu, c_mu in zip(cpu_state.names, gpu_state.mu, cpu_state.mu):
+        g_mu = g_mu.cpu()
+        if name in zero:
+            noise = max(noise, float(g_mu.abs().max()) / top, float(c_mu.abs().max()) / top)
+            continue
+        keep = torch.ones(c_mu.shape[0], dtype=torch.bool)
+        keep[sorted(skip.get(name, ()))] = False
+        sc = float(c_mu[keep].abs().max())
+        if sc > 0:
+            ratios.append((float((g_mu - c_mu)[keep].abs().max()) / sc, name, sc))
+    ratios.sort(reverse=True)
+    mu_ratio = ratios[0][0]
+    log(f"  worst metric rel err {worst:.3e}; worst Adam mu err / leaf scale {mu_ratio:.3e}; "
+        "worst leaves " + ", ".join(f"{n} {r:.2e} (scale {sc:.2e})" for r, n, sc in ratios[:4])
+        + f"; {len(zero)} zero-gradient leaves hold up to {noise:.2e} of the largest leaf")
     if not mu_ratio <= 2e-3:
-        raise AssertionError(f"gradients disagree: mu err / scale {mu_ratio}")
+        raise AssertionError(f"{path}: gradients disagree: mu err / scale {mu_ratio}")
+    if not noise <= 1e-6:
+        raise AssertionError(f"{path}: a leaf whose true gradient is 0 holds {noise} of the "
+                             "largest leaf's Adam moment")
 
 
-def train_full_width(torch, np, profile_dir=None):
-    from syncvsr_tpu_torch.config import lrw_video_config
+def train_full_width(torch, np, path, profile_dir=None):
+    """The full-width train step of ``path``; returns (launches in the timed
+    steps, summary)."""
     from syncvsr_tpu_torch.engine import build_eval_step, build_train_step, create_train_state
     from syncvsr_tpu_torch.models import build_model
-    from syncvsr_tpu_torch.ops.image import build_eval_transform, build_word_aug
+    from syncvsr_tpu_torch.ops import image
 
-    cfg = lrw_video_config()   # bs 96, 29 frames, crop 96, 12 x 512 (+1) encoder, bf16
-    batch_np = uint8_clips(np, cfg, seed=0)
+    if path == "lrw_video":
+        cfg = lrw_video_cfg()
+        batch_np = uint8_clips(np, cfg, seed=0)
+        frames, video = cfg.data.num_frames, "inputs"
+        aug, transform = image.build_word_aug(cfg.data), image.build_eval_transform(cfg.data)
+        near_ln = {"loss_word": cfg.model.labels}
+        per_step = {"sync_ce_fwd": 1, "sync_ce_split_fwd": 0,
+                    "bn_stats_fwd": 20, "bn_stats_bwd": 20}
+    else:
+        cfg = lrs3_cfg()
+        batch_np = uint8_sentences(np, cfg, LRS3_FRAMES, LRS3_LABEL_LEN, LRS3_SOURCE, seed=0)
+        frames, video = LRS3_FRAMES, "videos"
+        aug = image.build_sentence_aug(cfg.data)
+        transform = image.build_sentence_eval_transform(cfg.data)
+        near_ln = {}
+        # 20 in the frontend's trunk, 12 in the Conformer's conv modules
+        per_step = {"sync_ce_fwd": 0, "sync_ce_split_fwd": 1,
+                    "bn_stats_fwd": 32, "bn_stats_bwd": 32}
+    near_ln["loss_audio"] = cfg.model.codec.audio_vocab_size
     dev = torch.device("cuda")
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
-    b, t = cfg.data.batch_size, cfg.data.num_frames
-    log(f"train: lrw_video, inputs {tuple(batch['inputs'].shape)} {batch['inputs'].dtype}, "
-        f"{cfg.model.encoder.layers} layers, dim {cfg.model.encoder.dim}, dtype {cfg.model.dtype}")
+    b = cfg.data.batch_size
+    enc = cfg.model.encoder
+    log(f"train: {path}, {video} {tuple(batch[video].shape)} {batch[video].dtype}, "
+        f"{enc.kind} {enc.layers} layers, dim {enc.dim}, dtype {cfg.model.dtype}")
     model = build_model(cfg)
     n_params = sum(p.numel() for p in model.parameters())
     state = create_train_state(cfg, model, batch)
-    step = build_train_step(aug_fn=build_word_aug(cfg.data))
+    step = build_train_step(aug_fn=aug)
     first = None
     for i in range(WARMUP_STEPS):
         state, m = step(state, batch)
@@ -321,11 +507,13 @@ def train_full_width(torch, np, profile_dir=None):
             first = {k: float(v) for k, v in m.items()}
     torch.cuda.synchronize()
     log(f"  {n_params} parameters; first step {first}")
-    # random init: the word head starts near ln(labels), the sync head near ln(vocab)
-    for k, ref in (("loss_word", math.log(cfg.model.labels)),
-                   ("loss_audio", math.log(cfg.model.codec.audio_vocab_size))):
-        if not abs(first[k] - ref) < 1.0:
-            raise AssertionError(f"first-step {k} {first[k]} is far from ln = {ref:.3f}")
+    # random init: the heads start near ln(classes)
+    for k, classes in near_ln.items():
+        if not abs(first[k] - math.log(classes)) < 1.0:
+            raise AssertionError(f"first-step {k} {first[k]} is far from "
+                                 f"ln {classes} = {math.log(classes):.3f}")
+    if not all(math.isfinite(v) for v in first.values()):
+        raise AssertionError(f"non-finite first-step metrics: {first}")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     windows = []
@@ -341,32 +529,34 @@ def train_full_width(torch, np, profile_dir=None):
     peak = torch.cuda.max_memory_allocated()
     if not all(math.isfinite(v) for v in last.values()):
         raise AssertionError(f"non-finite metrics: {last}")
-    per_step = {"sync_ce_fwd": 1, "bn_stats_fwd": 20, "bn_stats_bwd": 20}
     want = {k: n * TIMED_STEPS * len(windows) for k, n in per_step.items()}
     log(f"  {TIMED_STEPS * len(windows)} timed steps: {dt * 1e3:.2f} ms/step (windows of "
         f"{TIMED_STEPS}: {', '.join(f'{w * 1e3:.2f}' for w in windows)} ms/step), "
-        f"{b * t / dt:.1f} frames/s, peak memory {peak / 2**30:.2f} GiB; last step {last}")
+        f"{b * frames / dt:.1f} frames/s, peak memory {peak / 2**30:.2f} GiB; last step {last}")
     log(f"  launches {launches} (expected {want})")
     if launches != want:
-        raise AssertionError(f"launches {launches} != {want}")
+        raise AssertionError(f"{path}: launches {launches} != {want}")
     before = read_counts()
-    ev = build_eval_step()(state, build_eval_transform(cfg.data)(batch))
+    ev = build_eval_step()(state, transform(batch))
     ev = {k: float(v) for k, v in ev.items()}
     torch.cuda.synchronize()
     log(f"  eval step: {ev}")
     if not all(math.isfinite(v) for v in ev.values()):
         raise AssertionError(f"non-finite eval metrics: {ev}")
-    if read_counts()["sync_ce_fwd"] != before["sync_ce_fwd"] + 1:
-        raise AssertionError("the eval step did not run K1")
+    sync = "sync_ce_fwd" if path == "lrw_video" else "sync_ce_split_fwd"
+    got = {k: v - before[k] for k, v in read_counts().items() if k.startswith("sync")}
+    if got != {k: int(k == sync) for k in got}:
+        raise AssertionError(f"the {path} eval step launched {got}, expected one {sync}")
     if profile_dir:
-        profile_steps(torch, state, step, batch, profile_dir, dt)
-    return launches, {"step_ms": dt * 1e3, "frames_per_s": b * t / dt, "peak_bytes": peak}
+        profile_steps(torch, state, step, batch, profile_dir, path, dt)
+    return launches, {"step_ms": dt * 1e3, "frames_per_s": b * frames / dt,
+                      "peak_bytes": peak, "launches_per_step": per_step}
 
 
 # device-time groups of the profile, matched in order on the kernel's name
 KERNEL_GROUPS = (
-    ("port kernels", ("sync_ce_kernel", "stats_fwd_partial", "stats_bwd_partial",
-                      "sum_strips")),
+    ("port kernels", ("sync_ce_kernel", "sync_ce_split_kernel", "stats_fwd_partial",
+                      "stats_bwd_partial", "sum_strips")),
     ("convolution", ("conv", "cudnn", "implicit", "fprop", "dgrad", "wgrad")),
     ("matmul", ("gemm", "cutlass", "xmma", "sm90_")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
@@ -374,11 +564,11 @@ KERNEL_GROUPS = (
 )
 
 
-def profile_steps(torch, state, step, batch, out_dir, step_s, n=3):
+def profile_steps(torch, state, step, batch, out_dir, path, step_s, n=3):
     """``n`` train steps under torch.profiler: device time by kernel group
     and the top kernels, beside the unprofiled step time ``step_s`` (the
     device's idle share is 1 - device time / step time). The full table goes
-    to ``out_dir/profile.txt``."""
+    to ``out_dir/profile_<path>.txt``."""
     import os
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -394,11 +584,14 @@ def profile_steps(torch, state, step, batch, out_dir, step_s, n=3):
     kernels = [(e.key, getattr(e, sort_key) / 1e3 / n, e.count // n) for e in avgs
                if e.device_type == DeviceType.CUDA and getattr(e, sort_key) > 0]
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_{path}.txt"), "w") as f:
         f.write(avgs.table(sort_by=sort_key, row_limit=80, max_name_column_width=90))
+        f.write("\nby host time:\n")
+        f.write(avgs.table(sort_by="self_cpu_time_total", row_limit=40,
+                           max_name_column_width=90))
     total = sum(ms for _, ms, _ in kernels)
     if not kernels:
-        log("profile: no device time was traced")
+        log(f"profile {path}: no device time was traced")
         return
     groups = {}
     for name, ms, calls in kernels:
@@ -406,7 +599,7 @@ def profile_steps(torch, state, step, batch, out_dir, step_s, n=3):
         g = next((g for g, keys in KERNEL_GROUPS if any(k in low for k in keys)), "other")
         ms0, c0 = groups.get(g, (0.0, 0))
         groups[g] = (ms0 + ms, c0 + calls)
-    log(f"profile ({n} steps): device time {total:.2f} ms/step in "
+    log(f"profile {path} ({n} steps): device time {total:.2f} ms/step in "
         f"{sum(c for _, _, c in kernels)} launches/step; unprofiled step "
         f"{step_s * 1e3:.2f} ms, so the device idles {1 - total / (step_s * 1e3):.1%} of it")
     for g, (ms, calls) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
@@ -423,7 +616,7 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="after the train phase, profile 3 steps and write the table to DIR")
+                    help="after each train phase, profile 3 steps and write the table to DIR")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -443,14 +636,21 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    from syncvsr_tpu_torch.config import lrw_video_config
-
-    entries = [check_k1(torch, dev)] + check_bn(torch, dev, lrw_video_config())
-    check_reference(torch, np)
+    entries = [check_sync(torch, dev, "mono"), check_sync(torch, dev, "split")]
+    entries += check_bn(torch, dev)
+    for path in ("lrw_video", "lrs3"):
+        check_reference(torch, np, path)
     torch.backends.cudnn.benchmark = True     # the warm-up steps absorb the autotuning
-    launches, summary = train_full_width(torch, np, args.profile)
+    summary, per_step = {}, {}
+    launches = {k: 0 for k in counters()}
+    for path in ("lrw_video", "lrs3"):
+        got, summary[path] = train_full_width(torch, np, path, args.profile)
+        launches = {k: launches[k] + got[k] for k in launches}
+        per_step[path] = summary[path]["launches_per_step"]
     for e in entries:
+        # launches over both paths' timed steps, and per step of each path
         e["launches"] = launches[e["name"]]
+        e["launches_per_step"] = {p: per_step[p][e["name"]] for p in per_step}
     log(f"summary: {json.dumps(summary)} on {card}")
     log(json.dumps({"kernels": entries}))
     log(card)

@@ -16,17 +16,19 @@
 // blocks run in parallel, so the reduction is two-stage.
 //  Stage 1: each of n_strips blocks (256 threads) walks one strip of rows.
 //   Thread t owns VEC neighbouring channels (one 16-byte load: 8 bf16 or 4
-//   f32) of every rpi-th row, rpi = 256 / (C / VEC), so a warp reads whole
-//   rows of contiguous bytes, and keeps 2 * VEC f32 accumulators in
-//   registers. The block folds its rpi row groups in shared memory, in a
-//   fixed order, and writes a [2, C] partial.
+//   f32) of every rpi-th row, rpi = floor(256 / (C / VEC)), so a warp reads
+//   whole rows of contiguous bytes, and keeps 2 * VEC f32 accumulators in
+//   registers; where C / VEC does not divide 256 (the Conformer's C = 768)
+//   the last 256 - rpi * C / VEC threads idle. The block folds its rpi row
+//   groups in shared memory, in a fixed order, and writes a [2, C] partial.
 //  Stage 2: 32 outputs per block of 32 x 8 threads; thread (i, j) sums the
 //   partials of strips j, j + 8, ... for output i (coalesced rows of the
 //   partials), then the 8 sums are folded in a fixed order.
 // No float atomics: the result is the same from run to run. The wrapper
 // picks n_strips to fill the 132 SMs at every trunk shape. C must be a
-// multiple of VEC with C / VEC dividing 256 (every trunk width, 64..512),
-// and the view must be contiguous and 16-byte aligned; the wrapper checks.
+// multiple of VEC with C / VEC <= 256 (every trunk width, 64..512, and the
+// Conformer's 768), and the view must be contiguous and 16-byte aligned;
+// the wrapper checks.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -70,11 +72,13 @@ template <int W>
 __device__ __forceinline__ void fold_rows(float* sm, int rr, int lane, int rpi, int c,
                                           const float* a, const float* b,
                                           float* __restrict__ partial) {
-  const int span = rpi * c;  // == kThreads * W
+  const int span = rpi * c;  // <= kThreads * W
+  if (rr < rpi) {
 #pragma unroll
-  for (int v = 0; v < W; ++v) {
-    sm[rr * c + W * lane + v] = a[v];
-    sm[span + rr * c + W * lane + v] = b[v];
+    for (int v = 0; v < W; ++v) {
+      sm[rr * c + W * lane + v] = a[v];
+      sm[span + rr * c + W * lane + v] = b[v];
+    }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < 2 * c; i += kThreads) {
@@ -96,7 +100,8 @@ stats_fwd_partial(const T* __restrict__ x, float* __restrict__ partials, int n, 
   const int rpi = kThreads / tpr;
   const int lane = threadIdx.x % tpr, rr = threadIdx.x / tpr;
   const long long r0 = (long long)blockIdx.x * rows_per_strip;
-  const long long r1 = min((long long)n, r0 + rows_per_strip);
+  // threads past rpi whole row groups idle (their loop is empty)
+  const long long r1 = rr < rpi ? min((long long)n, r0 + rows_per_strip) : r0;
   float s[W], q[W], v[W];
 #pragma unroll
   for (int i = 0; i < W; ++i) s[i] = q[i] = 0.f;
@@ -124,12 +129,12 @@ stats_bwd_partial(const T* __restrict__ g, const T* __restrict__ x,
   const int rpi = kThreads / tpr;
   const int lane = threadIdx.x % tpr, rr = threadIdx.x / tpr;
   const long long r0 = (long long)blockIdx.x * rows_per_strip;
-  const long long r1 = min((long long)n, r0 + rows_per_strip);
+  const long long r1 = rr < rpi ? min((long long)n, r0 + rows_per_strip) : r0;
   float m[W], iv[W], s[W], q[W], gv[W], xv[W];
 #pragma unroll
   for (int i = 0; i < W; ++i) {
-    m[i] = mean[W * lane + i];
-    iv[i] = inv[W * lane + i];
+    m[i] = rr < rpi ? mean[W * lane + i] : 0.f;
+    iv[i] = rr < rpi ? inv[W * lane + i] : 0.f;
     s[i] = q[i] = 0.f;
   }
   const T* pg = g + W * lane;
@@ -173,7 +178,7 @@ sum_strips(const float* __restrict__ partials, float* __restrict__ out, int n_st
 }
 
 bool valid_shape(int n, int c, int n_strips, int vec) {
-  return n >= 0 && c >= vec && c % vec == 0 && kThreads % (c / vec) == 0 && n_strips >= 1;
+  return n >= 0 && c >= vec && c % vec == 0 && c / vec <= kThreads && n_strips >= 1;
 }
 
 int launch_sum(const float* partials, float* out, int n_strips, int c, cudaStream_t st) {

@@ -30,10 +30,9 @@
 // run. D is ragged (513 = 16*32 + 1): the tail is zero-filled. V must be a
 // multiple of 8 (16-byte staging loads) and at most 320.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "sync_ce_common.cuh"
 
 namespace {
 
@@ -60,29 +59,6 @@ union Smem {
   Staging st;
   float logits[kRows][kLStride];
 };
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// D (16x8 f32) += A (16x16 bf16, row) * B (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 __global__ void __launch_bounds__(kThreads)
 sync_ce_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,

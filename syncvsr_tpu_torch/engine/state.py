@@ -2,8 +2,9 @@
 
 The optax recipe, written out: global-norm clipping, then AdamW whose weight
 decay applies only to leaves whose flax name is exactly ``kernel`` (so the
-stem's ``stem_conv_kernel``, ``cls_token``, norm scales and biases are not
-decayed), under a warmup-cosine schedule. Two generators carry the JAX
+stem's ``stem_conv_kernel``, ``cls_token``, the Conformer's ``pos_bias_u``
+and ``pos_bias_v``, the decoder's ``embedding``, norm scales and biases are
+not decayed), under a warmup-cosine schedule. Two generators carry the JAX
 package's separate RNG streams: ``mixup_gen`` (CPU; augmentation and
 CutMix sampling, seeded ``train.mixup_seed``) and ``dropout_gen`` (on the
 device; dropout masks, seeded ``train.dropout_seed``).
@@ -109,14 +110,20 @@ def create_train_state(config: Config, model: nn.Module, example_batch: Dict[str
                        device: Optional[Union[str, torch.device]] = None) -> TrainState:
     """Optimizer state and generators for ``model`` (moved to ``device``,
     None = the GPU). The torch modules size themselves from the config, so
-    ``example_batch`` only has to be a batch of the model's kind."""
+    ``example_batch`` only has to be a batch of the model's kind: word-level
+    video ``inputs``, or sentence-level ``videos`` with their ``lengths``."""
     dev = resolve_device(device)
     if config.optim.accum_steps > 1 or config.optim.skip_nonfinite:
         raise NotImplementedError("optim.accum_steps > 1 and optim.skip_nonfinite "
                                   "are not ported to PyTorch yet")
-    inputs = example_batch["inputs"]
-    if inputs.ndim != 5:
-        raise ValueError(f"expected video inputs [B, T, H, W, 1], got {tuple(inputs.shape)}")
+    key = "videos" if config.model.task == "sentence" else "inputs"
+    if key not in example_batch or (key == "videos" and "lengths" not in example_batch):
+        raise ValueError(f"a {config.model.task}-level batch needs "
+                         f"{'videos and lengths' if key == 'videos' else 'inputs'}; "
+                         f"got {sorted(example_batch)}")
+    video = example_batch[key]
+    if video.ndim != 5:
+        raise ValueError(f"expected video {key} [B, T, H, W, 1], got {tuple(video.shape)}")
     model.to(dev)
     names, params = zip(*model.named_parameters())
     return TrainState(

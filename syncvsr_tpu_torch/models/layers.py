@@ -29,6 +29,13 @@ def variance_scaling_fan_out_(t: Tensor, fan_out: int) -> Tensor:
     return trunc_normal_(t, std)
 
 
+def lecun_normal_(t: Tensor, fan_in: int) -> Tensor:
+    """flax ``lecun_normal`` (the default kernel init of ``nn.Dense``,
+    ``nn.DenseGeneral`` and ``nn.Conv``): truncated normal of variance
+    1 / fan_in."""
+    return trunc_normal_(t, math.sqrt(1.0 / fan_in) / 0.87962566103423978)
+
+
 def activation(name: str):
     # flax nn.gelu defaults to the tanh approximation
     return {
@@ -62,17 +69,46 @@ def drop_path(x: Tensor, rate: float, det: bool, gen: Optional[torch.Generator])
 
 class Dense(nn.Module):
     """flax ``nn.Dense`` with f32 params: ``weight`` [out, in], ``bias``
-    [out]; input, weight and bias are cast to ``dtype`` before the product."""
+    [out]; input, weight and bias are cast to ``dtype`` before the product.
+    The weight starts truncated-normal at std 0.02, or at flax's default
+    ``lecun_normal`` with ``lecun=True``."""
 
-    def __init__(self, din: int, dout: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, din: int, dout: int, dtype: torch.dtype = torch.float32,
+                 lecun: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.weight = nn.Parameter(trunc_normal_(torch.empty(dout, din)))
+        w = torch.empty(dout, din)
+        self.weight = nn.Parameter(lecun_normal_(w, din) if lecun else trunc_normal_(w))
         self.bias = nn.Parameter(torch.zeros(dout))
 
     def forward(self, x: Tensor) -> Tensor:
         d = self.dtype
         return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
+
+
+class _Affine(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis, computed in f32, emitting ``dtype``;
+    eps 1e-6 (torch's default is 1e-5). The parameters sit in a submodule
+    ``LayerNorm_0``, where flax's wrapper module auto-names its inner
+    ``nn.LayerNorm`` (``.../norm_mha/LayerNorm_0/{scale,bias}``)."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32, eps: float = 1e-6):
+        super().__init__()
+        self.dtype = dtype
+        self.eps = eps
+        self.LayerNorm_0 = _Affine(dim)
+
+    def forward(self, x: Tensor) -> Tensor:
+        p = self.LayerNorm_0
+        y = F.layer_norm(x.float(), (x.shape[-1],), p.weight, p.bias, self.eps)
+        return y.to(self.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -145,3 +181,17 @@ def dot_attention(q: Tensor, k: Tensor, v: Tensor, bias: Optional[Tensor],
     probs = dropout(probs, rate, det, gen).to(dtype)
     out = torch.matmul(probs.float(), v.to(dtype).float().permute(0, 2, 1, 3))
     return out.permute(0, 2, 1, 3).to(dtype)
+
+
+def make_pad_bias(pad_mask: Tensor) -> Tensor:
+    """[B, T] boolean keep-mask -> additive f32 attention bias [B, 1, 1, T]:
+    0 where kept, the f32 minimum where padded."""
+    neg = torch.finfo(torch.float32).min
+    return torch.where(pad_mask[:, None, None, :], 0.0, neg)
+
+
+def causal_bias(t: int, device=None) -> Tensor:
+    """Additive f32 causal mask [1, 1, T, T]: 0 on and below the diagonal,
+    the f32 minimum above it."""
+    keep = torch.ones((t, t), dtype=torch.bool, device=device).tril()
+    return torch.where(keep, 0.0, torch.finfo(torch.float32).min)[None, None]

@@ -14,14 +14,18 @@ def _check_ported(config: Config) -> None:
     """Raise for configurations whose modules the port does not have yet."""
     m = config.model
     missing = []
-    if m.task != "word":
-        missing.append(f"model.task={m.task!r}")
     if m.frontend.kind != "conv3d_resnet":
         missing.append(f"model.frontend.kind={m.frontend.kind!r}")
-    if m.encoder.kind != "transformer":
-        missing.append(f"model.encoder.kind={m.encoder.kind!r}")
-    if not (m.encoder.use_rmsnorm and m.encoder.use_glu):
-        missing.append("a LayerNorm or plain-GELU transformer")
+    if m.task == "word":
+        if m.encoder.kind != "transformer":
+            missing.append(f"model.encoder.kind={m.encoder.kind!r}")
+        if not (m.encoder.use_rmsnorm and m.encoder.use_glu):
+            missing.append("a LayerNorm or plain-GELU transformer")
+    elif m.task == "sentence":
+        if m.encoder.kind != "conformer":
+            missing.append(f"model.encoder.kind={m.encoder.kind!r} for task='sentence'")
+    else:
+        missing.append(f"model.task={m.task!r}")
     if m.remat:
         missing.append("model.remat=True")
     if missing:
@@ -30,14 +34,19 @@ def _check_ported(config: Config) -> None:
 
 
 def build_model(config: Config, device: Optional[Union[str, torch.device]] = None):
-    """The word-level model of ``config`` with seeded random weights
-    (``train.seed``), on ``device`` (None = the GPU)."""
+    """The model of ``config`` (word-level or sentence-level) with seeded
+    random weights (``train.seed``), on ``device`` (None = the GPU)."""
     dev = resolve_device(device)
     _check_ported(config)
-    from syncvsr_tpu_torch.models.word import WordVSRModel
-
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(config.train.seed)
-        model = WordVSRModel(config.model, cutmix_alpha=config.data.cutmix_alpha,
-                             use_cutmix=config.data.use_cutmix)
+        if config.model.task == "sentence":
+            from syncvsr_tpu_torch.models.e2e import SentenceVSRModel
+
+            model = SentenceVSRModel(config.model)
+        else:
+            from syncvsr_tpu_torch.models.word import WordVSRModel
+
+            model = WordVSRModel(config.model, cutmix_alpha=config.data.cutmix_alpha,
+                                 use_cutmix=config.data.use_cutmix)
     return model.to(dev)

@@ -21,6 +21,7 @@ from syncvsr_tpu_torch.models.layers import (
     apply_rope,
     dot_attention,
     drop_path,
+    lecun_normal_,
     rope_angles,
     trunc_normal_,
 )
@@ -30,19 +31,22 @@ Tensor = torch.Tensor
 
 class HeadProjection(nn.Module):
     """flax ``DenseGeneral((heads, head_dim))``: ``weight`` [H, Dh, in],
-    ``bias`` [H, Dh]; [B, T, in] -> [B, T, H, Dh]."""
+    ``bias`` [H, Dh] (none with ``bias=False``); [B, T, in] -> [B, T, H, Dh].
+    The weight starts at std 0.02, or at flax's ``lecun_normal``."""
 
-    def __init__(self, din: int, heads: int, head_dim: int, dtype: torch.dtype):
+    def __init__(self, din: int, heads: int, head_dim: int, dtype: torch.dtype,
+                 bias: bool = True, lecun: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.weight = nn.Parameter(trunc_normal_(torch.empty(heads, head_dim, din)))
-        self.bias = nn.Parameter(torch.zeros(heads, head_dim))
+        w = torch.empty(heads, head_dim, din)
+        self.weight = nn.Parameter(lecun_normal_(w, din) if lecun else trunc_normal_(w))
+        self.bias = nn.Parameter(torch.zeros(heads, head_dim)) if bias else None
 
     def forward(self, x: Tensor) -> Tensor:
         h, dh, din = self.weight.shape
         d = self.dtype
-        y = F.linear(x.to(d), self.weight.to(d).reshape(h * dh, din),
-                     self.bias.to(d).reshape(-1))
+        b = None if self.bias is None else self.bias.to(d).reshape(-1)
+        y = F.linear(x.to(d), self.weight.to(d).reshape(h * dh, din), b)
         return y.reshape(*x.shape[:-1], h, dh)
 
 
@@ -50,10 +54,13 @@ class HeadMerge(nn.Module):
     """flax ``DenseGeneral(out, axis=(-2, -1))``: ``weight`` [out, H, Dh],
     ``bias`` [out]; [B, T, H, Dh] -> [B, T, out]."""
 
-    def __init__(self, heads: int, head_dim: int, dout: int, dtype: torch.dtype):
+    def __init__(self, heads: int, head_dim: int, dout: int, dtype: torch.dtype,
+                 lecun: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.weight = nn.Parameter(trunc_normal_(torch.empty(dout, heads, head_dim)))
+        w = torch.empty(dout, heads, head_dim)
+        self.weight = nn.Parameter(lecun_normal_(w, heads * head_dim) if lecun
+                                   else trunc_normal_(w))
         self.bias = nn.Parameter(torch.zeros(dout))
 
     def forward(self, o: Tensor) -> Tensor:

@@ -36,9 +36,10 @@ def smooth_labels(onehot: Tensor, smoothing: float) -> Tensor:
 
 class SyncHead(nn.Module):
     """Per-frame audio-token head: ``weight`` [A*G*V, D], ``bias`` [A*G*V].
-    On a CUDA tensor the loss runs the fused projection + CE kernel (K1);
-    on a CPU tensor the plain chunked path, as the JAX head dispatches on
-    the backend."""
+    On a CUDA tensor the loss runs the fused projection + CE kernel (K1, or
+    K2 for a wide head); on a CPU tensor the plain (chunked when ``chunk``
+    is given) path, as the JAX head dispatches on the backend. ``chunk`` is
+    the backward's time chunk; the fused path defaults it to min(T, 128)."""
 
     def __init__(self, dim: int, alignment: int, groups: int, vocab: int):
         super().__init__()
@@ -47,15 +48,16 @@ class SyncHead(nn.Module):
         self.weight = nn.Parameter(trunc_normal_(torch.empty(out, dim)))
         self.bias = nn.Parameter(torch.zeros(out))
 
-    def forward(self, features: Tensor, tokens: Tensor) -> Tensor:
+    def forward(self, features: Tensor, tokens: Tensor,
+                chunk: Optional[int] = None) -> Tensor:
         kernel = self.weight.t()  # [D, A*G*V], the flax layout
         if features.is_cuda:
-            bwd_chunk = min(max(features.shape[1], 8), 128)
+            bwd_chunk = chunk or min(max(features.shape[1], 8), 128)
             return fused_sync_cross_entropy(features, kernel, self.bias, tokens,
                                             self.alignment, self.groups, self.vocab,
                                             bwd_chunk)
         return sync_cross_entropy(features, kernel, self.bias, tokens, self.alignment,
-                                  self.groups, self.vocab)
+                                  self.groups, self.vocab, chunk=chunk)
 
 
 class WordVSRModel(nn.Module):

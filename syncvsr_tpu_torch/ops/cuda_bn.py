@@ -43,7 +43,7 @@ def _strips(n: int, c: int) -> int:
 def _check_2d(name: str, *ts: Tensor) -> None:
     """The kernels' contract: matching contiguous, 16-byte aligned [N, C]
     views of one dtype, bf16 or f32, each thread loading 16 bytes (VEC
-    channels) with C / VEC dividing the 256 threads of a block."""
+    channels), one row group at most the 256 threads of a block."""
     if ts[0].dim() != 2:
         raise ValueError(f"{name}: expected an [N, C] view, got {tuple(ts[0].shape)}")
     n, c = ts[0].shape
@@ -51,9 +51,9 @@ def _check_2d(name: str, *ts: Tensor) -> None:
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name}: bf16 or f32 inputs, got {dtype}")
     vec = 16 // ts[0].element_size()
-    if c % vec or 256 % (c // vec):
-        raise ValueError(f"{name}: C={c} must be a multiple of {vec} with C/{vec} "
-                         "dividing 256")
+    if c % vec or c // vec > 256:
+        raise ValueError(f"{name}: C={c} must be a multiple of {vec} and at most "
+                         f"{256 * vec}")
     for t in ts:
         if t.shape != ts[0].shape or t.dtype != dtype:
             raise ValueError(f"{name}: inputs disagree: {tuple(t.shape)} {t.dtype}")

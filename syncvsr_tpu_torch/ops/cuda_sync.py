@@ -1,13 +1,22 @@
 """Fused sync-head projection + cross-entropy on the GPU (port of
 ``syncvsr_tpu/ops/pallas_sync.py``).
 
-``sync_ce_partials`` is kernel K1 (``csrc/sync_ce.cu::sync_ce_fwd``,
-replacing the Pallas ``_kernel``): the forward reduces the per-slot
-softmax-CE to a (sum, count) pair without writing the logits. It mirrors
-the TPU kernel's casts: features and weight go to bf16 before the product,
-the bias stays f32, accumulation is f32. The backward is the chunked
-recompute of ``ops/sync_loss.py`` in plain PyTorch, as the JAX package runs
-``_chunked_bwd`` in XLA, over the original f32 features.
+Two kernels compute the same function, as on the TPU: the forward reduces
+the per-slot softmax-CE to a (sum, count) pair without writing the logits,
+with the TPU kernels' casts (features and weight to bf16 before the
+product, the bias f32, f32 accumulation).
+
+* K1, ``sync_ce_mono_partials`` (``csrc/sync_ce.cu::sync_ce_fwd``,
+  replacing the Pallas ``_kernel``): grid (row tile, slot);
+* K2, ``sync_ce_split_partials`` (``csrc/sync_ce_split.cu::
+  sync_ce_split_fwd``, replacing ``_kernel_split``): grid over row tiles,
+  the slots a loop inside the block, the x tile read once.
+
+``sync_ce_partials`` picks between them by the JAX package's rule
+(``_pallas_forward``): K2 when the padded bf16 weight exceeds 4 MiB. The
+backward is the chunked recompute of ``ops/sync_loss.py`` in plain
+PyTorch, as the JAX package runs ``_chunked_bwd`` in XLA, over the original
+f32 features.
 """
 
 from __future__ import annotations
@@ -25,14 +34,27 @@ from syncvsr_tpu_torch.utils import kernels
 
 Tensor = torch.Tensor
 
-_ROWS = 32        # rows per block of sync_ce_fwd
+_ROWS = 32        # rows per block of both kernels
 _MAX_VOCAB = 320  # vocabulary one block holds per slot
+# weights larger than this (bf16, D and V padded to 128) take K2
+# (syncvsr_tpu/ops/pallas_sync.py::_MONO_W_BYTES)
+_MONO_W_BYTES = 4 * 1024 * 1024
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def uses_split_kernel(d: int, slots: int, vocab: int) -> bool:
+    """The JAX dispatch rule: K2 when the padded bf16 weight exceeds 4 MiB."""
+    return _round_up(d, 128) * slots * _round_up(vocab, 128) * 2 > _MONO_W_BYTES
 
 
 def sync_ce_partials_plain(x: Tensor, w: Tensor, b: Tensor, tok: Tensor
                            ) -> Tuple[Tensor, Tensor]:
     """x [N, D], w [D, S*V], b [S*V], tok [N, S] (< 0 = ignore) ->
-    f32 (sum of CE over valid slots, valid count)."""
+    f32 (sum of CE over valid slots, valid count). The plain version of
+    both K1 and K2."""
     n = x.shape[0]
     s = tok.shape[1]
     xb = x.to(torch.bfloat16).float()
@@ -47,42 +69,82 @@ def sync_ce_partials_plain(x: Tensor, w: Tensor, b: Tensor, tok: Tensor
     return ce.sum(), valid.sum().float()
 
 
-def sync_ce_partials(x: Tensor, w: Tensor, b: Tensor, tok: Tensor
-                     ) -> Tuple[Tensor, Tensor]:
-    """K1 on CUDA tensors (the plain version on CPU tensors); same contract
-    as sync_ce_partials_plain."""
-    if not x.is_cuda:
-        return sync_ce_partials_plain(x, w, b, tok)
+def _kernel_operands(name: str, x: Tensor, w: Tensor, b: Tensor, tok: Tensor):
+    """Check the shapes both kernels take; returns (bf16 x, bf16 w, f32 b,
+    int32 tok, n, d, slots, vocab), contiguous."""
     n, d = x.shape
     s = tok.shape[1]
     sv = w.shape[1]
     if w.shape[0] != d or sv % s or b.shape != (sv,) or tok.shape[0] != n:
-        raise ValueError(f"sync_ce_partials: shapes x {tuple(x.shape)}, w {tuple(w.shape)}, "
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"b {tuple(b.shape)}, tok {tuple(tok.shape)} disagree")
     vocab = sv // s
     if vocab > _MAX_VOCAB or vocab % 8:
-        raise ValueError(f"sync_ce_partials: vocab {vocab} per slot must be a multiple "
+        raise ValueError(f"{name}: vocab {vocab} per slot must be a multiple "
                          f"of 8 and at most {_MAX_VOCAB}")
     if not (w.is_cuda and b.is_cuda and tok.is_cuda):
-        raise ValueError("sync_ce_partials: all inputs must be on the GPU")
+        raise ValueError(f"{name}: all inputs must be on the GPU")
     xb = x.to(torch.bfloat16).contiguous()
     wb = w.to(torch.bfloat16).contiguous()
     if wb.data_ptr() % 16:
-        raise ValueError("sync_ce_partials: the weight is not 16-byte aligned")
-    bf = b.float().contiguous()
-    ti = tok.to(torch.int32).contiguous()
+        raise ValueError(f"{name}: the weight is not 16-byte aligned")
+    return (xb, wb, b.float().contiguous(), tok.to(torch.int32).contiguous(),
+            n, d, s, vocab)
+
+
+def sync_ce_mono_partials(x: Tensor, w: Tensor, b: Tensor, tok: Tensor
+                          ) -> Tuple[Tensor, Tensor]:
+    """K1 on CUDA tensors (the plain version on CPU tensors); same contract
+    as sync_ce_partials_plain."""
+    if not x.is_cuda:
+        return sync_ce_partials_plain(x, w, b, tok)
+    xb, wb, bf, ti, n, d, s, vocab = _kernel_operands("sync_ce_mono_partials", x, w, b, tok)
     tiles = -(-n // _ROWS)
     partials = torch.empty((tiles * s, 2), device=x.device, dtype=torch.float32)
     status = kernels.library().sync_ce_fwd(
         xb.data_ptr(), wb.data_ptr(), bf.data_ptr(), ti.data_ptr(), partials.data_ptr(),
         n, d, s, vocab, torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(status, "sync_ce_fwd")
-    sync_ce_partials.launches += 1
+    sync_ce_mono_partials.launches += 1
     sums = partials.sum(0)
     return sums[0], sums[1]
 
 
-sync_ce_partials.launches = 0
+sync_ce_mono_partials.launches = 0
+
+
+def sync_ce_split_partials(x: Tensor, w: Tensor, b: Tensor, tok: Tensor
+                           ) -> Tuple[Tensor, Tensor]:
+    """K2 on CUDA tensors (the plain version on CPU tensors); same contract
+    as sync_ce_partials_plain. D must be a multiple of 8; the kernel refuses
+    a D whose x tile does not fit a block's shared memory (D > 2944)."""
+    if not x.is_cuda:
+        return sync_ce_partials_plain(x, w, b, tok)
+    xb, wb, bf, ti, n, d, s, vocab = _kernel_operands("sync_ce_split_partials", x, w, b, tok)
+    if d % 8:
+        raise ValueError(f"sync_ce_split_partials: D={d} must be a multiple of 8")
+    if xb.data_ptr() % 16:
+        raise ValueError("sync_ce_split_partials: the features are not 16-byte aligned")
+    partials = torch.empty((-(-n // _ROWS), 2), device=x.device, dtype=torch.float32)
+    status = kernels.library().sync_ce_split_fwd(
+        xb.data_ptr(), wb.data_ptr(), bf.data_ptr(), ti.data_ptr(), partials.data_ptr(),
+        n, d, s, vocab, torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(status, "sync_ce_split_fwd")
+    sync_ce_split_partials.launches += 1
+    sums = partials.sum(0)
+    return sums[0], sums[1]
+
+
+sync_ce_split_partials.launches = 0
+
+
+def sync_ce_partials(x: Tensor, w: Tensor, b: Tensor, tok: Tensor
+                     ) -> Tuple[Tensor, Tensor]:
+    """K1 or K2 by the JAX rule (``uses_split_kernel``); same contract as
+    sync_ce_partials_plain."""
+    s = tok.shape[1]
+    split = uses_split_kernel(x.shape[1], s, w.shape[1] // s)
+    return (sync_ce_split_partials if split else sync_ce_mono_partials)(x, w, b, tok)
 
 
 class _FusedSyncCE(torch.autograd.Function):

@@ -8,12 +8,17 @@ matmuls straight from the uint8 source, with the flip folded into the x
 coordinates as a mirrored ramp, the clip-mean fill and the normalisation.
 
 Eval: ``to_float`` -> ``center_crop_resize`` -> ``normalize``.
+
+The word-level pipeline (``build_word_aug``, ``build_eval_transform``)
+reads ``inputs``; the sentence-level one (``build_sentence_aug``,
+``build_sentence_eval_transform``) reads ``videos`` and bounds each clip's
+time masks by its true length.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -74,9 +79,12 @@ def sample_train_aug(gen: torch.Generator, b: int, t: int, h: int, w: int,
                      scale: Tuple[float, float] = (0.6, 1.0),
                      ratio: Tuple[float, float] = (3 / 4, 4 / 3),
                      hflip_prob: float = 0.5, time_mask_span: int = 15,
-                     time_mask_n: int = 1) -> Dict[str, Tensor]:
+                     time_mask_n: int = 1, lengths: Optional[Tensor] = None
+                     ) -> Dict[str, Tensor]:
     """Per-clip crop box (ch, cw, y0, x0), flip [B] bool and time-mask hits
-    [B, T] bool, as CPU tensors."""
+    [B, T] bool, as CPU tensors. A mask's start is drawn below
+    ``max(limit - span, 1)``, the limit being each clip's length where
+    ``lengths`` [B] is given, else T."""
     def u():
         return torch.rand((b,), generator=gen, dtype=torch.float32)
 
@@ -90,9 +98,11 @@ def sample_train_aug(gen: torch.Generator, b: int, t: int, h: int, w: int,
     flip = u() < hflip_prob
     frames = torch.arange(t)[None, :]
     hit = torch.zeros((b, t), dtype=torch.bool)
+    limit = (torch.full((b,), t, dtype=torch.float32) if lengths is None
+             else lengths.detach().cpu().float())
     for _ in range(time_mask_n):
         span = torch.randint(0, time_mask_span + 1, (b,), generator=gen)
-        start = (u() * torch.clamp(t - span, min=1).float()).long()
+        start = (u() * torch.clamp(limit - span, min=1.0)).long()
         hit |= (frames >= start[:, None]) & (frames < (start + span)[:, None])
     return {"ch": ch, "cw": cw, "y0": y0, "x0": x0, "flip": flip, "hit": hit}
 
@@ -124,10 +134,11 @@ def fused_train_aug(gen: torch.Generator, videos: Tensor, out_size: int,
                     ratio: Tuple[float, float] = (3 / 4, 4 / 3),
                     hflip_prob: float = 0.5, time_mask_span: int = 15,
                     time_mask_n: int = 1, mean: float = 0.421, std: float = 0.165,
+                    lengths: Optional[Tensor] = None,
                     dtype: torch.dtype = torch.bfloat16) -> Tensor:
     b, t, h, w, _ = videos.shape
     p = sample_train_aug(gen, b, t, h, w, scale, ratio, hflip_prob, time_mask_span,
-                         time_mask_n)
+                         time_mask_n, lengths)
     return fused_train_aug_apply(videos, p, out_size, mean, std, dtype)
 
 
@@ -157,5 +168,34 @@ def build_eval_transform(data_cfg):
             return batch
         v = center_crop_resize(to_float(videos), data_cfg.crop_size)
         return dict(batch, inputs=normalize(v, data_cfg.mean, data_cfg.std))
+
+    return transform
+
+
+def build_sentence_aug(data_cfg):
+    """Train-time augmentation of the LRS sentence workload (RandomResizedCrop
+    scale 0.7-1.0, flip 0.5, two time masks of up to 10 frames each bounded
+    by the clip's length when ``data.adaptive_time_mask``, clip-mean fill,
+    normalise), the ``aug_fn`` of engine.build_train_step."""
+
+    def aug(gen: torch.Generator, batch):
+        videos = batch["videos"]
+        adaptive = data_cfg.adaptive_time_mask
+        v = fused_train_aug(
+            gen, videos, data_cfg.crop_size, (0.7, 1.0), hflip_prob=0.5,
+            time_mask_span=10 if adaptive else 0, time_mask_n=2 if adaptive else 0,
+            mean=data_cfg.mean, std=data_cfg.std, lengths=batch.get("lengths"))
+        return dict(batch, videos=v)
+
+    return aug
+
+
+def build_sentence_eval_transform(data_cfg, dataset: str = "lrs3"):
+    """Eval: LRS3 resizes the whole frame to the crop size, LRS2 center-crops."""
+    resize_first = dataset != "lrs2"
+
+    def transform(batch):
+        v = center_crop_resize(to_float(batch["videos"]), data_cfg.crop_size, resize_first)
+        return dict(batch, videos=normalize(v, data_cfg.mean, data_cfg.std))
 
     return transform

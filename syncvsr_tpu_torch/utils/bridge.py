@@ -12,9 +12,12 @@ conv ``kernel``             (T)HWIO                         ``weight`` OI(T)HW
 Dense ``kernel``            [in, out]                       ``weight`` [out, in]
 DenseGeneral wq/wk/wv       [in, H, Dh]                     ``weight`` [H, Dh, in]
 DenseGeneral ``wo``         [H, Dh, out]                    ``weight`` [out, H, Dh]
+depthwise conv ``dw``       (K, 1, C)                       ``weight`` [C, 1, K]
 ``stem_conv_kernel``        (5, 7, 7, 1, C) THWIO           same name, OITHW
 norm ``scale``              [C]                             ``weight`` [C]
-``bias``, ``cls_token``     any                             same
+``bias``, ``cls_token``,    any                             same
+``pos_bias_u/v``,
+``embedding``
 batch_stats ``mean/var``    [C]                             ``running_mean/var``
 ==========================  ==============================  ===================
 
@@ -34,6 +37,9 @@ _STATS_INV = {v: k for k, v in _STATS.items()}
 # flax conv layouts -> torch: move the output axis first, the input axis second
 _TO_TORCH = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
 _TO_FLAX = {n: tuple(np.argsort(p)) for n, p in _TO_TORCH.items()}
+# leaves with the same name and layout on both sides (never decayed: only
+# ``kernel`` is)
+_SAME = ("bias", "cls_token", "pos_bias_u", "pos_bias_v", "embedding")
 
 
 def flax_leaf(key: str, ndim: int) -> str:
@@ -54,14 +60,19 @@ def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
 
 
 def _kernel_to_torch(path: Tuple[str, ...], a: np.ndarray) -> np.ndarray:
-    if a.ndim == 3:  # DenseGeneral
-        return a.transpose(2, 0, 1) if path[-2] == "wo" else a.transpose(1, 2, 0)
+    if a.ndim == 3:  # the depthwise conv, or a DenseGeneral
+        module = path[-2]
+        if module == "dw":
+            return a.transpose(2, 1, 0)
+        return a.transpose(2, 0, 1) if module == "wo" else a.transpose(1, 2, 0)
     return a.transpose(_TO_TORCH[a.ndim])
 
 
 def _kernel_to_flax(key: str, a: np.ndarray) -> np.ndarray:
     if a.ndim == 3:
         module = key.rsplit(".", 2)[-2]
+        if module == "dw":
+            return a.transpose(2, 1, 0)
         return a.transpose(1, 2, 0) if module == "wo" else a.transpose(2, 0, 1)
     return a.transpose(_TO_FLAX[a.ndim])
 
@@ -78,7 +89,7 @@ def from_flax(params: Dict[str, Any], batch_stats: Dict[str, Any] | None = None
             name, a = leaf, a.transpose(_TO_TORCH[5])
         elif leaf == "scale":
             name = "weight"
-        elif leaf in ("bias", "cls_token"):
+        elif leaf in _SAME:
             name = leaf
         else:
             raise KeyError(f"no torch layout for flax leaf {'/'.join(path)}")
@@ -105,7 +116,7 @@ def to_flax(state_dict: Dict[str, Any]) -> Tuple[Dict[str, Any], Dict[str, Any]]
             tree = params
             if name == "kernel":
                 a = _kernel_to_flax(key, a)
-        elif leaf in ("bias", "cls_token"):
+        elif leaf in _SAME:
             tree, name = params, leaf
         else:
             raise KeyError(f"no flax layout for torch entry {key}")

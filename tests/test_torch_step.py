@@ -16,7 +16,16 @@ from syncvsr_tpu.ops.image import fused_train_aug
 from syncvsr_tpu_torch.engine import build_eval_step, build_train_step, create_train_state
 from syncvsr_tpu_torch.ops.image import fused_train_aug_apply
 from syncvsr_tpu_torch.utils.bridge import to_flax
-from torch_parity import close, configs, jax_aug_sample, to_np, torch_model, tt, uint8_batch
+from torch_parity import (
+    JitInit,
+    close,
+    configs,
+    jax_aug_sample,
+    to_np,
+    torch_model,
+    tt,
+    uint8_batch,
+)
 
 AUG_KEY = jax.random.PRNGKey(7)
 METRICS = ("loss", "loss_word", "loss_audio", "learning_rate", "grad_norm")
@@ -53,7 +62,8 @@ def runs():
 
     model_j = jax_build_model(cfg_j)
     init = dict(batch, inputs=np.zeros((b, t, h, h, 1), np.float32))
-    state_j = jax_create_train_state(cfg_j, model_j, {k: jnp.asarray(v) for k, v in init.items()})
+    state_j = jax_create_train_state(cfg_j, JitInit(model_j),
+                                     {k: jnp.asarray(v) for k, v in init.items()})
     model = torch_model(cfg_t, to_np(state_j.params), to_np(state_j.batch_stats))
     state = create_train_state(cfg_t, model, batch, device="cpu")
 

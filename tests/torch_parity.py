@@ -1,6 +1,7 @@
 """Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
-one tiny ``lrw_video`` configuration built in both packages, the JAX model's
-variables, and a port model carrying the same weights through the bridge."""
+a tiny ``lrw_video`` and a tiny ``lrs3`` configuration built in both
+packages, the JAX model's variables, and a port model carrying the same
+weights through the bridge."""
 
 import jax
 import jax.numpy as jnp
@@ -25,10 +26,29 @@ TINY = {
 }
 
 
+# the lrs3 sentence model at toy widths: the encoder (32) and decoder (16)
+# widths differ, so proj_decoder is built
+SENTENCE_TINY = {
+    "model.encoder.layers": 2, "model.encoder.dim": 32, "model.encoder.heads": 2,
+    "model.decoder.layers": 1, "model.decoder.dim": 16, "model.decoder.heads": 2,
+    "model.decoder.hidden": 24, "model.frontend.resnet_width": 8, "model.labels": 11,
+    "model.codec.audio_vocab_size": 13, "model.dtype": "float32",
+    "model.encoder.mlp_dropout": 0.0, "model.encoder.msa_dropout": 0.0,
+    "model.decoder.dropout": 0.0, "data.batch_size": 2, "data.crop_size": 16,
+    "optim.total_steps": 10, "optim.warmup_steps": 2,
+}
+
+
 def configs(**over):
     """(JAX config, port config) of the tiny lrw_video model."""
     o = dict(TINY, **over)
     return jcfg.lrw_video_config().override(**o), tcfg.lrw_video_config().override(**o)
+
+
+def sentence_configs(**over):
+    """(JAX config, port config) of the tiny lrs3 model."""
+    o = dict(SENTENCE_TINY, **over)
+    return jcfg.lrs3_config().override(**o), tcfg.lrs3_config().override(**o)
 
 
 def to_np(tree):
@@ -42,6 +62,19 @@ def jax_model_and_vars(cfg_j, batch):
          "dropout": jax.random.PRNGKey(2)}, **b, det=True))(
         {k: jnp.asarray(v) for k, v in batch.items()})
     return model, to_np(variables["params"]), to_np(variables["batch_stats"])
+
+
+class JitInit:
+    """A flax model whose ``init`` is jitted, for the JAX package's
+    ``create_train_state`` (flax runs an un-jitted init op by op: ~35 s of
+    the CPU test run for the sentence model)."""
+
+    def __init__(self, model):
+        self.apply = model.apply
+        self._init = jax.jit(model.init, static_argnames="det")
+
+    def init(self, rngs, **batch):
+        return self._init(rngs, **batch)
 
 
 def torch_model(cfg_t, params, batch_stats):
@@ -61,11 +94,17 @@ def close(actual, expected, rtol, atol, what=""):
                                err_msg=what)
 
 
-def jax_aug_sample(key, b, t, h, w, data_cfg):
+def jax_aug_sample(key, b, t, h, w, data_cfg, sentence=False, lengths=None):
     """The values ``syncvsr_tpu.ops.image.fused_train_aug`` draws from ``key``
     (its sampling lines, replayed), as numpy arrays for the port's
-    ``fused_train_aug_apply``."""
+    ``fused_train_aug_apply``: with the word recipe of ``data_cfg``, or with
+    ``sentence`` the one of ``build_sentence_aug`` (time masks bounded by
+    ``lengths``)."""
     scale, ratio = data_cfg.rrc_scale, (3 / 4, 4 / 3)
+    hflip, span_max, n_masks = (data_cfg.hflip_prob, data_cfg.time_mask_window,
+                                data_cfg.time_mask_stride)
+    if sentence:
+        scale, hflip, span_max, n_masks = (0.7, 1.0), 0.5, 10, 2
     r_area, r_ratio, r_y, r_x, r_flip, r_tm = jax.random.split(key, 6)
     area = jax.random.uniform(r_area, (b,), minval=scale[0], maxval=scale[1]) * (h * w)
     log_r = jax.random.uniform(r_ratio, (b,), minval=jnp.log(ratio[0]),
@@ -75,14 +114,15 @@ def jax_aug_sample(key, b, t, h, w, data_cfg):
     ch = jnp.clip(jnp.sqrt(area / aspect), 1, h)
     y0 = jax.random.uniform(r_y, (b,)) * (h - ch)
     x0 = jax.random.uniform(r_x, (b,)) * (w - cw)
-    flip = jax.random.bernoulli(r_flip, data_cfg.hflip_prob, (b,))
+    flip = jax.random.bernoulli(r_flip, hflip, (b,))
     frames = jnp.arange(t)[None, :]
     hit = jnp.zeros((b, t), bool)
-    for _ in range(data_cfg.time_mask_stride):
+    limit = (jnp.full((b,), t) if lengths is None else jnp.asarray(lengths)).astype(jnp.float32)
+    for _ in range(n_masks):
         r_span, r_start, r_tm = jax.random.split(r_tm, 3)
-        span = jax.random.randint(r_span, (b,), 0, data_cfg.time_mask_window + 1)
+        span = jax.random.randint(r_span, (b,), 0, span_max + 1)
         start = (jax.random.uniform(r_start, (b,))
-                 * jnp.maximum(jnp.full((b,), t, jnp.float32) - span, 1)).astype(jnp.int32)
+                 * jnp.maximum(limit - span, 1)).astype(jnp.int32)
         hit |= (frames >= start[:, None]) & (frames < (start + span)[:, None])
     out = {"ch": ch, "cw": cw, "y0": y0, "x0": x0, "flip": flip, "hit": hit}
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
