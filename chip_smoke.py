@@ -13,9 +13,11 @@ non-zero before the last line is printed:
    registers / shared memory / spills;
 3. kernels: each kernel against its plain PyTorch version at the shapes
    its train steps give it (K1 at ``lrw_video``'s sync head, K2 at
-   ``lrs3``'s and at a ragged row count, K3/K4 at every BatchNorm shape of
-   both steps), with its time (CUDA events, warm, many launches) beside its
-   bound, the plain version's time and one PyTorch library call's;
+   ``lrs3``'s and at ``SPLIT_CASES``, K3/K4 at every BatchNorm shape of
+   both steps, K4 also at ``BN_EXTRA``; K2 and K4 twice, bitwise), with its
+   time (``ms``: CUDA events around 20 warm back-to-back calls of the
+   wrapper, host included) beside its bound, the plain version's time and
+   one PyTorch library call's; K3/K4 per shape too;
 4. reference: two train steps of a small f32 model on the card (through
    the kernels) against the same steps on the CPU (the plain versions),
    for ``lrw_video`` and for ``lrs3`` (a 768-wide Conformer, so the sync
@@ -25,10 +27,14 @@ non-zero before the last line is printed:
    96, 29 uint8 96x112 frames; ``lrs3``: batch 8, 160 uint8 128x128 frames,
    12-layer Conformer + 6-layer decoder; bf16, augmentation and dropout as
    configured), 3 warm-up and two windows of 5 timed steps with the
-   kernels' launches counted from 0, then one eval step (and, with
-   ``--profile DIR``, 3 profiled steps: device time by kernel group and the
-   device's idle share);
-6. the ``kernels`` JSON line, the card line and the ``ok`` line.
+   kernels' launches counted from 0, then one eval step;
+6. profiler windows, after every timing above (a process that torch.profiler
+   has traced can pay more host time a launch from then on): each kernel's
+   own device time (``device_ms``) over the calls phase 3 timed, K2 and K4
+   held to one kernel a call; with ``--profile DIR``, 3 profiled steps of
+   each path (device time by kernel group and the device's idle share);
+   then K4 at the Conformer's shape timed again, beside its phase-3 time;
+7. the ``kernels`` JSON line, the card line and the ``ok`` line.
 """
 
 import json
@@ -132,43 +138,101 @@ def bn_shapes():
             "lrs3": trunk_bn_shapes(lrs3, LRS3_FRAMES) + [conformer]}
 
 
-def check_sync(torch, dev, kind):
+def device_ms(torch, fn, names, iters=20):
+    """(ms, own launches per call, device kernels per call, source): the
+    device time per call of the kernels whose names hold one of ``names``,
+    with no host time in it, from a torch.profiler window over ``iters``
+    warm calls. Where the profiler traces no device time, the time is that
+    of CUDA-graph replay of the call (all the kernels it makes) and the
+    launch counts are None; so it is where the window traced some of the
+    calls' kernels and not others."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    key = ("self_device_time_total" if avgs and hasattr(avgs[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    dev_events = [e for e in avgs if e.device_type == DeviceType.CUDA and getattr(e, key) > 0]
+    own = [e for e in dev_events if any(n in e.key for n in names)]
+    # a window that lost kernel records counts a fraction of a launch a call
+    if own and sum(e.count for e in own) % iters == 0:
+        return (sum(getattr(e, key) for e in own) / 1e3 / iters,
+                sum(e.count for e in own) / iters,
+                sum(e.count for e in dev_events) / iters, "profiler")
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(torch, graph.replay, iters), None, None, "graph replay"
+
+
+# K2's cases (N, D, V, every token ignored): lrs3's shape first (timed),
+# then ragged row counts, a D that is no multiple of the 64-deep stage, a
+# vocabulary below the 320 columns a block holds, and no valid token
+SPLIT_CASES = [(8 * 160, 768, 320, False), (1000, 768, 320, False), (33, 768, 320, False),
+               (1, 768, 320, False), (8 * 160, 776, 320, False), (8 * 160, 768, 256, False),
+               (8 * 160, 768, 320, True)]
+
+
+def check_sync(torch, dev, kind, later):
     """K1 (``kind`` "mono", at lrw_video's sync head) or K2 ("split", at
-    lrs3's, and at a ragged row count) against their plain version."""
+    lrs3's and at ``SPLIT_CASES``) against their plain version; K2 also
+    twice on the same inputs, bitwise. Appends to ``later`` the profiler
+    window that fills the entry's ``device_ms``."""
     from syncvsr_tpu_torch.ops import cuda_sync
 
+    s = 8                                        # A*G slots of the vq codec
     if kind == "mono":
-        name, fn, d, rows = "K1 sync_ce_fwd", cuda_sync.sync_ce_mono_partials, 513, [29 * 96]
+        name, fn, own = "K1 sync_ce_fwd", cuda_sync.sync_ce_mono_partials, "sync_ce_kernel"
+        cases = [(29 * 96, 513, 320, False)]
     else:
-        name, fn, d, rows = ("K2 sync_ce_split_fwd", cuda_sync.sync_ce_split_partials, 768,
-                             [8 * LRS3_FRAMES, 1000])
-    s, v = 8, 320                                # A*G slots of the vq codec's vocab
-    if cuda_sync.uses_split_kernel(d, s, v) != (kind == "split"):
-        raise AssertionError(f"{name}: the dispatch rule does not pick it at D={d}")
+        name, fn, own = ("K2 sync_ce_split_fwd", cuda_sync.sync_ce_split_partials,
+                         "sync_ce_split_kernel")
+        cases = SPLIT_CASES
+    n0, d0, v0, _ = cases[0]
+    if cuda_sync.uses_split_kernel(d0, s, v0) != (kind == "split"):
+        raise AssertionError(f"{name}: the dispatch rule does not pick it at D={d0}")
     g = torch.Generator(device=dev).manual_seed(0)
-    w = torch.randn(d, s * v, device=dev, generator=g) * 0.05
-    b = torch.randn(s * v, device=dev, generator=g) * 0.1
-    wb = w.to(torch.bfloat16)
     worst = 0.0
-    for n in rows:
+    for n, d, v, ignored in cases:
+        w = torch.randn(d, s * v, device=dev, generator=g) * 0.05
+        b = torch.randn(s * v, device=dev, generator=g) * 0.1
         x = torch.randn(n, d, device=dev, generator=g)
         tok = torch.randint(0, v, (n, s), device=dev, generator=g, dtype=torch.int32)
         tok[torch.rand(n, s, device=dev, generator=g) < 0.1] = -1
-        xb = x.to(torch.bfloat16)                # the kernel's operand types
+        if ignored:
+            tok.fill_(-1)
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)   # the kernel's operand types
         ce, cnt = fn(xb, wb, b, tok)
         ce_p, cnt_p = cuda_sync.sync_ce_partials_plain(xb, wb, b, tok)
         torch.cuda.synchronize()
         err = abs(float(ce) - float(ce_p))
         worst = max(worst, err)
         # same bf16 operands, f32 accumulation in other orders: ~1e-8
-        # relative expected on sums of ~1e4 terms; 1e-5 leaves room
-        tol = 1e-5 * abs(float(ce_p))
-        log(f"{name} [{n}, {d}] x [{d}, {s}x{v}]: ce_sum {float(ce):.6f} vs plain "
-            f"{float(ce_p):.6f}, |err| {err:.3e} (tol {tol:.3e}); count {float(cnt):.0f} vs "
-            f"{float(cnt_p):.0f}")
+        # relative expected on sums of ~1e4 terms; 1e-5 leaves room (1e-6
+        # absolute where the sum is 0)
+        tol = 1e-5 * abs(float(ce_p)) if float(ce_p) else 1e-6
+        log(f"{name} [{n}, {d}] x [{d}, {s}x{v}]{' all ignored' if ignored else ''}: ce_sum "
+            f"{float(ce):.6f} vs plain {float(ce_p):.6f}, |err| {err:.3e} (tol {tol:.3e}); "
+            f"count {float(cnt):.0f} vs {float(cnt_p):.0f}")
         if not (err <= tol and float(cnt) == float(cnt_p) == float((tok >= 0).sum())):
-            raise AssertionError(f"{name} disagrees with its plain version at N={n}")
-        if n == rows[0]:                         # the train step's shape: time it
+            raise AssertionError(f"{name} disagrees with its plain version at N={n}, D={d}, "
+                                 f"V={v}")
+        if kind == "split":
+            again = fn(xb, wb, b, tok)
+            if not (torch.equal(again[0], ce) and torch.equal(again[1], cnt)):
+                raise AssertionError(f"{name}: two calls on the same inputs differ at N={n}")
+        if (n, d, v, ignored) == cases[0]:        # the train step's shape: time it
             args = (xb, wb, b, tok)
             ms = cuda_ms(torch, lambda: fn(*args))
             plain = cuda_ms(torch, lambda: cuda_sync.sync_ce_partials_plain(*args))
@@ -176,51 +240,97 @@ def check_sync(torch, dev, kind):
             lib = library_ms(torch, lambda: torch.nn.functional.cross_entropy(
                 torch.addmm(b16, xb, wb).reshape(n * s, v).float(), tok_l, ignore_index=-1,
                 reduction="sum"), "cross_entropy(addmm)")
-            parts = -(-n // 32) * (s if kind == "mono" else 1)
+            parts = -(-n // 32) * s if kind == "mono" else -(-n // 64) * s
             nbytes = n * d * 2 + d * s * v * 2 + s * v * 4 + n * s * 4 + parts * 2 * 4
             bound, by = bound_ms(2 * n * d * s * v, PEAK_BF16_FLOPS, nbytes)
-            log(f"  kernel_ms {ms:.4f}  plain_ms {plain:.4f}  library_ms {lib}  "
-                f"bound_ms {bound:.4f} ({by})")
+            log(f"  kernel_ms {ms:.5f}  plain_ms {plain:.5f}  library_ms {lib}  "
+                f"bound_ms {bound:.5f} ({by})")
+            timed = (n, d, args)
     src, line = (("sync_ce.cu", 36) if kind == "mono" else ("sync_ce_split.cu", 66))
-    return {"name": name.split()[1], "route": "cuda",
-            "source": f"syncvsr_tpu_torch/csrc/{src}",
-            "replaces": f"syncvsr_tpu/ops/pallas_sync.py:{line}", "launches": 0,
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound,
-            "bound_by": by, "library_ms": lib}
+    entry = {"name": name.split()[1], "route": "cuda",
+             "source": f"syncvsr_tpu_torch/csrc/{src}",
+             "replaces": f"syncvsr_tpu/ops/pallas_sync.py:{line}", "launches": 0,
+             "max_abs_err": worst, "ms": ms, "device_ms": None, "plain_ms": plain,
+             "bound_ms": bound, "bound_by": by, "library_ms": lib}
+
+    def profiled():
+        n, d, args = timed
+        dev_ms, own_calls, dev_calls, src = device_ms(torch, lambda: fn(*args), (own,))
+        log(f"{name} [{n}, {d}]: device_ms {dev_ms:.5f} ({src}; {own_calls} own and "
+            f"{dev_calls} device kernels a call)")
+        if kind == "split" and own_calls not in (None, 1):
+            raise AssertionError(f"{name}: {own_calls} kernel launches a call, expected 1")
+        entry["device_ms"] = dev_ms
+
+    later.append(profiled)
+    return entry
 
 
-def check_bn(torch, dev):
-    """K3 and K4 at every BatchNorm shape of both train steps, in bf16. Each
-    entry's times are per step of the lrs3 step (the per-shape times
-    weighted by the launches per step); ``paths`` has both steps'."""
+# K4's extra cases beside the paths' shapes: a ragged N, a one-strip call,
+# and the stem's shape on 2880 strips (5.5 waves of the last-block fold)
+BN_EXTRA = [(1283, 768, None), (1, 768, None), (2949120, 64, 2880)]
+
+
+def bn_inputs(torch, dev, n, c):
+    """(x, g, mean, inv) of a BatchNorm at [n, c]: bf16 x and g from a seed
+    of the shape, x's f32 batch mean and inverse standard deviation."""
+    gen = torch.Generator(device=dev).manual_seed(1000 * n + c)
+    x = (torch.randn(n, c, device=dev, generator=gen) * 2 + 0.5).to(torch.bfloat16)
+    gy = torch.randn(n, c, device=dev, generator=gen).to(torch.bfloat16)
+    x32 = x.float()
+    return x, gy, x32.mean(0), torch.rsqrt(x32.var(0, unbiased=False) + 1e-5)
+
+
+def check_bn(torch, dev, later):
+    """K3 and K4 at every BatchNorm shape of both train steps, in bf16, and
+    K4 at ``BN_EXTRA``; K4 twice on the same inputs, bitwise. Each entry's
+    times are per step of the lrs3 step (the per-shape times weighted by
+    the launches per step); ``paths`` has both steps' sums and their
+    per-shape rows. Appends to ``later`` the profiler windows of every
+    timed shape, then the job that fills the entries' ``device_ms``.
+    Returns (the two entries, a function that times K4 at the Conformer's
+    shape again)."""
     from syncvsr_tpu_torch.ops import cuda_bn
 
-    g = torch.Generator(device=dev).manual_seed(1)
     paths = bn_shapes()
-    measured = {}                                # (kind, n, c) -> (err, ms, plain, lib, bound, by)
-    for n, c in sorted({(n, c) for shapes in paths.values() for n, c, _ in shapes}):
-        x = (torch.randn(n, c, device=dev, generator=g) * 2 + 0.5).to(torch.bfloat16)
-        gy = torch.randn(n, c, device=dev, generator=g).to(torch.bfloat16)
+    path_shapes = {(n, c) for shapes in paths.values() for n, c, _ in shapes}
+    cases = sorted((n, c, None) for n, c in path_shapes) + BN_EXTRA
+    conformer = paths["lrs3"][-1][:2]
+    measured = {}                                # (kind, n, c) -> per-shape numbers
+    for n, c, strips in cases:
+        timed = (n, c) in path_shapes and strips is None
+        x, gy, mean, inv = bn_inputs(torch, dev, n, c)
         x32 = x.float()
-        mean = x32.mean(0)
-        inv = torch.rsqrt(x32.var(0, unbiased=False) + 1e-5)
         xhat_abs = ((x32 - mean) * inv).abs()
+        bwd = ((lambda *a: cuda_bn.bn_bwd_stats(*a, strips=strips)) if strips
+               else cuda_bn.bn_bwd_stats)
         # f32 sums of n values in other orders: the error is a small share
         # of the sum of magnitudes; 1e-5 of it leaves a 10x margin
         for kind, kern, plain, args, mags in (
                 ("fwd", cuda_bn.bn_stats, cuda_bn.bn_stats_plain, (x,),
                  (x32.abs().sum(0), (x32 * x32).sum(0))),
-                ("bwd", cuda_bn.bn_bwd_stats, cuda_bn.bn_bwd_stats_plain, (gy, x, mean, inv),
+                ("bwd", bwd, cuda_bn.bn_bwd_stats_plain, (gy, x, mean, inv),
                  (gy.float().abs().sum(0), (gy.float().abs() * xhat_abs).sum(0)))):
+            if kind == "fwd" and not timed:
+                continue
             got = kern(*args)
             want = plain(*args)
             err = max(float((a - e).abs().max()) for a, e in zip(got, want))
             ratio = max(float(((a - e).abs() / (1e-5 * m + 1e-6)).max())
                         for a, e, m in zip(got, want, mags))
             name = "K3 bn_stats_fwd" if kind == "fwd" else "K4 bn_stats_bwd"
-            log(f"{name} [{n}, {c}] bf16: max |err| {err:.3e}, worst err/tol {ratio:.3f}")
+            how = f", {strips} strips" if strips else ""
+            log(f"{name} [{n}, {c}] bf16{how}: max |err| {err:.3e}, worst err/tol {ratio:.3f}")
             if not ratio <= 1.0:
                 raise AssertionError(f"{name} disagrees with its plain version at [{n}, {c}]")
+            if kind == "bwd":
+                again = kern(*args)
+                if not all(torch.equal(a, b) for a, b in zip(again, got)):
+                    raise AssertionError(f"{name}: two calls on the same inputs differ at "
+                                         f"[{n}, {c}]")
+            if not timed:
+                measured[kind, n, c, strips] = {"max_abs_err": err}
+                continue
             ms = cuda_ms(torch, lambda: kern(*args))
             plain_t = cuda_ms(torch, lambda: plain(*args))
             if kind == "fwd":
@@ -231,34 +341,70 @@ def check_bn(torch, dev):
                 lib = library_ms(torch, lambda: torch.batch_norm_backward_reduce(
                     gy, x, mean, inv, None, True, False, False), "batch_norm_backward_reduce")
                 nbytes, flops = 2 * n * c * 2 + 4 * c * 4, 5 * n * c
+                if (n, c) == conformer:
+                    retime = (lambda kern=kern, args=args: cuda_ms(torch, lambda: kern(*args)))
             bound, by = bound_ms(flops, PEAK_F32_FLOPS, nbytes)
-            log(f"  kernel_ms {ms:.4f}  plain_ms {plain_t:.4f}  library_ms {lib}  "
-                f"bound_ms {bound:.4f} ({by})")
-            measured[kind, n, c] = (err, ms, plain_t, lib, bound, by)
-        del x, gy, x32, xhat_abs
+            log(f"  kernel_ms {ms:.5f}  plain_ms {plain_t:.5f}  library_ms {lib}  "
+                f"bound_ms {bound:.5f} ({by})")
+            row = measured[kind, n, c, None] = {
+                "max_abs_err": err, "ms": ms, "device_ms": None, "plain_ms": plain_t,
+                "library_ms": lib, "bound_ms": bound, "bound_by": by}
+            # the window makes its inputs again, so that none is held meanwhile
+            later.append(lambda name=name, n=n, c=c, kind=kind, kern=kern, row=row:
+                         profile_bn(torch, dev, name, n, c, kind, kern, row))
+        del x, gy, mean, inv, x32, xhat_abs, args, mags, got, want
         torch.cuda.empty_cache()
 
     def per_step(kind, shapes):
-        rows = [(k,) + measured[kind, n, c] for n, c, k in shapes]
-        libs = [k * lib for k, _, _, _, lib, _, _ in rows]
-        return {"launches_per_step": sum(k for k, *_ in rows),
-                "bound_by": rows[0][6],
-                "ms": sum(k * ms for k, _, ms, _, _, _, _ in rows),
-                "plain_ms": sum(k * p for k, _, _, p, _, _, _ in rows),
-                "bound_ms": sum(k * bd for k, _, _, _, _, bd, _ in rows),
-                "library_ms": None if None in libs else sum(libs)}
+        rows = [dict(measured[kind, n, c, None], n=n, c=c, launches_per_step=k)
+                for n, c, k in shapes]
+
+        def total(key):
+            if any(r[key] is None for r in rows):
+                return None
+            return sum(r["launches_per_step"] * r[key] for r in rows)
+
+        return {"launches_per_step": sum(r["launches_per_step"] for r in rows),
+                "bound_by": rows[0]["bound_by"], "ms": total("ms"),
+                "device_ms": total("device_ms"), "plain_ms": total("plain_ms"),
+                "bound_ms": total("bound_ms"), "library_ms": total("library_ms"),
+                "shapes": [{k: r[k] for k in ("n", "c", "launches_per_step", "ms",
+                                              "device_ms", "bound_ms", "library_ms")}
+                           for r in rows]}
 
     def entry(name, src_line, kind):
-        errs = [e for (k, _, _), (e, *_rest) in measured.items() if k == kind]
+        errs = [m["max_abs_err"] for (k, *_), m in measured.items() if k == kind]
         by_path = {p: per_step(kind, shapes) for p, shapes in paths.items()}
         main = by_path["lrs3"]
         return {"name": name, "route": "cuda", "source": "syncvsr_tpu_torch/csrc/bn_stats.cu",
                 "replaces": f"syncvsr_tpu/ops/pallas_bn.py:{src_line}", "launches": 0,
-                "max_abs_err": max(errs), "ms": main["ms"], "plain_ms": main["plain_ms"],
-                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-                "library_ms": main["library_ms"], "paths": by_path}
+                "max_abs_err": max(errs), "ms": main["ms"], "device_ms": main["device_ms"],
+                "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+                "paths": by_path}
 
-    return [entry("bn_stats_fwd", 47, "fwd"), entry("bn_stats_bwd", 68, "bwd")]
+    entries = [{"name": "bn_stats_fwd"}, {"name": "bn_stats_bwd"}]
+
+    def fill():
+        entries[0].update(entry("bn_stats_fwd", 47, "fwd"))
+        entries[1].update(entry("bn_stats_bwd", 68, "bwd"))
+
+    later.append(fill)
+    return entries, retime
+
+
+def profile_bn(torch, dev, name, n, c, kind, kern, row):
+    """K3's or K4's device time at [n, c] (``bn_inputs``) into ``row``; K4
+    must be one device kernel a call."""
+    x, gy, mean, inv = bn_inputs(torch, dev, n, c)
+    args = (x,) if kind == "fwd" else (gy, x, mean, inv)
+    own = ("stats_fwd_partial", "sum_strips") if kind == "fwd" else ("stats_bwd_fused",)
+    dev_ms, own_calls, dev_calls, src = device_ms(torch, lambda: kern(*args), own)
+    log(f"{name} [{n}, {c}]: device_ms {dev_ms:.5f} ({src}; {own_calls} own and {dev_calls} "
+        "device kernels a call)")
+    if kind == "bwd" and dev_calls not in (None, 1):
+        raise AssertionError(f"{name} [{n}, {c}]: {dev_calls} device kernels a call, expected 1")
+    row["device_ms"] = dev_ms
 
 
 def counters():
@@ -466,7 +612,8 @@ def check_reference(torch, np, path):
 
 def train_full_width(torch, np, path, profile_dir=None):
     """The full-width train step of ``path``; returns (launches in the timed
-    steps, summary)."""
+    steps, summary, the profiled window to run after every timing, or
+    None without ``profile_dir``)."""
     from syncvsr_tpu_torch.engine import build_eval_step, build_train_step, create_train_state
     from syncvsr_tpu_torch.models import build_model
     from syncvsr_tpu_torch.ops import image
@@ -491,6 +638,9 @@ def train_full_width(torch, np, path, profile_dir=None):
                     "bn_stats_fwd": 32, "bn_stats_bwd": 32}
     near_ln["loss_audio"] = cfg.model.codec.audio_vocab_size
     dev = torch.device("cuda")
+    # what the process holds before this path (the other path's state, kept
+    # for its profiled window) is left out of this path's peak
+    held = torch.cuda.memory_allocated()
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
     b = cfg.data.batch_size
     enc = cfg.model.encoder
@@ -526,13 +676,14 @@ def train_full_width(torch, np, path, profile_dir=None):
     dt = sum(windows) / len(windows)
     launches = read_counts()
     last = {k: float(v) for k, v in m.items()}
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - held
     if not all(math.isfinite(v) for v in last.values()):
         raise AssertionError(f"non-finite metrics: {last}")
     want = {k: n * TIMED_STEPS * len(windows) for k, n in per_step.items()}
     log(f"  {TIMED_STEPS * len(windows)} timed steps: {dt * 1e3:.2f} ms/step (windows of "
         f"{TIMED_STEPS}: {', '.join(f'{w * 1e3:.2f}' for w in windows)} ms/step), "
-        f"{b * frames / dt:.1f} frames/s, peak memory {peak / 2**30:.2f} GiB; last step {last}")
+        f"{b * frames / dt:.1f} frames/s, peak memory {peak / 2**30:.2f} GiB (above "
+        f"{held / 2**30:.2f} GiB held before the path); last step {last}")
     log(f"  launches {launches} (expected {want})")
     if launches != want:
         raise AssertionError(f"{path}: launches {launches} != {want}")
@@ -547,16 +698,18 @@ def train_full_width(torch, np, path, profile_dir=None):
     got = {k: v - before[k] for k, v in read_counts().items() if k.startswith("sync")}
     if got != {k: int(k == sync) for k in got}:
         raise AssertionError(f"the {path} eval step launched {got}, expected one {sync}")
+    window = None
     if profile_dir:
-        profile_steps(torch, state, step, batch, profile_dir, path, dt)
+        def window():
+            profile_steps(torch, state, step, batch, profile_dir, path, dt)
     return launches, {"step_ms": dt * 1e3, "frames_per_s": b * frames / dt,
-                      "peak_bytes": peak, "launches_per_step": per_step}
+                      "peak_bytes": peak, "launches_per_step": per_step}, window
 
 
 # device-time groups of the profile, matched in order on the kernel's name
 KERNEL_GROUPS = (
     ("port kernels", ("sync_ce_kernel", "sync_ce_split_kernel", "stats_fwd_partial",
-                      "stats_bwd_partial", "sum_strips")),
+                      "stats_bwd_fused", "sum_strips")),
     ("convolution", ("conv", "cudnn", "implicit", "fprop", "dgrad", "wgrad")),
     ("matmul", ("gemm", "cutlass", "xmma", "sm90_")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
@@ -568,11 +721,13 @@ def profile_steps(torch, state, step, batch, out_dir, path, step_s, n=3):
     """``n`` train steps under torch.profiler: device time by kernel group
     and the top kernels, beside the unprofiled step time ``step_s`` (the
     device's idle share is 1 - device time / step time). The full table goes
-    to ``out_dir/profile_<path>.txt``."""
+    to ``out_dir/profile_<path>.txt``. One step first, unprofiled, lets the
+    allocator take back the blocks of the step's sizes after other work."""
     import os
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    state, _ = step(state, batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
@@ -636,17 +791,29 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    entries = [check_sync(torch, dev, "mono"), check_sync(torch, dev, "split")]
-    entries += check_bn(torch, dev)
+    # every profiler window runs after every timing: once torch.profiler has
+    # traced a process, its later launches can cost the host more
+    later = []
+    entries = [check_sync(torch, dev, "mono", later), check_sync(torch, dev, "split", later)]
+    bn_entries, retime_k4 = check_bn(torch, dev, later)
+    entries += bn_entries
     for path in ("lrw_video", "lrs3"):
         check_reference(torch, np, path)
     torch.backends.cudnn.benchmark = True     # the warm-up steps absorb the autotuning
-    summary, per_step = {}, {}
+    summary, per_step, windows = {}, {}, []
     launches = {k: 0 for k in counters()}
     for path in ("lrw_video", "lrs3"):
-        got, summary[path] = train_full_width(torch, np, path, args.profile)
+        got, summary[path], window = train_full_width(torch, np, path, args.profile)
         launches = {k: launches[k] + got[k] for k in launches}
         per_step[path] = summary[path]["launches_per_step"]
+        if window:
+            windows.append(window)
+    # the kernels' windows first: after the steps' windows, torch.profiler
+    # traced no kernel of theirs (run on an H100, PyTorch 2.11)
+    for job in later + windows:
+        job()
+    log(f"K4 at the Conformer's BatchNorm shape: {retime_k4():.5f} ms a call after the "
+        f"profiler windows, {entries[-1]['paths']['lrs3']['shapes'][-1]['ms']:.5f} before them")
     for e in entries:
         # launches over both paths' timed steps, and per step of each path
         e["launches"] = launches[e["name"]]

@@ -10,8 +10,9 @@ Port of ``syncvsr_tpu/ops/pallas_bn.py`` (default math only):
   ``b = bias - mean * inv * scale``;
 * the analytic backward ``dx = k * gy - (c1 + (x - mean) * c2)`` over
   (sum g, sum g * xhat) from kernel K4 (``bn_stats_bwd``, replacing
-  ``_bwd_kernel``); the dx elementwise pass stays in PyTorch, as it stays
-  in XLA in the JAX package;
+  ``_bwd_kernel``; one launch, its partials in a per-device scratch, so it
+  runs on one stream at a time); the dx elementwise pass stays in
+  PyTorch, as it stays in XLA in the JAX package;
 * running stats ``ra = 0.9 * ra + 0.1 * batch`` with the biased variance
   (flax's convention; ``nn.BatchNorm``'s momentum and unbiased running
   variance differ, so it is not used); eval mode is the plain affine.
@@ -22,7 +23,8 @@ PyTorch version on a CPU tensor; there is no other fallback.
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -34,10 +36,87 @@ Tensor = torch.Tensor
 _SMS = 132           # H100 SXM streaming multiprocessors
 _MAX_STRIPS = 8 * _SMS
 _STRIP_ELEMS = 16384  # least elements a strip reads before another strip pays
+# K4: at most 2 blocks a SM (one wave at its register use), and >= 64K
+# elements a strip where the shape has them; its scratch holds the partials
+# of the widest call it takes
+_BWD_MAX_STRIPS = 2 * _SMS
+_BWD_STRIP_ELEMS = 65536
+_BWD_GROUP = 16       # strips a group of the kernel's first fold holds
+
+
+def _bwd_scratch_floats(strips: int, c: int) -> int:
+    """The partials of ``strips`` strips and of their groups' sums."""
+    return (strips + -(-strips // _BWD_GROUP)) * 2 * c
+
+
+_BWD_SCRATCH_FLOATS = _bwd_scratch_floats(_BWD_MAX_STRIPS, 256 * 8)
+_scratch = {}         # device index -> (floats, address, K4's partials), kept
+_ARENA_FLOATS = 1 << 20
+_arena = {}           # device index -> [next free float, floats, address, K4's output arena]
 
 
 def _strips(n: int, c: int) -> int:
     return max(1, min(_MAX_STRIPS, -(-n * c // _STRIP_ELEMS)))
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_geometry(n: int, c: int, elem_size: int) -> dict:
+    """K4's launch, as ``csrc/bn_stats.cu::bn_stats_bwd`` makes it from the
+    strips chosen here: ``threads`` = whole row groups of C / VEC threads
+    (``rows_per_iter`` of them, at most 256 threads), ``strips`` blocks of
+    ``rows`` rows each (the last one ragged), and the scratch its partials
+    take. The strips fill the 132 SMs where the rows allow, and are capped
+    at 2 blocks a SM with >= 64K elements each at the large shapes."""
+    tpr = c // (16 // elem_size)
+    rpi = max(1, 256 // tpr)
+    want = min(_BWD_MAX_STRIPS, max(-(-n * c // _BWD_STRIP_ELEMS), min(_SMS, -(-n // rpi))))
+    rows = max(1, n // max(want, 1))      # floor: at least ``want`` strips
+    strips = max(1, min(_BWD_MAX_STRIPS, -(-n // rows)))
+    return {"threads": rpi * tpr, "rows_per_iter": rpi, "strips": strips,
+            "rows": -(-n // strips), "scratch_floats": _bwd_scratch_floats(strips, c)}
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_launch(n: int, c: int, dtype: torch.dtype) -> Optional[Tuple[int, int, int]]:
+    """(strips, scratch floats, is_bf16) of K4 at [n, c] in ``dtype``, or
+    None where the kernel does not take that dtype or C (``_check_2d`` says
+    why). Its small shapes cost the host more than the device, so what
+    depends only on the shape is worked out once."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        return None
+    size = 2 if dtype == torch.bfloat16 else 4
+    if c % (16 // size) or c // (16 // size) > 256:
+        return None
+    geo = bwd_geometry(n, c, size)
+    return geo["strips"], geo["scratch_floats"], int(size == 2)
+
+
+def _bwd_out(device: int, c: int) -> Tuple[int, Tensor, Tensor]:
+    """K4's result without an allocation per call: (address, sum g, sum g *
+    xhat), two fresh f32 [c] slices of a per-device arena. No float of an
+    arena is handed out twice; a full arena is replaced by a new one and
+    stays alive while any slice of it does. (An allocation a call costs the
+    host more than the kernel takes at the Conformer's [1280, 768].)"""
+    slot = _arena.get(device)
+    if slot is None or slot[0] + 2 * c > slot[1]:
+        floats = max(_ARENA_FLOATS, 2 * c)
+        buf = torch.empty(floats, device=device, dtype=torch.float32)
+        slot = _arena[device] = [0, floats, buf.data_ptr(), buf]
+    off, _, base, buf = slot
+    slot[0] = off + 2 * c
+    return base + 4 * off, buf[off:off + c], buf[off + c:off + 2 * c]
+
+
+def _bwd_scratch(device: int, floats: int) -> int:
+    """The address of K4's partials: one buffer a device, allocated at first
+    use and held here, so the caching allocator never hands it to another
+    tensor."""
+    slot = _scratch.get(device)
+    if slot is None or slot[0] < floats:
+        floats = max(floats, _BWD_SCRATCH_FLOATS)
+        buf = torch.empty(floats, device=device, dtype=torch.float32)
+        slot = _scratch[device] = (floats, buf.data_ptr(), buf)
+    return slot[1]
 
 
 def _check_2d(name: str, *ts: Tensor) -> None:
@@ -98,27 +177,42 @@ def bn_bwd_stats_plain(g2d: Tensor, x2d: Tensor, mean: Tensor, inv: Tensor
     return g32.sum(0), (g32 * xhat).sum(0)
 
 
-def bn_bwd_stats(g2d: Tensor, x2d: Tensor, mean: Tensor, inv: Tensor
-                 ) -> Tuple[Tensor, Tensor]:
-    """K4: per-channel f32 (sum g, sum g * xhat) in one pass over g and x."""
+def bn_bwd_stats(g2d: Tensor, x2d: Tensor, mean: Tensor, inv: Tensor,
+                 strips: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+    """K4: per-channel f32 (sum g, sum g * xhat) in one pass over g and x,
+    one launch. ``strips`` overrides ``bwd_geometry``'s choice (a test of
+    the kernel's fold at other grid sizes). Its small shapes cost the host
+    more than the device, so the checks that pass are kept cheap."""
     if not g2d.is_cuda:
         return bn_bwd_stats_plain(g2d, x2d, mean, inv)
-    _check_2d("bn_bwd_stats", g2d, x2d)
+    if g2d.dim() != 2:
+        _check_2d("bn_bwd_stats", g2d, x2d)
     n, c = g2d.shape
-    if mean.shape != (c,) or inv.shape != (c,) or not (mean.is_cuda and inv.is_cuda):
+    gp, xp = g2d.data_ptr(), x2d.data_ptr()
+    launch = _bwd_launch(n, c, g2d.dtype)
+    if not (launch and x2d.shape == g2d.shape and x2d.dtype == g2d.dtype
+            and g2d.is_contiguous() and x2d.is_contiguous() and (gp | xp) % 16 == 0):
+        _check_2d("bn_bwd_stats", g2d, x2d)   # raises with the reason
+    if not (mean.shape == inv.shape == (c,) and mean.is_cuda and inv.is_cuda):
         raise ValueError(f"bn_bwd_stats: mean and inv must be [{c}] tensors on the GPU")
-    mean = mean.float().contiguous()
-    inv = inv.float().contiguous()
-    strips = _strips(n, c)
-    partials = torch.empty((strips, 2 * c), device=g2d.device, dtype=torch.float32)
-    out = torch.empty((2, c), device=g2d.device, dtype=torch.float32)
+    if not (mean.dtype == inv.dtype == torch.float32 and mean.is_contiguous()
+            and inv.is_contiguous()):
+        mean = mean.float().contiguous()
+        inv = inv.float().contiguous()
+    if strips is None:
+        strips, floats, is_bf16 = launch
+    else:
+        floats, is_bf16 = _bwd_scratch_floats(strips, c), launch[2]
+    device = g2d.get_device()
+    partials = _bwd_scratch(device, floats)
+    out, s1, s2 = _bwd_out(device, c)
     status = kernels.library().bn_stats_bwd(
-        g2d.data_ptr(), x2d.data_ptr(), mean.data_ptr(), inv.data_ptr(),
-        partials.data_ptr(), out.data_ptr(), n, c, strips,
-        int(g2d.dtype == torch.bfloat16), torch.cuda.current_stream(g2d.device).cuda_stream)
-    kernels.check(status, "bn_stats_bwd")
+        gp, xp, mean.data_ptr(), inv.data_ptr(), partials, out, n, c, strips, is_bf16,
+        kernels.current_stream(device))
+    if status:
+        kernels.check(status, "bn_stats_bwd")
     bn_bwd_stats.launches += 1
-    return out[0], out[1]
+    return s1, s2
 
 
 bn_bwd_stats.launches = 0

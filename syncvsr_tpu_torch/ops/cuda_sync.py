@@ -9,8 +9,8 @@ product, the bias f32, f32 accumulation).
 * K1, ``sync_ce_mono_partials`` (``csrc/sync_ce.cu::sync_ce_fwd``,
   replacing the Pallas ``_kernel``): grid (row tile, slot);
 * K2, ``sync_ce_split_partials`` (``csrc/sync_ce_split.cu::
-  sync_ce_split_fwd``, replacing ``_kernel_split``): grid over row tiles,
-  the slots a loop inside the block, the x tile read once.
+  sync_ce_split_fwd``, replacing ``_kernel_split``): grid (64-row tile,
+  slot), TMA and wgmma, one launch (``split_geometry``).
 
 ``sync_ce_partials`` picks between them by the JAX package's rule
 (``_pallas_forward``): K2 when the padded bf16 weight exceeds 4 MiB. The
@@ -34,8 +34,9 @@ from syncvsr_tpu_torch.utils import kernels
 
 Tensor = torch.Tensor
 
-_ROWS = 32        # rows per block of both kernels
+_ROWS = 32        # rows per block of K1
 _MAX_VOCAB = 320  # vocabulary one block holds per slot
+_SPLIT_ROWS = 64  # rows per block of K2 (one wgmma m64)
 # weights larger than this (bf16, D and V padded to 128) take K2
 # (syncvsr_tpu/ops/pallas_sync.py::_MONO_W_BYTES)
 _MONO_W_BYTES = 4 * 1024 * 1024
@@ -67,6 +68,17 @@ def sync_ce_partials_plain(x: Tensor, w: Tensor, b: Tensor, tok: Tensor
     lab = torch.gather(logits, -1, safe[..., None])[..., 0]
     ce = torch.where(valid, lse - lab, torch.zeros_like(lse))
     return ce.sum(), valid.sum().float()
+
+
+def split_geometry(n: int, slots: int) -> dict:
+    """K2's launch, as ``csrc/sync_ce_split.cu`` makes it: a (64-row tile,
+    slot) grid of blocks of two consumer warpgroups, each owning half of
+    the 320 columns a block holds, over a ring of two 48 KB stages."""
+    tiles = -(-n // _SPLIT_ROWS)
+    return {"grid": (tiles, slots), "blocks": tiles * slots, "rows": _SPLIT_ROWS,
+            "threads": 256, "columns_per_warpgroup": _MAX_VOCAB // 2,
+            # the ring, its 1024-byte alignment, the barriers and merge buffers
+            "smem_bytes": 2 * (_SPLIT_ROWS + _MAX_VOCAB) * 64 * 2 + 1024 + 864}
 
 
 def _kernel_operands(name: str, x: Tensor, w: Tensor, b: Tensor, tok: Tensor):
@@ -116,8 +128,8 @@ sync_ce_mono_partials.launches = 0
 def sync_ce_split_partials(x: Tensor, w: Tensor, b: Tensor, tok: Tensor
                            ) -> Tuple[Tensor, Tensor]:
     """K2 on CUDA tensors (the plain version on CPU tensors); same contract
-    as sync_ce_partials_plain. D must be a multiple of 8; the kernel refuses
-    a D whose x tile does not fit a block's shared memory (D > 2944)."""
+    as sync_ce_partials_plain. D must be a multiple of 8 (TMA's 16-byte row
+    strides). One launch: the kernel also sums its partials."""
     if not x.is_cuda:
         return sync_ce_partials_plain(x, w, b, tok)
     xb, wb, bf, ti, n, d, s, vocab = _kernel_operands("sync_ce_split_partials", x, w, b, tok)
@@ -125,14 +137,15 @@ def sync_ce_split_partials(x: Tensor, w: Tensor, b: Tensor, tok: Tensor
         raise ValueError(f"sync_ce_split_partials: D={d} must be a multiple of 8")
     if xb.data_ptr() % 16:
         raise ValueError("sync_ce_split_partials: the features are not 16-byte aligned")
-    partials = torch.empty((-(-n // _ROWS), 2), device=x.device, dtype=torch.float32)
+    # the blocks' partials, and in the last row their sum in block order
+    partials = torch.empty((split_geometry(n, s)["blocks"] + 1, 2), device=x.device,
+                           dtype=torch.float32)
     status = kernels.library().sync_ce_split_fwd(
         xb.data_ptr(), wb.data_ptr(), bf.data_ptr(), ti.data_ptr(), partials.data_ptr(),
-        n, d, s, vocab, torch.cuda.current_stream(x.device).cuda_stream)
+        n, d, s, vocab, kernels.current_stream(x.device))
     kernels.check(status, "sync_ce_split_fwd")
     sync_ce_split_partials.launches += 1
-    sums = partials.sum(0)
-    return sums[0], sums[1]
+    return partials[-1].unbind(0)
 
 
 sync_ce_split_partials.launches = 0

@@ -119,6 +119,17 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def current_stream(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device`` (a CUDA
+    device or its index), without building a ``torch.cuda.Stream`` object,
+    which costs the host more than a small kernel takes."""
+    import torch
+
+    idx = device if isinstance(device, int) else device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if idx is None else idx)
+
+
 def check(status: int, name: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
     if status != 0:

@@ -95,12 +95,14 @@ def test_fast_bn_eval_matches_jax():
 
 
 # K3/K4 plain vs the Pallas kernels in interpret mode: f32 sums of the same
-# values in other orders, so 1e-5 relative to the summed magnitude
-@pytest.mark.parametrize("c", [64, 128, 256, 512])
+# values in other orders, so 1e-5 relative to the summed magnitude; the
+# trunk widths, the Conformer's 768, and a row count no tile divides
+@pytest.mark.parametrize("c,n", [(64, 512), (128, 512), (256, 512), (512, 512), (768, 512),
+                                 (768, 700)],
+                         ids=["64", "128", "256", "512", "768", "768-n700"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_k3_k4_plain_match_pallas_interpret(c, dtype):
+def test_k3_k4_plain_match_pallas_interpret(c, n, dtype):
     rng = np.random.RandomState(c)
-    n = 512
     x = (rng.randn(n, c) + 0.3).astype(np.float32)
     g = rng.randn(n, c).astype(np.float32)
     mean = rng.randn(c).astype(np.float32) * 0.3

@@ -15,21 +15,31 @@ from torch_parity import close, tt
 A, G, V = 4, 2, 320
 
 
-def _head(seed, n_or_bt, d):
+def _head(seed, n_or_bt, d, v=V):
     rng = np.random.RandomState(seed)
     x = rng.randn(*n_or_bt, d).astype(np.float32)
-    w = (rng.randn(d, A * G * V) * 0.02).astype(np.float32)
-    b = (rng.randn(A * G * V) * 0.1).astype(np.float32)
+    w = (rng.randn(d, A * G * v) * 0.02).astype(np.float32)
+    b = (rng.randn(A * G * v) * 0.1).astype(np.float32)
     return rng, x, w, b
 
 
-@pytest.mark.parametrize("n", [300, 37])
-def test_k2_plain_matches_pallas_split_interpret(n, monkeypatch):
+# the cases chip_smoke.py holds kernel K2 to (SPLIT_CASES): lrs3's D = 768
+# and V = 320 at ragged row counts, a D past the 64-deep stage, a V below
+# the 320 columns a block holds
+@pytest.mark.parametrize("n,d,v", [(300, 768, V), (37, 768, V), (1, 768, V), (33, 768, V),
+                                   (300, 776, V), (300, 768, 256)],
+                         ids=["300", "37", "1", "33", "d776", "v256"])
+def test_k2_plain_matches_pallas_split_interpret(n, d, v, monkeypatch):
     # both cast features and weight to bf16 and accumulate in f32; only the
     # summation order differs: 2e-6 relative, the count exact
-    d, s = 768, A * G
-    assert ps._round_up(d, 128) * s * ps._round_up(V, 128) * 2 > ps._MONO_W_BYTES
-    assert cuda_sync.uses_split_kernel(d, s, V)
+    s = A * G
+    if v == V:
+        assert ps._round_up(d, 128) * s * ps._round_up(v, 128) * 2 > ps._MONO_W_BYTES
+        assert cuda_sync.uses_split_kernel(d, s, v)
+    else:
+        # a 256-wide vocabulary's weight is under the 4 MiB rule: lower the
+        # threshold so that _pallas_forward takes the slot-split kernel
+        monkeypatch.setattr(ps, "_MONO_W_BYTES", 0)
     traced = []   # the Pallas kernel bodies _pallas_forward traces
 
     def spy(name, body):
@@ -40,12 +50,12 @@ def test_k2_plain_matches_pallas_split_interpret(n, monkeypatch):
 
     spy("_kernel_split", ps._kernel_split)
     spy("_kernel", ps._kernel)
-    rng, x, w, b = _head(0, (n,), d)
-    tok = rng.randint(0, V, (n, s)).astype(np.int32)
+    rng, x, w, b = _head(0, (n,), d, v)
+    tok = rng.randint(0, v, (n, s)).astype(np.int32)
     tok[rng.rand(n, s) < 0.1] = -1
     ce, cnt = cuda_sync.sync_ce_partials_plain(tt(x), tt(w), tt(b), tt(tok))
     jce, jcnt = ps._pallas_forward(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
-                                   jnp.asarray(tok), s, V, interpret=True)
+                                   jnp.asarray(tok), s, v, interpret=True)
     assert traced and set(traced) == {"_kernel_split"}
     assert float(cnt) == float(jcnt) == float((tok >= 0).sum())
     close(ce, jce, 2e-6, 0.0, "ce_sum")
