@@ -12,9 +12,10 @@ non-zero before the last line is printed:
    with nvcc for sm_90a, one process per source, and prints ptxas's
    registers / shared memory / spills;
 3. kernels: each kernel against its plain PyTorch version at the shapes
-   its train steps give it (K1 at ``lrw_video``'s sync head, K2 at
-   ``lrs3``'s and at ``SPLIT_CASES``, K3/K4 at every BatchNorm shape of
-   both steps, K4 also at ``BN_EXTRA``; K2 and K4 twice, bitwise), with its
+   its train steps give it (K1 at ``lrw_video``'s sync head and at
+   ``MONO_CASES``, K2 at ``lrs3``'s and at ``SPLIT_CASES``, K3/K4 at every
+   BatchNorm shape of both steps and at ``BN_EXTRA``; each twice,
+   bitwise), with its
    time (``ms``: CUDA events around 20 warm back-to-back calls of the
    wrapper, host included) beside its bound, the plain version's time and
    one PyTorch library call's; K3/K4 per shape too;
@@ -30,8 +31,9 @@ non-zero before the last line is printed:
    kernels' launches counted from 0, then one eval step;
 6. profiler windows, after every timing above (a process that torch.profiler
    has traced can pay more host time a launch from then on): each kernel's
-   own device time (``device_ms``) over the calls phase 3 timed, K2 and K4
-   held to one kernel a call; with ``--profile DIR``, 3 profiled steps of
+   own device time (``device_ms``) over the calls phase 3 timed (K1's with
+   its features' pad copy), each held to one kernel of its own a call (K3
+   and K4 to one device kernel); with ``--profile DIR``, 3 profiled steps of
    each path (device time by kernel group and the device's idle share);
    then K4 at the Conformer's shape timed again, beside its phase-3 time;
 7. the ``kernels`` JSON line, the card line and the ``ok`` line.
@@ -139,13 +141,14 @@ def bn_shapes():
 
 
 def device_ms(torch, fn, names, iters=20):
-    """(ms, own launches per call, device kernels per call, source): the
-    device time per call of the kernels whose names hold one of ``names``,
-    with no host time in it, from a torch.profiler window over ``iters``
-    warm calls. Where the profiler traces no device time, the time is that
-    of CUDA-graph replay of the call (all the kernels it makes) and the
-    launch counts are None; so it is where the window traced some of the
-    calls' kernels and not others."""
+    """(ms, own launches per call, device kernels per call, source, all
+    ms): the device time per call of the kernels whose names hold one of
+    ``names``, with no host time in it, from a torch.profiler window over
+    ``iters`` warm calls, and that of all the call's device kernels. Where
+    the profiler traces no device time, both times are that of CUDA-graph
+    replay of the call (all the kernels it makes) and the launch counts are
+    None; so it is where the window traced some of the calls' kernels and
+    not others."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -164,7 +167,8 @@ def device_ms(torch, fn, names, iters=20):
     if own and sum(e.count for e in own) % iters == 0:
         return (sum(getattr(e, key) for e in own) / 1e3 / iters,
                 sum(e.count for e in own) / iters,
-                sum(e.count for e in dev_events) / iters, "profiler")
+                sum(e.count for e in dev_events) / iters, "profiler",
+                sum(getattr(e, key) for e in dev_events) / 1e3 / iters)
     graph = torch.cuda.CUDAGraph()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -173,35 +177,47 @@ def device_ms(torch, fn, names, iters=20):
     torch.cuda.current_stream().wait_stream(side)
     with torch.cuda.graph(graph):
         fn()
-    return cuda_ms(torch, graph.replay, iters), None, None, "graph replay"
+    ms = cuda_ms(torch, graph.replay, iters)
+    return ms, None, None, "graph replay", ms
 
 
-# K2's cases (N, D, V, every token ignored): lrs3's shape first (timed),
-# then ragged row counts, a D that is no multiple of the 64-deep stage, a
-# vocabulary below the 320 columns a block holds, and no valid token
+# K1's cases (N, D, V, every token ignored): lrw_video's shape first
+# (timed), then ragged row counts, D = 512 and 640 (rows TMA reads as they
+# lie) and 520 (no copy, a ragged last stage), a vocabulary below the 320
+# columns a block holds, and no valid token
+MONO_CASES = [(29 * 96, 513, 320, False), (1000, 513, 320, False), (33, 513, 320, False),
+              (1, 513, 320, False), (29 * 96, 512, 320, False), (29 * 96, 520, 320, False),
+              (29 * 96, 640, 320, False), (29 * 96, 513, 256, False),
+              (29 * 96, 513, 320, True)]
+# K2's cases: lrs3's shape first (timed), then ragged row counts, a D that
+# is no multiple of the 64-deep stage, a vocabulary below the 320 columns a
+# block holds, and no valid token
 SPLIT_CASES = [(8 * 160, 768, 320, False), (1000, 768, 320, False), (33, 768, 320, False),
                (1, 768, 320, False), (8 * 160, 776, 320, False), (8 * 160, 768, 256, False),
                (8 * 160, 768, 320, True)]
 
 
 def check_sync(torch, dev, kind, later):
-    """K1 (``kind`` "mono", at lrw_video's sync head) or K2 ("split", at
-    lrs3's and at ``SPLIT_CASES``) against their plain version; K2 also
-    twice on the same inputs, bitwise. Appends to ``later`` the profiler
-    window that fills the entry's ``device_ms``."""
+    """K1 (``kind`` "mono", at ``MONO_CASES``) or K2 ("split", at
+    ``SPLIT_CASES``) against their plain version, and twice on the same
+    inputs, bitwise. Appends to ``later`` the profiler window that fills
+    the entry's ``device_ms`` (K1's with its features' pad copy)."""
     from syncvsr_tpu_torch.ops import cuda_sync
 
     s = 8                                        # A*G slots of the vq codec
     if kind == "mono":
         name, fn, own = "K1 sync_ce_fwd", cuda_sync.sync_ce_mono_partials, "sync_ce_kernel"
-        cases = [(29 * 96, 513, 320, False)]
+        cases = MONO_CASES
     else:
         name, fn, own = ("K2 sync_ce_split_fwd", cuda_sync.sync_ce_split_partials,
                          "sync_ce_split_kernel")
         cases = SPLIT_CASES
-    n0, d0, v0, _ = cases[0]
-    if cuda_sync.uses_split_kernel(d0, s, v0) != (kind == "split"):
-        raise AssertionError(f"{name}: the dispatch rule does not pick it at D={d0}")
+    # every K1 case is K1's by the dispatch rule; K2's are its by the call
+    # (the rule gives V = 256 at D = 768 to K1)
+    for _, d0, v0, _ in (cases if kind == "mono" else cases[:1]):
+        if cuda_sync.uses_split_kernel(d0, s, v0) != (kind == "split"):
+            raise AssertionError(f"{name}: the dispatch rule does not pick it at D={d0}, "
+                                 f"V={v0}")
     g = torch.Generator(device=dev).manual_seed(0)
     worst = 0.0
     for n, d, v, ignored in cases:
@@ -228,10 +244,10 @@ def check_sync(torch, dev, kind, later):
         if not (err <= tol and float(cnt) == float(cnt_p) == float((tok >= 0).sum())):
             raise AssertionError(f"{name} disagrees with its plain version at N={n}, D={d}, "
                                  f"V={v}")
-        if kind == "split":
-            again = fn(xb, wb, b, tok)
-            if not (torch.equal(again[0], ce) and torch.equal(again[1], cnt)):
-                raise AssertionError(f"{name}: two calls on the same inputs differ at N={n}")
+        again = fn(xb, wb, b, tok)
+        if not (torch.equal(again[0], ce) and torch.equal(again[1], cnt)):
+            raise AssertionError(f"{name}: two calls on the same inputs differ at N={n}, "
+                                 f"D={d}, V={v}")
         if (n, d, v, ignored) == cases[0]:        # the train step's shape: time it
             args = (xb, wb, b, tok)
             ms = cuda_ms(torch, lambda: fn(*args))
@@ -255,19 +271,20 @@ def check_sync(torch, dev, kind, later):
 
     def profiled():
         n, d, args = timed
-        dev_ms, own_calls, dev_calls, src = device_ms(torch, lambda: fn(*args), (own,))
-        log(f"{name} [{n}, {d}]: device_ms {dev_ms:.5f} ({src}; {own_calls} own and "
-            f"{dev_calls} device kernels a call)")
-        if kind == "split" and own_calls not in (None, 1):
+        own_ms, own_calls, dev_calls, src, all_ms = device_ms(torch, lambda: fn(*args), (own,))
+        log(f"{name} [{n}, {d}]: device_ms {all_ms:.5f}, its own kernel {own_ms:.5f} ({src}; "
+            f"{own_calls} own and {dev_calls} device kernels a call)")
+        if own_calls not in (None, 1):
             raise AssertionError(f"{name}: {own_calls} kernel launches a call, expected 1")
-        entry["device_ms"] = dev_ms
+        entry["device_ms"] = all_ms
 
     later.append(profiled)
     return entry
 
 
-# K4's extra cases beside the paths' shapes: a ragged N, a one-strip call,
-# and the stem's shape on 2880 strips (5.5 waves of the last-block fold)
+# K3's and K4's extra cases beside the paths' shapes: a ragged N, a
+# one-strip call (its one group's fold writes the result), and the stem's
+# shape on 2880 strips (5.5 waves of the last-block fold)
 BN_EXTRA = [(1283, 768, None), (1, 768, None), (2949120, 64, 2880)]
 
 
@@ -282,8 +299,8 @@ def bn_inputs(torch, dev, n, c):
 
 
 def check_bn(torch, dev, later):
-    """K3 and K4 at every BatchNorm shape of both train steps, in bf16, and
-    K4 at ``BN_EXTRA``; K4 twice on the same inputs, bitwise. Each entry's
+    """K3 and K4 at every BatchNorm shape of both train steps and at
+    ``BN_EXTRA``, in bf16; each twice on the same inputs, bitwise. Each entry's
     times are per step of the lrs3 step (the per-shape times weighted by
     the launches per step); ``paths`` has both steps' sums and their
     per-shape rows. Appends to ``later`` the profiler windows of every
@@ -302,17 +319,16 @@ def check_bn(torch, dev, later):
         x, gy, mean, inv = bn_inputs(torch, dev, n, c)
         x32 = x.float()
         xhat_abs = ((x32 - mean) * inv).abs()
-        bwd = ((lambda *a: cuda_bn.bn_bwd_stats(*a, strips=strips)) if strips
-               else cuda_bn.bn_bwd_stats)
+        fwd, bwd = ((lambda *a: cuda_bn.bn_stats(*a, strips=strips),
+                     lambda *a: cuda_bn.bn_bwd_stats(*a, strips=strips)) if strips
+                    else (cuda_bn.bn_stats, cuda_bn.bn_bwd_stats))
         # f32 sums of n values in other orders: the error is a small share
         # of the sum of magnitudes; 1e-5 of it leaves a 10x margin
         for kind, kern, plain, args, mags in (
-                ("fwd", cuda_bn.bn_stats, cuda_bn.bn_stats_plain, (x,),
+                ("fwd", fwd, cuda_bn.bn_stats_plain, (x,),
                  (x32.abs().sum(0), (x32 * x32).sum(0))),
                 ("bwd", bwd, cuda_bn.bn_bwd_stats_plain, (gy, x, mean, inv),
                  (gy.float().abs().sum(0), (gy.float().abs() * xhat_abs).sum(0)))):
-            if kind == "fwd" and not timed:
-                continue
             got = kern(*args)
             want = plain(*args)
             err = max(float((a - e).abs().max()) for a, e in zip(got, want))
@@ -323,11 +339,10 @@ def check_bn(torch, dev, later):
             log(f"{name} [{n}, {c}] bf16{how}: max |err| {err:.3e}, worst err/tol {ratio:.3f}")
             if not ratio <= 1.0:
                 raise AssertionError(f"{name} disagrees with its plain version at [{n}, {c}]")
-            if kind == "bwd":
-                again = kern(*args)
-                if not all(torch.equal(a, b) for a, b in zip(again, got)):
-                    raise AssertionError(f"{name}: two calls on the same inputs differ at "
-                                         f"[{n}, {c}]")
+            again = kern(*args)
+            if not all(torch.equal(a, b) for a, b in zip(again, got)):
+                raise AssertionError(f"{name}: two calls on the same inputs differ at "
+                                     f"[{n}, {c}]")
             if not timed:
                 measured[kind, n, c, strips] = {"max_abs_err": err}
                 continue
@@ -394,15 +409,18 @@ def check_bn(torch, dev, later):
 
 
 def profile_bn(torch, dev, name, n, c, kind, kern, row):
-    """K3's or K4's device time at [n, c] (``bn_inputs``) into ``row``; K4
+    """K3's or K4's device time at [n, c] (``bn_inputs``) into ``row``; each
     must be one device kernel a call."""
     x, gy, mean, inv = bn_inputs(torch, dev, n, c)
     args = (x,) if kind == "fwd" else (gy, x, mean, inv)
-    own = ("stats_fwd_partial", "sum_strips") if kind == "fwd" else ("stats_bwd_fused",)
-    dev_ms, own_calls, dev_calls, src = device_ms(torch, lambda: kern(*args), own)
+    # the kernels' names, and those of K3's first two-kernel version, which
+    # tools/bn_shapes.py --root may time in an older tree
+    own = (("stats_fwd_fused", "stats_fwd_partial", "sum_strips") if kind == "fwd"
+           else ("stats_bwd_fused",))
+    dev_ms, own_calls, dev_calls, src, _ = device_ms(torch, lambda: kern(*args), own)
     log(f"{name} [{n}, {c}]: device_ms {dev_ms:.5f} ({src}; {own_calls} own and {dev_calls} "
         "device kernels a call)")
-    if kind == "bwd" and dev_calls not in (None, 1):
+    if dev_calls not in (None, 1):
         raise AssertionError(f"{name} [{n}, {c}]: {dev_calls} device kernels a call, expected 1")
     row["device_ms"] = dev_ms
 
@@ -708,8 +726,8 @@ def train_full_width(torch, np, path, profile_dir=None):
 
 # device-time groups of the profile, matched in order on the kernel's name
 KERNEL_GROUPS = (
-    ("port kernels", ("sync_ce_kernel", "sync_ce_split_kernel", "stats_fwd_partial",
-                      "stats_bwd_fused", "sum_strips")),
+    ("port kernels", ("sync_ce_kernel", "sync_ce_split_kernel", "stats_fwd_fused",
+                      "stats_bwd_fused")),
     ("convolution", ("conv", "cudnn", "implicit", "fprop", "dgrad", "wgrad")),
     ("matmul", ("gemm", "cutlass", "xmma", "sm90_")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),

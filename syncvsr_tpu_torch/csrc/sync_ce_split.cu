@@ -60,12 +60,9 @@
 // at most 320; x and W 16-byte aligned. A barrier wait that has not
 // finished after ~2 s traps, so a fault ends the kernel instead of hanging.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "sync_ce_common.cuh"
 
 namespace {
 
@@ -82,104 +79,6 @@ constexpr int kWHalfBytes = kHalf * kDepth * 2;        // 20 KB, a warpgroup's W
 constexpr int kStageBytes = kXBytes + 2 * kWHalfBytes;  // 48 KB
 constexpr int kWBox = kDepth * 32 * 2;                 // 4 KB: a [64, 32] box of W
 constexpr int kSmemBytes = kStages * kStageBytes + 1024;  // + 1024-byte alignment
-constexpr long long kHangCycles = 4000000000LL;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(addr), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// wait for the completion of the barrier's phase of this parity
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  if (mbar_try_wait(addr, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(addr, parity))
-    if (clock64() - t0 > kHangCycles) __trap();
-}
-
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// shared-memory matrix descriptor: start address, leading and stride byte
-// offsets, swizzle (1 = 128-byte, 2 = 64-byte)
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo,
-                                              uint32_t swizzle) {
-  const uint64_t a = smem_u32(p);
-  return ((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
-         ((uint64_t)swizzle << 62);
-}
-
-// d (64 x 160 f32, wgmma accumulator layout) += A (64 x 16) * B (16 x 160);
-// A K-major, B MN-major (the transpose bit)
-__device__ __forceinline__ void wgmma_m64n160k16(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %82, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
-      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
-      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, "
-      "%69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
-      "%80, %81, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
-        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
-        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
-        "+f"(d[79])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 // tickets drawn by the blocks of the running call; the last block resets it
 __device__ unsigned int g_split_tickets;
@@ -373,40 +272,6 @@ sync_ce_split_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the process has loaded (the
-// library is not linked against libcuda)
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (!h) h = dlopen("libcuda.so.1", RTLD_NOW);
-    return h ? reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled")) : nullptr;
-  }();
-  return fn;
-}
-
-// a row-major bf16 [rows, cols] matrix in [box_rows, box_cols] boxes, zero
-// fill past its edges
-bool make_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
-              int box_cols, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-
-
 }  // namespace
 
 // x [n, d] bf16; w [d, slots * vocab] bf16; bias [slots * vocab] f32; tok
@@ -427,8 +292,9 @@ extern "C" int sync_ce_split_fwd(const void* x, const void* w, const void* bias,
       sync_ce_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap tm_x, tm_w;
-  if (!make_map(&tm_x, x, n, d, kRows, kDepth, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map(&tm_w, w, d, slots * vocab, kDepth, 32, CU_TENSOR_MAP_SWIZZLE_64B))
+  if (!make_map(&tm_x, x, n, d, d, kRows, kDepth, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map(&tm_w, w, d, slots * vocab, slots * vocab, kDepth, 32,
+                CU_TENSOR_MAP_SWIZZLE_64B))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((n + kRows - 1) / kRows, slots);
   sync_ce_split_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(

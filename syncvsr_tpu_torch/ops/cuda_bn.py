@@ -4,21 +4,24 @@ Port of ``syncvsr_tpu/ops/pallas_bn.py`` (default math only):
 
 * statistics are per-channel f32 (sum x, sum x^2) over the free ``[N, C]``
   view of a contiguous channels-last tensor, from kernel K3
-  (``csrc/bn_stats.cu::bn_stats_fwd``, replacing ``_stats_kernel``);
+  (``csrc/bn_stats.cu::bn_stats_fwd``, replacing ``_stats_kernel``; one
+  launch);
 * variance in the E[x^2] - E[x]^2 form, clamped at 0, biased; eps 1e-5;
   ``y = x * a + b`` in the compute dtype with ``a = inv * scale`` and
   ``b = bias - mean * inv * scale``;
 * the analytic backward ``dx = k * gy - (c1 + (x - mean) * c2)`` over
   (sum g, sum g * xhat) from kernel K4 (``bn_stats_bwd``, replacing
-  ``_bwd_kernel``; one launch, its partials in a per-device scratch, so it
-  runs on one stream at a time); the dx elementwise pass stays in
+  ``_bwd_kernel``; one launch); the dx elementwise pass stays in
   PyTorch, as it stays in XLA in the JAX package;
 * running stats ``ra = 0.9 * ra + 0.1 * batch`` with the biased variance
   (flax's convention; ``nn.BatchNorm``'s momentum and unbiased running
   variance differ, so it is not used); eval mode is the plain affine.
 
 Each statistics wrapper runs its kernel on a CUDA tensor and its plain
-PyTorch version on a CPU tensor; there is no other fallback.
+PyTorch version on a CPU tensor; there is no other fallback. Both kernels
+keep their partials in a per-device scratch and take per-device ticket
+counters, so each runs on one stream at a time; their results are slices of
+a per-device arena.
 """
 
 from __future__ import annotations
@@ -34,89 +37,88 @@ from syncvsr_tpu_torch.utils import kernels
 Tensor = torch.Tensor
 
 _SMS = 132           # H100 SXM streaming multiprocessors
-_MAX_STRIPS = 8 * _SMS
-_STRIP_ELEMS = 16384  # least elements a strip reads before another strip pays
-# K4: at most 2 blocks a SM (one wave at its register use), and >= 64K
-# elements a strip where the shape has them; its scratch holds the partials
-# of the widest call it takes
-_BWD_MAX_STRIPS = 2 * _SMS
+# strips of K3 and K4: at most `max_strips` blocks, >= `strip_elems`
+# elements a strip where the shape has them, and a block on every SM where
+# the rows give each one a row group
+_FWD_MAX_STRIPS = 2 * _SMS
+_FWD_STRIP_ELEMS = 131072
+_BWD_MAX_STRIPS = 2 * _SMS       # one wave at K4's register use
 _BWD_STRIP_ELEMS = 65536
-_BWD_GROUP = 16       # strips a group of the kernel's first fold holds
+_GROUP = 16           # strips a group of the kernels' first fold holds
 
 
-def _bwd_scratch_floats(strips: int, c: int) -> int:
+def _scratch_floats(strips: int, c: int) -> int:
     """The partials of ``strips`` strips and of their groups' sums."""
-    return (strips + -(-strips // _BWD_GROUP)) * 2 * c
+    return (strips + -(-strips // _GROUP)) * 2 * c
 
 
-_BWD_SCRATCH_FLOATS = _bwd_scratch_floats(_BWD_MAX_STRIPS, 256 * 8)
-_scratch = {}         # device index -> (floats, address, K4's partials), kept
-_ARENA_FLOATS = 1 << 20
-_arena = {}           # device index -> [next free float, floats, address, K4's output arena]
+_SCRATCH_FLOATS = _scratch_floats(max(_FWD_MAX_STRIPS, _BWD_MAX_STRIPS), 256 * 8)
 
 
-def _strips(n: int, c: int) -> int:
-    return max(1, min(_MAX_STRIPS, -(-n * c // _STRIP_ELEMS)))
+def _geometry(n: int, c: int, elem_size: int, max_strips: int, strip_elems: int) -> dict:
+    tpr = c // (16 // elem_size)
+    rpi = max(1, 256 // tpr)
+    want = min(max_strips, max(-(-n * c // strip_elems), min(_SMS, -(-n // rpi))))
+    rows = max(1, n // max(want, 1))      # floor: at least ``want`` strips
+    strips = max(1, min(max_strips, -(-n // rows)))
+    return {"threads": rpi * tpr, "rows_per_iter": rpi, "strips": strips,
+            "rows": -(-n // strips), "scratch_floats": _scratch_floats(strips, c)}
 
 
 @functools.lru_cache(maxsize=None)
-def bwd_geometry(n: int, c: int, elem_size: int) -> dict:
-    """K4's launch, as ``csrc/bn_stats.cu::bn_stats_bwd`` makes it from the
+def fwd_geometry(n: int, c: int, elem_size: int) -> dict:
+    """K3's launch, as ``csrc/bn_stats.cu::bn_stats_fwd`` makes it from the
     strips chosen here: ``threads`` = whole row groups of C / VEC threads
     (``rows_per_iter`` of them, at most 256 threads), ``strips`` blocks of
     ``rows`` rows each (the last one ragged), and the scratch its partials
     take. The strips fill the 132 SMs where the rows allow, and are capped
-    at 2 blocks a SM with >= 64K elements each at the large shapes."""
-    tpr = c // (16 // elem_size)
-    rpi = max(1, 256 // tpr)
-    want = min(_BWD_MAX_STRIPS, max(-(-n * c // _BWD_STRIP_ELEMS), min(_SMS, -(-n // rpi))))
-    rows = max(1, n // max(want, 1))      # floor: at least ``want`` strips
-    strips = max(1, min(_BWD_MAX_STRIPS, -(-n // rows)))
-    return {"threads": rpi * tpr, "rows_per_iter": rpi, "strips": strips,
-            "rows": -(-n // strips), "scratch_floats": _bwd_scratch_floats(strips, c)}
+    at 2 blocks a SM with >= 128K elements each at the large shapes."""
+    return _geometry(n, c, elem_size, _FWD_MAX_STRIPS, _FWD_STRIP_ELEMS)
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_launch(n: int, c: int, dtype: torch.dtype) -> Optional[Tuple[int, int, int]]:
-    """(strips, scratch floats, is_bf16) of K4 at [n, c] in ``dtype``, or
-    None where the kernel does not take that dtype or C (``_check_2d`` says
-    why). Its small shapes cost the host more than the device, so what
-    depends only on the shape is worked out once."""
+def bwd_geometry(n: int, c: int, elem_size: int) -> dict:
+    """K4's launch (``bn_stats_bwd``), as ``fwd_geometry`` says for K3, at
+    most 2 blocks a SM with >= 64K elements each at the large shapes."""
+    return _geometry(n, c, elem_size, _BWD_MAX_STRIPS, _BWD_STRIP_ELEMS)
+
+
+def _launch(geometry, n: int, c: int, dtype: torch.dtype) -> Optional[Tuple[int, int, int]]:
+    """(strips, scratch floats, is_bf16) of a kernel at [n, c] in ``dtype``,
+    or None where the kernels do not take that dtype or C (``_check_2d``
+    says why)."""
     if dtype not in (torch.bfloat16, torch.float32):
         return None
     size = 2 if dtype == torch.bfloat16 else 4
     if c % (16 // size) or c // (16 // size) > 256:
         return None
-    geo = bwd_geometry(n, c, size)
+    geo = geometry(n, c, size)
     return geo["strips"], geo["scratch_floats"], int(size == 2)
 
 
-def _bwd_out(device: int, c: int) -> Tuple[int, Tensor, Tensor]:
-    """K4's result without an allocation per call: (address, sum g, sum g *
-    xhat), two fresh f32 [c] slices of a per-device arena. No float of an
-    arena is handed out twice; a full arena is replaced by a new one and
-    stays alive while any slice of it does. (An allocation a call costs the
-    host more than the kernel takes at the Conformer's [1280, 768].)"""
-    slot = _arena.get(device)
-    if slot is None or slot[0] + 2 * c > slot[1]:
-        floats = max(_ARENA_FLOATS, 2 * c)
-        buf = torch.empty(floats, device=device, dtype=torch.float32)
-        slot = _arena[device] = [0, floats, buf.data_ptr(), buf]
-    off, _, base, buf = slot
-    slot[0] = off + 2 * c
-    return base + 4 * off, buf[off:off + c], buf[off + c:off + 2 * c]
+# the small shapes cost the host more than the device, so what depends only
+# on the shape is worked out once
+@functools.lru_cache(maxsize=None)
+def _fwd_launch(n: int, c: int, dtype: torch.dtype) -> Optional[Tuple[int, int, int]]:
+    return _launch(fwd_geometry, n, c, dtype)
 
 
-def _bwd_scratch(device: int, floats: int) -> int:
-    """The address of K4's partials: one buffer a device, allocated at first
-    use and held here, so the caching allocator never hands it to another
-    tensor."""
-    slot = _scratch.get(device)
-    if slot is None or slot[0] < floats:
-        floats = max(floats, _BWD_SCRATCH_FLOATS)
-        buf = torch.empty(floats, device=device, dtype=torch.float32)
-        slot = _scratch[device] = (floats, buf.data_ptr(), buf)
-    return slot[1]
+@functools.lru_cache(maxsize=None)
+def _bwd_launch(n: int, c: int, dtype: torch.dtype) -> Optional[Tuple[int, int, int]]:
+    return _launch(bwd_geometry, n, c, dtype)
+
+
+def _stats_out(device: int, c: int) -> Tuple[int, Tensor, Tensor]:
+    """A kernel's result: (address, first sum, second sum), two f32 [c]
+    slices of the per-device arena (``kernels.result``)."""
+    out, buf = kernels.result(device, 2 * c)
+    return out, buf[:c], buf[c:]
+
+
+def _partials(device: int, floats: int) -> int:
+    """The address of the kernels' partials, one buffer a device shared by
+    K3 and K4 (both run on the train step's stream, one after the other)."""
+    return kernels.scratch("bn_partials", device, max(floats, _SCRATCH_FLOATS))[1]
 
 
 def _check_2d(name: str, *ts: Tensor) -> None:
@@ -149,21 +151,33 @@ def bn_stats_plain(x2d: Tensor) -> Tuple[Tensor, Tensor]:
     return x32.sum(0), (x32 * x32).sum(0)
 
 
-def bn_stats(x2d: Tensor) -> Tuple[Tensor, Tensor]:
-    """K3: per-channel f32 (sum x, sum x^2) of a contiguous [N, C] tensor."""
+def bn_stats(x2d: Tensor, strips: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+    """K3: per-channel f32 (sum x, sum x^2) of a contiguous [N, C] tensor,
+    one launch. ``strips`` overrides ``fwd_geometry``'s choice (a test of
+    the kernel's fold at other grid sizes). Its small shapes cost the host
+    more than the device, so the checks that pass are kept cheap."""
     if not x2d.is_cuda:
         return bn_stats_plain(x2d)
-    _check_2d("bn_stats", x2d)
+    if x2d.dim() != 2:
+        _check_2d("bn_stats", x2d)
     n, c = x2d.shape
-    strips = _strips(n, c)
-    partials = torch.empty((strips, 2 * c), device=x2d.device, dtype=torch.float32)
-    out = torch.empty((2, c), device=x2d.device, dtype=torch.float32)
+    xp = x2d.data_ptr()
+    launch = _fwd_launch(n, c, x2d.dtype)
+    if not (launch and x2d.is_contiguous() and xp % 16 == 0):
+        _check_2d("bn_stats", x2d)   # raises with the reason
+    if strips is None:
+        strips, floats, is_bf16 = launch
+    else:
+        floats, is_bf16 = _scratch_floats(strips, c), launch[2]
+    device = x2d.get_device()
+    out, s1, s2 = _stats_out(device, c)
     status = kernels.library().bn_stats_fwd(
-        x2d.data_ptr(), partials.data_ptr(), out.data_ptr(), n, c, strips,
-        int(x2d.dtype == torch.bfloat16), torch.cuda.current_stream(x2d.device).cuda_stream)
-    kernels.check(status, "bn_stats_fwd")
+        xp, _partials(device, floats), out, n, c, strips, is_bf16,
+        kernels.current_stream(device))
+    if status:
+        kernels.check(status, "bn_stats_fwd")
     bn_stats.launches += 1
-    return out[0], out[1]
+    return s1, s2
 
 
 bn_stats.launches = 0
@@ -202,10 +216,10 @@ def bn_bwd_stats(g2d: Tensor, x2d: Tensor, mean: Tensor, inv: Tensor,
     if strips is None:
         strips, floats, is_bf16 = launch
     else:
-        floats, is_bf16 = _bwd_scratch_floats(strips, c), launch[2]
+        floats, is_bf16 = _scratch_floats(strips, c), launch[2]
     device = g2d.get_device()
-    partials = _bwd_scratch(device, floats)
-    out, s1, s2 = _bwd_out(device, c)
+    partials = _partials(device, floats)
+    out, s1, s2 = _stats_out(device, c)
     status = kernels.library().bn_stats_bwd(
         gp, xp, mean.data_ptr(), inv.data_ptr(), partials, out, n, c, strips, is_bf16,
         kernels.current_stream(device))

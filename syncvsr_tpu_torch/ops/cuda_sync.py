@@ -7,7 +7,11 @@ with the TPU kernels' casts (features and weight to bf16 before the
 product, the bias f32, f32 accumulation).
 
 * K1, ``sync_ce_mono_partials`` (``csrc/sync_ce.cu::sync_ce_fwd``,
-  replacing the Pallas ``_kernel``): grid (row tile, slot);
+  replacing the Pallas ``_kernel``): grid (128-row tile, slot), TMA and
+  wgmma, one launch (``mono_geometry``);
+  features whose rows are no multiple of 16 bytes (D = 513) are copied
+  into a zero-padded buffer first (``pad_features``), as the JAX wrapper
+  pads them for its kernel;
 * K2, ``sync_ce_split_partials`` (``csrc/sync_ce_split.cu::
   sync_ce_split_fwd``, replacing ``_kernel_split``): grid (64-row tile,
   slot), TMA and wgmma, one launch (``split_geometry``).
@@ -34,8 +38,10 @@ from syncvsr_tpu_torch.utils import kernels
 
 Tensor = torch.Tensor
 
-_ROWS = 32        # rows per block of K1
+_SMS = 132        # H100 SXM streaming multiprocessors
 _MAX_VOCAB = 320  # vocabulary one block holds per slot
+_MONO_ROWS = 128  # rows per block of K1 (two wgmma m64 tiles)
+_MONO_STAGES = 3
 _SPLIT_ROWS = 64  # rows per block of K2 (one wgmma m64)
 # weights larger than this (bf16, D and V padded to 128) take K2
 # (syncvsr_tpu/ops/pallas_sync.py::_MONO_W_BYTES)
@@ -81,9 +87,26 @@ def split_geometry(n: int, slots: int) -> dict:
             "smem_bytes": 2 * (_SPLIT_ROWS + _MAX_VOCAB) * 64 * 2 + 1024 + 864}
 
 
+def mono_geometry(n: int, slots: int) -> dict:
+    """K1's launch, as ``csrc/sync_ce.cu`` makes it: a (128-row tile,
+    slot) grid of blocks of two consumer warpgroups, each owning half of
+    the 320 columns of the slot for both of the block's 64-row tiles (80
+    f32 accumulators a tile), over a ring of three stages; the shared
+    memory a block takes (the ring, its 1024-byte alignment, barriers and
+    merge buffers), the one block an SM holds (its 255 registers a thread
+    allow no second), and the waves of the 132 SMs the grid makes."""
+    tiles = -(-n // _MONO_ROWS)
+    threads, stages = 256, _MONO_STAGES
+    smem = (stages * (_MONO_ROWS * 64 * 2 + _MAX_VOCAB * 64 * 2) + 1024
+            + 16 * stages + _MONO_ROWS * 3 * 4 + threads // 32 * 8)
+    return {"grid": (tiles, slots), "blocks": tiles * slots, "rows": _MONO_ROWS,
+            "threads": threads, "stages": stages, "accumulators": 80 * _MONO_ROWS // 64,
+            "smem_bytes": smem, "blocks_per_sm": 1, "waves": tiles * slots / _SMS}
+
+
 def _kernel_operands(name: str, x: Tensor, w: Tensor, b: Tensor, tok: Tensor):
-    """Check the shapes both kernels take; returns (bf16 x, bf16 w, f32 b,
-    int32 tok, n, d, slots, vocab), contiguous."""
+    """Check the shapes both kernels take; returns (bf16 w, f32 b, int32
+    tok, n, d, slots, vocab), contiguous."""
     n, d = x.shape
     s = tok.shape[1]
     sv = w.shape[1]
@@ -96,30 +119,49 @@ def _kernel_operands(name: str, x: Tensor, w: Tensor, b: Tensor, tok: Tensor):
                          f"of 8 and at most {_MAX_VOCAB}")
     if not (w.is_cuda and b.is_cuda and tok.is_cuda):
         raise ValueError(f"{name}: all inputs must be on the GPU")
-    xb = x.to(torch.bfloat16).contiguous()
     wb = w.to(torch.bfloat16).contiguous()
     if wb.data_ptr() % 16:
         raise ValueError(f"{name}: the weight is not 16-byte aligned")
-    return (xb, wb, b.float().contiguous(), tok.to(torch.int32).contiguous(),
-            n, d, s, vocab)
+    return wb, b.float().contiguous(), tok.to(torch.int32).contiguous(), n, d, s, vocab
+
+
+def pad_features(x: Tensor) -> Tensor:
+    """x [N, D] as the bf16 operand K1's TMA reads: x itself where it is a
+    contiguous, 16-byte aligned bf16 tensor with rows a multiple of 16
+    bytes; else a copy into [N, D rounded up to 8] whose pad columns are
+    zero, in a per-device buffer for this D (reused by the next call, so it
+    holds the last call's features)."""
+    n, d = x.shape
+    if (d % 8 == 0 and x.dtype == torch.bfloat16 and x.is_contiguous()
+            and x.data_ptr() % 16 == 0):
+        return x
+    ldx = -(-d // 8) * 8
+    buf = kernels.scratch(f"sync_x{d}", x.device, n * ldx, torch.bfloat16)[2]
+    xp = buf[:n * ldx].view(n, ldx)
+    xp[:, :d].copy_(x)
+    return xp
 
 
 def sync_ce_mono_partials(x: Tensor, w: Tensor, b: Tensor, tok: Tensor
                           ) -> Tuple[Tensor, Tensor]:
     """K1 on CUDA tensors (the plain version on CPU tensors); same contract
-    as sync_ce_partials_plain."""
+    as sync_ce_partials_plain. One launch after the features' pad copy
+    (none where D is a multiple of 8 and x is bf16): the kernel also sums
+    its partials."""
     if not x.is_cuda:
         return sync_ce_partials_plain(x, w, b, tok)
-    xb, wb, bf, ti, n, d, s, vocab = _kernel_operands("sync_ce_mono_partials", x, w, b, tok)
-    tiles = -(-n // _ROWS)
-    partials = torch.empty((tiles * s, 2), device=x.device, dtype=torch.float32)
+    wb, bf, ti, n, d, s, vocab = _kernel_operands("sync_ce_mono_partials", x, w, b, tok)
+    xp = pad_features(x)
+    device = x.get_device()
+    partials = kernels.scratch("sync_partials", device,
+                               2 * mono_geometry(n, s)["blocks"])[1]
+    out, res = kernels.result(device, 2)
     status = kernels.library().sync_ce_fwd(
-        xb.data_ptr(), wb.data_ptr(), bf.data_ptr(), ti.data_ptr(), partials.data_ptr(),
-        n, d, s, vocab, torch.cuda.current_stream(x.device).cuda_stream)
+        xp.data_ptr(), wb.data_ptr(), bf.data_ptr(), ti.data_ptr(), partials, out, n, d,
+        xp.stride(0), s, vocab, kernels.current_stream(device))
     kernels.check(status, "sync_ce_fwd")
     sync_ce_mono_partials.launches += 1
-    sums = partials.sum(0)
-    return sums[0], sums[1]
+    return res[0], res[1]
 
 
 sync_ce_mono_partials.launches = 0
@@ -132,7 +174,8 @@ def sync_ce_split_partials(x: Tensor, w: Tensor, b: Tensor, tok: Tensor
     strides). One launch: the kernel also sums its partials."""
     if not x.is_cuda:
         return sync_ce_partials_plain(x, w, b, tok)
-    xb, wb, bf, ti, n, d, s, vocab = _kernel_operands("sync_ce_split_partials", x, w, b, tok)
+    wb, bf, ti, n, d, s, vocab = _kernel_operands("sync_ce_split_partials", x, w, b, tok)
+    xb = x.to(torch.bfloat16).contiguous()
     if d % 8:
         raise ValueError(f"sync_ce_split_partials: D={d} must be a multiple of 8")
     if xb.data_ptr() % 16:

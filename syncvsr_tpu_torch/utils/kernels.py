@@ -31,17 +31,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes (pointers and the stream as void*)
 SIGNATURES = {
-    # x, w, b, tok, partials, n, d, slots, vocab, stream
-    "sync_ce_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w, b, tok, partials, out, n, d, ldx, slots, vocab, stream
+    "sync_ce_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, w, b, tok, partials, n, d, slots, vocab, stream
     "sync_ce_split_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, partials, out, n, c, n_strips, x_is_bf16, stream
+    # x, partials, out, n, c, n_strips, is_bf16, stream
     "bn_stats_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
     # g, x, mean, inv, partials, out, n, c, n_strips, is_bf16, stream
     "bn_stats_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
+_scratch = {}         # (name, device) -> (elements, address, buffer)
+_ARENA_FLOATS = 1 << 20
+_arena = {}           # device -> [next free float, floats, address, buffer]
 
 
 def _nvcc() -> str:
@@ -134,3 +137,36 @@ def check(status: int, name: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
     if status != 0:
         raise RuntimeError(f"{name}: CUDA error {status} at launch")
+
+
+def scratch(name: str, device, numel: int, dtype=None) -> Tuple[int, int, "torch.Tensor"]:
+    """(elements, address, buffer) of the per-device buffer ``name``: at
+    least ``numel`` elements of ``dtype`` (f32 by default), zero-filled when
+    it is allocated, at first use or to grow, and held here, so the caching
+    allocator never hands it to another tensor. The kernels that share a
+    name run on one stream at a time."""
+    import torch
+
+    slot = _scratch.get((name, device))
+    if slot is None or slot[0] < numel:
+        buf = torch.zeros(numel, device=device, dtype=dtype or torch.float32)
+        slot = _scratch[name, device] = (numel, buf.data_ptr(), buf)
+    return slot
+
+
+def result(device, floats: int) -> Tuple[int, "torch.Tensor"]:
+    """A kernel's f32 result without an allocation a call: (address, a
+    fresh [floats] slice of a per-device arena). No float of an arena is
+    handed out twice; a full arena is replaced by a new one and stays alive
+    while any slice of it does. (An allocation a call costs the host more
+    than K3 and K4 take at the Conformer's [1280, 768].)"""
+    import torch
+
+    slot = _arena.get(device)
+    if slot is None or slot[0] + floats > slot[1]:
+        size = max(_ARENA_FLOATS, floats)
+        buf = torch.empty(size, device=device, dtype=torch.float32)
+        slot = _arena[device] = [0, size, buf.data_ptr(), buf]
+    off, _, base, buf = slot
+    slot[0] = off + floats
+    return base + 4 * off, buf[off:off + floats]
