@@ -12,23 +12,29 @@ non-zero before the last line is printed:
    with nvcc for sm_90a, one process per source, and prints ptxas's
    registers / shared memory / spills;
 3. kernels: each kernel against its plain PyTorch version at the shapes
-   its train steps give it (K1 at ``lrw_video``'s sync head and at
-   ``MONO_CASES``, K2 at ``lrs3``'s and at ``SPLIT_CASES``, K3/K4 at every
-   BatchNorm shape of both steps and at ``BN_EXTRA``; each twice,
-   bitwise), with its
-   time (``ms``: CUDA events around 20 warm back-to-back calls of the
+   its train steps give it (K1 at ``lrw_video``'s and ``lrw_landmark``'s
+   sync heads and at ``MONO_CASES``, K2 at ``lrs3``'s and ``lrs3_audio``'s
+   and at ``SPLIT_CASES``, K3/K4 at every BatchNorm shape of the three
+   steps that have them and at ``BN_EXTRA``; each twice, bitwise), with
+   its time (``ms``: CUDA events around 20 warm back-to-back calls of the
    wrapper, host included) beside its bound, the plain version's time and
-   one PyTorch library call's; K3/K4 per shape too;
-4. reference: two train steps of a small f32 model on the card (through
-   the kernels) against the same steps on the CPU (the plain versions),
-   for ``lrw_video`` and for ``lrs3`` (a 768-wide Conformer, so the sync
-   head takes K2): the metrics and Adam's first moment, less the ReLU units
-   whose input f32 rounding put on the other side of 0;
+   one PyTorch library call's, per path; K3/K4 per shape too;
+4. reference, for each path: two train steps of a small f32 model on the
+   card (through the kernels) against the same steps on the CPU (the plain
+   versions): ``lrw_video``, ``lrs3`` (a 768-wide Conformer, so the sync
+   head takes K2), ``lrw_landmark`` (the pad sentinel in some frames) and
+   ``lrs3_audio`` (768 wide, 10240 samples a clip): the metrics and Adam's
+   first moment, less the ReLU units whose input f32 rounding put on the
+   other side of 0;
 5. train, for each path: the full-width train step (``lrw_video``: batch
    96, 29 uint8 96x112 frames; ``lrs3``: batch 8, 160 uint8 128x128 frames,
-   12-layer Conformer + 6-layer decoder; bf16, augmentation and dropout as
+   12-layer Conformer + 6-layer decoder; ``lrw_landmark``: batch 1024, 29
+   frames of 1434 f32 landmark features, 8 x 320 LayerNorm/GELU encoder;
+   ``lrs3_audio``: batch 32, 102400 samples of waveform, ResNet1D then
+   ``lrs3``'s Conformer and decoder; bf16, augmentation and dropout as
    configured), 3 warm-up and two windows of 5 timed steps with the
-   kernels' launches counted from 0, then one eval step;
+   kernels' launches counted from 0, then one eval step; the audio stem
+   conv timed alone;
 6. profiler windows, after every timing above (a process that torch.profiler
    has traced can pay more host time a launch from then on): each kernel's
    own device time (``device_ms``) over the calls phase 3 timed (K1's with
@@ -131,13 +137,48 @@ def lrs3_cfg():
     return lrs3_config().override(**{"data.batch_size": 8})
 
 
+def lrw_landmark_cfg():
+    from syncvsr_tpu_torch.config import lrw_landmark_config
+
+    # bench.py::bench_landmark's workload: bs 1024 x 29 frames of 1434 f32
+    # landmark features, 8 x 320 LayerNorm/GELU encoder, 4 heads, bf16
+    return lrw_landmark_config()
+
+
+AUDIO_FRAMES, AUDIO_LABEL_LEN = 160, 48      # 160 x 640 = 102400 samples a clip
+
+
+def lrs3_audio_cfg():
+    from syncvsr_tpu_torch.config import lrs3_audio_config
+
+    # bench.py::bench_audio's workload: bs 32 x 102400 samples of 16 kHz
+    # waveform, the Conv1D ResNet-18 frontend, then lrs3's Conformer, decoder
+    # and losses, bf16
+    return lrs3_audio_config().override(**{"data.batch_size": 32})
+
+
+def resnet1d_bn_shapes(cfg, frames):
+    """(N, C, launches per step) of every BatchNorm statistics call of the
+    ResNet1D audio frontend over ``frames`` frames (640 samples each) a clip:
+    the stem BN and layer1's four, then the five of each of layer2..layer4,
+    each at half the samples of the one before."""
+    n = cfg.data.batch_size * frames * 640 // 4          # stem stride 4
+    width = cfg.model.frontend.resnet_width
+    return [(n >> i, width * 2 ** i, 5) for i in range(4)]
+
+
 def bn_shapes():
-    """Per path, (N, C, launches per step) of every BatchNorm statistics call."""
-    lrw, lrs3 = lrw_video_cfg(), lrs3_cfg()
-    conformer = (lrs3.data.batch_size * LRS3_FRAMES, lrs3.model.encoder.dim,
-                 lrs3.model.encoder.layers)
+    """Per path with BatchNorms, (N, C, launches per step) of every
+    BatchNorm statistics call (``lrw_landmark`` has none)."""
+    lrw, lrs3, audio = lrw_video_cfg(), lrs3_cfg(), lrs3_audio_cfg()
+
+    def conformer(cfg, frames):
+        return (cfg.data.batch_size * frames, cfg.model.encoder.dim, cfg.model.encoder.layers)
+
     return {"lrw_video": trunk_bn_shapes(lrw, lrw.data.num_frames),
-            "lrs3": trunk_bn_shapes(lrs3, LRS3_FRAMES) + [conformer]}
+            "lrs3": trunk_bn_shapes(lrs3, LRS3_FRAMES) + [conformer(lrs3, LRS3_FRAMES)],
+            "lrs3_audio": (resnet1d_bn_shapes(audio, AUDIO_FRAMES)
+                           + [conformer(audio, AUDIO_FRAMES)])}
 
 
 def device_ms(torch, fn, names, iters=20):
@@ -181,27 +222,39 @@ def device_ms(torch, fn, names, iters=20):
     return ms, None, None, "graph replay", ms
 
 
-# K1's cases (N, D, V, every token ignored): lrw_video's shape first
-# (timed), then ragged row counts, D = 512 and 640 (rows TMA reads as they
-# lie) and 520 (no copy, a ragged last stage), a vocabulary below the 320
-# columns a block holds, and no valid token
-MONO_CASES = [(29 * 96, 513, 320, False), (1000, 513, 320, False), (33, 513, 320, False),
-              (1, 513, 320, False), (29 * 96, 512, 320, False), (29 * 96, 520, 320, False),
-              (29 * 96, 640, 320, False), (29 * 96, 513, 256, False),
-              (29 * 96, 513, 320, True)]
-# K2's cases: lrs3's shape first (timed), then ragged row counts, a D that
-# is no multiple of the 64-deep stage, a vocabulary below the 320 columns a
-# block holds, and no valid token
-SPLIT_CASES = [(8 * 160, 768, 320, False), (1000, 768, 320, False), (33, 768, 320, False),
-               (1, 768, 320, False), (8 * 160, 776, 320, False), (8 * 160, 768, 256, False),
-               (8 * 160, 768, 320, True)]
+# K1's cases (N, D, V, every token ignored, the features' dtype):
+# lrw_video's and lrw_landmark's shapes first (timed; the landmark head's
+# features reach the wrapper in f32, as in its step), then ragged row
+# counts, D = 512 and 640 (bf16 rows TMA reads as they lie) and 520 (no
+# copy, a ragged last stage), vocabularies below the 320 columns a block
+# holds, and no valid token
+MONO_CASES = [(29 * 96, 513, 320, False, "bfloat16"), (29 * 1024, 320, 320, False, "float32"),
+              (1000, 513, 320, False, "bfloat16"), (33, 513, 320, False, "bfloat16"),
+              (1, 513, 320, False, "bfloat16"), (1000, 320, 320, False, "float32"),
+              (33, 320, 320, False, "float32"), (29 * 96, 512, 320, False, "bfloat16"),
+              (29 * 96, 520, 320, False, "bfloat16"), (29 * 96, 640, 320, False, "bfloat16"),
+              (29 * 96, 513, 256, False, "bfloat16"), (29 * 1024, 320, 256, False, "float32"),
+              (29 * 96, 513, 320, True, "bfloat16")]
+# K2's cases: lrs3's and lrs3_audio's shapes first (timed; the audio head's
+# features in f32, as in its step), then ragged row counts, a D that is no
+# multiple of the 64-deep stage, a vocabulary below the 320 columns a block
+# holds, and no valid token
+SPLIT_CASES = [(8 * 160, 768, 320, False, "bfloat16"), (32 * 160, 768, 320, False, "float32"),
+               (1000, 768, 320, False, "bfloat16"), (33, 768, 320, False, "bfloat16"),
+               (1, 768, 320, False, "bfloat16"), (8 * 160, 776, 320, False, "bfloat16"),
+               (8 * 160, 768, 256, False, "bfloat16"), (8 * 160, 768, 320, True, "bfloat16")]
+# the case of each path's sync head, timed: the entry's own numbers are its
+# first path's
+SYNC_PATHS = {"sync_ce_fwd": {"lrw_video": MONO_CASES[0], "lrw_landmark": MONO_CASES[1]},
+              "sync_ce_split_fwd": {"lrs3": SPLIT_CASES[0], "lrs3_audio": SPLIT_CASES[1]}}
 
 
 def check_sync(torch, dev, kind, later):
     """K1 (``kind`` "mono", at ``MONO_CASES``) or K2 ("split", at
     ``SPLIT_CASES``) against their plain version, and twice on the same
-    inputs, bitwise. Appends to ``later`` the profiler window that fills
-    the entry's ``device_ms`` (K1's with its features' pad copy)."""
+    inputs, bitwise; each path's case of ``SYNC_PATHS`` timed. Appends to
+    ``later`` the profiler windows that fill each path's ``device_ms`` (K1's
+    with its features' pad copy, K2's with their cast)."""
     from syncvsr_tpu_torch.ops import cuda_sync
 
     s = 8                                        # A*G slots of the vq codec
@@ -212,25 +265,28 @@ def check_sync(torch, dev, kind, later):
         name, fn, own = ("K2 sync_ce_split_fwd", cuda_sync.sync_ce_split_partials,
                          "sync_ce_split_kernel")
         cases = SPLIT_CASES
+    key = name.split()[1]
+    timed = {case: path for path, case in SYNC_PATHS[key].items()}
     # every K1 case is K1's by the dispatch rule; K2's are its by the call
     # (the rule gives V = 256 at D = 768 to K1)
-    for _, d0, v0, _ in (cases if kind == "mono" else cases[:1]):
+    for _, d0, v0, _, _ in (cases if kind == "mono" else timed):
         if cuda_sync.uses_split_kernel(d0, s, v0) != (kind == "split"):
             raise AssertionError(f"{name}: the dispatch rule does not pick it at D={d0}, "
                                  f"V={v0}")
     g = torch.Generator(device=dev).manual_seed(0)
-    worst = 0.0
-    for n, d, v, ignored in cases:
+    worst, paths = 0.0, {}
+    for case in cases:
+        n, d, v, ignored, dtype = case
         w = torch.randn(d, s * v, device=dev, generator=g) * 0.05
         b = torch.randn(s * v, device=dev, generator=g) * 0.1
-        x = torch.randn(n, d, device=dev, generator=g)
+        x = torch.randn(n, d, device=dev, generator=g).to(getattr(torch, dtype))
         tok = torch.randint(0, v, (n, s), device=dev, generator=g, dtype=torch.int32)
         tok[torch.rand(n, s, device=dev, generator=g) < 0.1] = -1
         if ignored:
             tok.fill_(-1)
-        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)   # the kernel's operand types
-        ce, cnt = fn(xb, wb, b, tok)
-        ce_p, cnt_p = cuda_sync.sync_ce_partials_plain(xb, wb, b, tok)
+        wb = w.to(torch.bfloat16)                  # the kernel's weight type
+        ce, cnt = fn(x, wb, b, tok)
+        ce_p, cnt_p = cuda_sync.sync_ce_partials_plain(x, wb, b, tok)
         torch.cuda.synchronize()
         err = abs(float(ce) - float(ce_p))
         worst = max(worst, err)
@@ -238,47 +294,55 @@ def check_sync(torch, dev, kind, later):
         # relative expected on sums of ~1e4 terms; 1e-5 leaves room (1e-6
         # absolute where the sum is 0)
         tol = 1e-5 * abs(float(ce_p)) if float(ce_p) else 1e-6
-        log(f"{name} [{n}, {d}] x [{d}, {s}x{v}]{' all ignored' if ignored else ''}: ce_sum "
-            f"{float(ce):.6f} vs plain {float(ce_p):.6f}, |err| {err:.3e} (tol {tol:.3e}); "
-            f"count {float(cnt):.0f} vs {float(cnt_p):.0f}")
+        log(f"{name} [{n}, {d}] {dtype} x [{d}, {s}x{v}]{' all ignored' if ignored else ''}: "
+            f"ce_sum {float(ce):.6f} vs plain {float(ce_p):.6f}, |err| {err:.3e} (tol "
+            f"{tol:.3e}); count {float(cnt):.0f} vs {float(cnt_p):.0f}")
         if not (err <= tol and float(cnt) == float(cnt_p) == float((tok >= 0).sum())):
             raise AssertionError(f"{name} disagrees with its plain version at N={n}, D={d}, "
                                  f"V={v}")
-        again = fn(xb, wb, b, tok)
+        again = fn(x, wb, b, tok)
         if not (torch.equal(again[0], ce) and torch.equal(again[1], cnt)):
             raise AssertionError(f"{name}: two calls on the same inputs differ at N={n}, "
                                  f"D={d}, V={v}")
-        if (n, d, v, ignored) == cases[0]:        # the train step's shape: time it
-            args = (xb, wb, b, tok)
-            ms = cuda_ms(torch, lambda: fn(*args))
-            plain = cuda_ms(torch, lambda: cuda_sync.sync_ce_partials_plain(*args))
-            b16, tok_l = b.to(torch.bfloat16), tok.reshape(-1).long()
-            lib = library_ms(torch, lambda: torch.nn.functional.cross_entropy(
-                torch.addmm(b16, xb, wb).reshape(n * s, v).float(), tok_l, ignore_index=-1,
-                reduction="sum"), "cross_entropy(addmm)")
-            parts = -(-n // 32) * s if kind == "mono" else -(-n // 64) * s
-            nbytes = n * d * 2 + d * s * v * 2 + s * v * 4 + n * s * 4 + parts * 2 * 4
-            bound, by = bound_ms(2 * n * d * s * v, PEAK_BF16_FLOPS, nbytes)
-            log(f"  kernel_ms {ms:.5f}  plain_ms {plain:.5f}  library_ms {lib}  "
-                f"bound_ms {bound:.5f} ({by})")
-            timed = (n, d, args)
+        if case not in timed:
+            continue
+        args = (x, wb, b, tok)
+        ms = cuda_ms(torch, lambda: fn(*args))
+        plain = cuda_ms(torch, lambda: cuda_sync.sync_ce_partials_plain(*args))
+        b16, tok_l = b.to(torch.bfloat16), tok.reshape(-1).long()
+        lib = library_ms(torch, lambda: torch.nn.functional.cross_entropy(
+            torch.addmm(b16, x.to(torch.bfloat16), wb).reshape(n * s, v).float(), tok_l,
+            ignore_index=-1, reduction="sum"), "cross_entropy(addmm)")
+        parts = -(-n // 32) * s if kind == "mono" else -(-n // 64) * s
+        nbytes = (n * d * x.element_size() + d * s * v * 2 + s * v * 4 + n * s * 4
+                  + parts * 2 * 4)
+        bound, by = bound_ms(2 * n * d * s * v, PEAK_BF16_FLOPS, nbytes)
+        log(f"  {timed[case]}: kernel_ms {ms:.5f}  plain_ms {plain:.5f}  library_ms {lib}  "
+            f"bound_ms {bound:.5f} ({by})")
+        row = paths[timed[case]] = {"n": n, "d": d, "features": dtype, "ms": ms,
+                                    "device_ms": None, "plain_ms": plain, "bound_ms": bound,
+                                    "bound_by": by, "library_ms": lib}
+
+        def profiled(n=n, d=d, args=args, row=row):
+            own_ms, own_calls, dev_calls, src, all_ms = device_ms(torch, lambda: fn(*args),
+                                                                  (own,))
+            log(f"{name} [{n}, {d}]: device_ms {all_ms:.5f}, its own kernel {own_ms:.5f} "
+                f"({src}; {own_calls} own and {dev_calls} device kernels a call)")
+            if own_calls not in (None, 1):
+                raise AssertionError(f"{name}: {own_calls} kernel launches a call, expected 1")
+            row["device_ms"] = all_ms
+            if row is main:
+                entry["device_ms"] = all_ms
+
+        later.append(profiled)
+    main = paths[next(iter(SYNC_PATHS[key]))]
     src, line = (("sync_ce.cu", 36) if kind == "mono" else ("sync_ce_split.cu", 66))
-    entry = {"name": name.split()[1], "route": "cuda",
-             "source": f"syncvsr_tpu_torch/csrc/{src}",
+    entry = {"name": key, "route": "cuda", "source": f"syncvsr_tpu_torch/csrc/{src}",
              "replaces": f"syncvsr_tpu/ops/pallas_sync.py:{line}", "launches": 0,
-             "max_abs_err": worst, "ms": ms, "device_ms": None, "plain_ms": plain,
-             "bound_ms": bound, "bound_by": by, "library_ms": lib}
-
-    def profiled():
-        n, d, args = timed
-        own_ms, own_calls, dev_calls, src, all_ms = device_ms(torch, lambda: fn(*args), (own,))
-        log(f"{name} [{n}, {d}]: device_ms {all_ms:.5f}, its own kernel {own_ms:.5f} ({src}; "
-            f"{own_calls} own and {dev_calls} device kernels a call)")
-        if own_calls not in (None, 1):
-            raise AssertionError(f"{name}: {own_calls} kernel launches a call, expected 1")
-        entry["device_ms"] = all_ms
-
-    later.append(profiled)
+             "max_abs_err": worst,
+             **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")},
+             "paths": paths}
     return entry
 
 
@@ -299,11 +363,11 @@ def bn_inputs(torch, dev, n, c):
 
 
 def check_bn(torch, dev, later):
-    """K3 and K4 at every BatchNorm shape of both train steps and at
-    ``BN_EXTRA``, in bf16; each twice on the same inputs, bitwise. Each entry's
-    times are per step of the lrs3 step (the per-shape times weighted by
-    the launches per step); ``paths`` has both steps' sums and their
-    per-shape rows. Appends to ``later`` the profiler windows of every
+    """K3 and K4 at every BatchNorm shape of the train steps that have
+    them (``bn_shapes()``) and at ``BN_EXTRA``, in bf16; each twice on the
+    same inputs, bitwise. Each entry's own times are per step of the lrs3
+    step (the per-shape times weighted by the launches per step); ``paths``
+    has every step's sums and their per-shape rows. Appends to ``later`` the profiler windows of every
     timed shape, then the job that fills the entries' ``device_ms``.
     Returns (the two entries, a function that times K4 at the Conformer's
     shape again)."""
@@ -532,9 +596,22 @@ def uint8_sentences(np, cfg, frames, label_len, source, seed):
     return batch
 
 
-# the kernels each path runs (the others must not launch there)
+def landmark_clips(cfg, seed):
+    """word_batch (f32 landmark features [B, T, 1434]) with the loader's pad
+    sentinel, -100, in the last 3 frames of every 8th clip."""
+    from syncvsr_tpu_torch.data.synthetic import word_batch
+
+    batch = word_batch(cfg, seed=seed)
+    batch["inputs"][::8, -3:] = -100.0
+    return batch
+
+
+# the paths, in the order the phases run them, and the kernels each runs
+# (the others must not launch there)
 PATH_KERNELS = {"lrw_video": {"sync_ce_fwd", "bn_stats_fwd", "bn_stats_bwd"},
-                "lrs3": {"sync_ce_split_fwd", "bn_stats_fwd", "bn_stats_bwd"}}
+                "lrs3": {"sync_ce_split_fwd", "bn_stats_fwd", "bn_stats_bwd"},
+                "lrw_landmark": {"sync_ce_fwd"},
+                "lrs3_audio": {"sync_ce_split_fwd", "bn_stats_fwd", "bn_stats_bwd"}}
 
 
 def check_reference(torch, np, path):
@@ -542,32 +619,50 @@ def check_reference(torch, np, path):
     against the same steps through the plain versions on the CPU. The
     augmentation (and CutMix) draw from the same CPU generator on both
     sides; dropout is off."""
-    from syncvsr_tpu_torch.config import lrs3_config, lrw_video_config
+    from syncvsr_tpu_torch import config
+    from syncvsr_tpu_torch.data.synthetic import sentence_batch
     from syncvsr_tpu_torch.ops.image import build_sentence_aug, build_word_aug
 
     common = {"model.dtype": "float32", "model.encoder.msa_dropout": 0.0,
               "model.encoder.mlp_dropout": 0.0, "data.crop_size": 32,
               "optim.total_steps": 10, "optim.warmup_steps": 2}
+    word_keys = ("loss", "loss_word", "loss_audio", "grad_norm", "learning_rate")
+    sentence_keys = ("loss", "loss_ctc", "loss_att", "loss_audio", "grad_norm",
+                     "learning_rate")
+    word = {"model.encoder.layers": 2, "model.encoder.dim": 64, "model.encoder.heads": 2,
+            "model.encoder.emb_dropout": 0.0, "data.batch_size": 4, "data.num_frames": 8}
+    # small but for the Conformer's width, 768, which keeps the sync head on
+    # K2; the 64-wide decoder takes proj_decoder
+    sentence = {"model.encoder.layers": 2, "model.encoder.dim": 768,
+                "model.encoder.heads": 12, "model.frontend.resnet_width": 16,
+                "model.decoder.layers": 1, "model.decoder.dim": 64, "model.decoder.heads": 4,
+                "model.decoder.hidden": 128, "model.decoder.dropout": 0.0,
+                "model.labels": 101, "data.batch_size": 4}
+    aug = None
     if path == "lrw_video":
-        cfg = lrw_video_config().override(**common, **{
-            "model.encoder.layers": 2, "model.encoder.dim": 64, "model.encoder.heads": 2,
-            "model.frontend.resnet_width": 16, "model.encoder.emb_dropout": 0.0,
-            "data.batch_size": 4, "data.num_frames": 8})
+        cfg = config.lrw_video_config().override(
+            **common, **word, **{"model.frontend.resnet_width": 16})
         batch = uint8_clips(np, cfg, seed=3)
         aug = build_word_aug(cfg.data)
-        keys = ("loss", "loss_word", "loss_audio", "grad_norm", "learning_rate")
-    else:
-        # small but for the Conformer's width, 768, which keeps the sync head
-        # on K2; the 64-wide decoder takes proj_decoder
-        cfg = lrs3_config().override(**common, **{
-            "model.encoder.layers": 2, "model.encoder.dim": 768, "model.encoder.heads": 12,
-            "model.frontend.resnet_width": 16, "model.decoder.layers": 1,
-            "model.decoder.dim": 64, "model.decoder.heads": 4, "model.decoder.hidden": 128,
-            "model.decoder.dropout": 0.0, "model.labels": 101, "data.batch_size": 4})
+        keys = word_keys
+    elif path == "lrw_landmark":
+        # 1434 landmark features, the -100 pad sentinel in two clips' last
+        # frames; CutMix on, drop-path off
+        cfg = config.lrw_landmark_config().override(
+            **common, **word, **{"model.encoder.droppath": 0.0})
+        batch = landmark_clips(cfg, seed=3)
+        keys = word_keys
+    elif path == "lrs3":
+        cfg = config.lrs3_config().override(**common, **sentence)
         # 16 frames, clips of >= 8: labels of <= 4 keep every CTC alignment feasible
         batch = uint8_sentences(np, cfg, 16, 4, 40, seed=3)
         aug = build_sentence_aug(cfg.data)
-        keys = ("loss", "loss_ctc", "loss_att", "loss_audio", "grad_norm", "learning_rate")
+        keys = sentence_keys
+    else:
+        # 16 frames of 640 samples, clips of >= 8 frames, as lrs3's
+        cfg = config.lrs3_audio_config().override(**common, **sentence)
+        batch = sentence_batch(cfg, num_frames=16, label_len=4, seed=3)
+        keys = sentence_keys
     cpu_state, cpu_m, cpu_relu = run_steps(torch, cfg, batch, "cpu", 2, aug)
     before = read_counts()
     gpu_state, gpu_m, gpu_relu = run_steps(torch, cfg, batch, "cuda", 2, aug)
@@ -632,26 +727,46 @@ def train_full_width(torch, np, path, profile_dir=None):
     """The full-width train step of ``path``; returns (launches in the timed
     steps, summary, the profiled window to run after every timing, or
     None without ``profile_dir``)."""
+    from syncvsr_tpu_torch.data.synthetic import sentence_batch
     from syncvsr_tpu_torch.engine import build_eval_step, build_train_step, create_train_state
     from syncvsr_tpu_torch.models import build_model
     from syncvsr_tpu_torch.ops import image
 
+    aug = transform = None
+    near_ln = {}
     if path == "lrw_video":
         cfg = lrw_video_cfg()
         batch_np = uint8_clips(np, cfg, seed=0)
         frames, video = cfg.data.num_frames, "inputs"
         aug, transform = image.build_word_aug(cfg.data), image.build_eval_transform(cfg.data)
-        near_ln = {"loss_word": cfg.model.labels}
+        near_ln["loss_word"] = cfg.model.labels
         per_step = {"sync_ce_fwd": 1, "sync_ce_split_fwd": 0,
                     "bn_stats_fwd": 20, "bn_stats_bwd": 20}
-    else:
+    elif path == "lrs3":
         cfg = lrs3_cfg()
         batch_np = uint8_sentences(np, cfg, LRS3_FRAMES, LRS3_LABEL_LEN, LRS3_SOURCE, seed=0)
         frames, video = LRS3_FRAMES, "videos"
         aug = image.build_sentence_aug(cfg.data)
         transform = image.build_sentence_eval_transform(cfg.data)
-        near_ln = {}
         # 20 in the frontend's trunk, 12 in the Conformer's conv modules
+        per_step = {"sync_ce_fwd": 0, "sync_ce_split_fwd": 1,
+                    "bn_stats_fwd": 32, "bn_stats_bwd": 32}
+    elif path == "lrw_landmark":
+        # no augmentation function (bench.py::bench_landmark); CutMix,
+        # dropout and drop-path as configured
+        cfg = lrw_landmark_cfg()
+        batch_np = landmark_clips(cfg, seed=0)
+        frames, video = cfg.data.num_frames, "inputs"
+        near_ln["loss_word"] = cfg.model.labels
+        per_step = {"sync_ce_fwd": 1, "sync_ce_split_fwd": 0,
+                    "bn_stats_fwd": 0, "bn_stats_bwd": 0}
+    else:
+        # no augmentation function (bench.py::bench_audio); lengths in samples
+        cfg = lrs3_audio_cfg()
+        batch_np = sentence_batch(cfg, num_frames=AUDIO_FRAMES, label_len=AUDIO_LABEL_LEN,
+                                  seed=0)
+        frames, video = AUDIO_FRAMES, "videos"
+        # 20 in ResNet1D, 12 in the Conformer's conv modules
         per_step = {"sync_ce_fwd": 0, "sync_ce_split_fwd": 1,
                     "bn_stats_fwd": 32, "bn_stats_bwd": 32}
     near_ln["loss_audio"] = cfg.model.codec.audio_vocab_size
@@ -706,22 +821,44 @@ def train_full_width(torch, np, path, profile_dir=None):
     if launches != want:
         raise AssertionError(f"{path}: launches {launches} != {want}")
     before = read_counts()
-    ev = build_eval_step()(state, transform(batch))
+    ev = build_eval_step()(state, transform(batch) if transform else batch)
     ev = {k: float(v) for k, v in ev.items()}
     torch.cuda.synchronize()
     log(f"  eval step: {ev}")
     if not all(math.isfinite(v) for v in ev.values()):
         raise AssertionError(f"non-finite eval metrics: {ev}")
-    sync = "sync_ce_fwd" if path == "lrw_video" else "sync_ce_split_fwd"
+    sync = "sync_ce_fwd" if cfg.model.task == "word" else "sync_ce_split_fwd"
     got = {k: v - before[k] for k, v in read_counts().items() if k.startswith("sync")}
     if got != {k: int(k == sync) for k in got}:
         raise AssertionError(f"the {path} eval step launched {got}, expected one {sync}")
+    summary = {"step_ms": dt * 1e3, "frames_per_s": b * frames / dt, "peak_bytes": peak,
+               "launches_per_step": per_step}
+    if cfg.model.frontend.kind == "conv1d_resnet":
+        summary["stem_conv"] = time_stem_conv(torch, state.model, batch[video])
     window = None
     if profile_dir:
         def window():
             profile_steps(torch, state, step, batch, profile_dir, path, dt)
-    return launches, {"step_ms": dt * 1e3, "frames_per_s": b * frames / dt,
-                      "peak_bytes": peak, "launches_per_step": per_step}, window
+    return launches, summary, window
+
+
+def time_stem_conv(torch, model, audio):
+    """The ResNet1D stem conv alone (C_in 1, k 80, stride 4) on the path's
+    waveform, in CUDA events: its forward, and its forward with the weight
+    gradient (the waveform needs none), beside the forward's bound."""
+    stem = model.frontend.resnet1d.stem_conv
+    x = audio[..., None].to(stem.dtype)
+    y = stem(x)
+    gy = torch.randn_like(y)
+    fwd = cuda_ms(torch, lambda: stem(x))
+    fwd_wgrad = cuda_ms(torch, lambda: torch.autograd.grad(stem(x), stem.weight, gy))
+    c_out, _, k = stem.weight.shape
+    bound, by = bound_ms(2 * y.numel() * k, PEAK_BF16_FLOPS,
+                         (x.numel() + y.numel()) * x.element_size())
+    log(f"  stem conv {tuple(x.shape)} -> {tuple(y.shape)} (k {k}, stride 4, C_in 1, "
+        f"{x.dtype}): forward {fwd:.5f} ms (bound {bound:.5f}, {by}), forward + weight "
+        f"gradient {fwd_wgrad:.5f} ms")
+    return {"forward_ms": fwd, "forward_weight_grad_ms": fwd_wgrad, "forward_bound_ms": bound}
 
 
 # device-time groups of the profile, matched in order on the kernel's name
@@ -815,12 +952,12 @@ def main():
     entries = [check_sync(torch, dev, "mono", later), check_sync(torch, dev, "split", later)]
     bn_entries, retime_k4 = check_bn(torch, dev, later)
     entries += bn_entries
-    for path in ("lrw_video", "lrs3"):
+    for path in PATH_KERNELS:
         check_reference(torch, np, path)
     torch.backends.cudnn.benchmark = True     # the warm-up steps absorb the autotuning
     summary, per_step, windows = {}, {}, []
     launches = {k: 0 for k in counters()}
-    for path in ("lrw_video", "lrs3"):
+    for path in PATH_KERNELS:
         got, summary[path], window = train_full_width(torch, np, path, args.profile)
         launches = {k: launches[k] + got[k] for k in launches}
         per_step[path] = summary[path]["launches_per_step"]
@@ -833,7 +970,7 @@ def main():
     log(f"K4 at the Conformer's BatchNorm shape: {retime_k4():.5f} ms a call after the "
         f"profiler windows, {entries[-1]['paths']['lrs3']['shapes'][-1]['ms']:.5f} before them")
     for e in entries:
-        # launches over both paths' timed steps, and per step of each path
+        # launches over every path's timed steps, and per step of each path
         e["launches"] = launches[e["name"]]
         e["launches_per_step"] = {p: per_step[p][e["name"]] for p in per_step}
     log(f"summary: {json.dumps(summary)} on {card}")

@@ -46,9 +46,9 @@
 //  - each block writes its (sum, count) partial and takes a ticket; the
 //    block that draws the last one sums the partials in block order (32
 //    lanes in a fixed stride, then a fixed shuffle tree) and resets the
-//    ticket. No float atomics, so the result is the same from run to run,
-//    and the call is one launch. The ticket is one per device: one stream
-//    at a time.
+//    ticket, writing the sum to its own [2] result. No float atomics, so
+//    the result is the same from run to run, and the call is one launch.
+//    The ticket is one per device: one stream at a time.
 // Measured on an H100 80GB HBM3 at its 700 W power limit (chip_smoke.py) at
 // the lrs3 shape: 0.02577 ms of device time, 20% of the bound; 0.03702 ms a
 // call with the wrapper's host time, against 0.07008 for cuBLAS's addmm and
@@ -86,8 +86,8 @@ __device__ unsigned int g_split_tickets;
 __global__ void __launch_bounds__(kThreads, 2)
 sync_ce_split_kernel(const __grid_constant__ CUtensorMap tm_x,
                      const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ bias,
-                     const int* __restrict__ tok, float* __restrict__ partials, int n, int d,
-                     int slots, int vocab) {
+                     const int* __restrict__ tok, float* __restrict__ partials,
+                     float* __restrict__ out, int n, int d, int slots, int vocab) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ __align__(8) uint64_t empty[kStages];
@@ -266,8 +266,8 @@ sync_ce_split_kernel(const __grid_constant__ CUtensorMap tm_x,
     c += __shfl_xor_sync(0xffffffffu, c, o);
   }
   if (lane == 0) {
-    partials[2 * blocks] = a;
-    partials[2 * blocks + 1] = c;
+    out[0] = a;
+    out[1] = c;
     g_split_tickets = 0u;
   }
 }
@@ -275,13 +275,13 @@ sync_ce_split_kernel(const __grid_constant__ CUtensorMap tm_x,
 }  // namespace
 
 // x [n, d] bf16; w [d, slots * vocab] bf16; bias [slots * vocab] f32; tok
-// [n, slots] int32; partials [ceil(n/64) * slots + 1, 2] f32: block (tile,
-// slot)'s (sum, count) at row slot * tiles + tile, their sum in block order
-// in the last row. x and w 16-byte aligned; d and vocab multiples of 8,
+// [n, slots] int32; partials [ceil(n/64) * slots, 2] f32: block (tile,
+// slot)'s (sum, count) at row slot * tiles + tile; out [2] f32 = their sum
+// in block order. x and w 16-byte aligned; d and vocab multiples of 8,
 // vocab <= 320. One launch.
 extern "C" int sync_ce_split_fwd(const void* x, const void* w, const void* bias,
-                                 const void* tok, void* partials, int n, int d, int slots,
-                                 int vocab, void* stream) {
+                                 const void* tok, void* partials, void* out, int n, int d,
+                                 int slots, int vocab, void* stream) {
   if (n <= 0 || d <= 0 || d % 8 || slots <= 0 || vocab <= 0 || vocab > kMaxVocab ||
       vocab % 8 || ((uintptr_t)x % 16) || ((uintptr_t)w % 16))
     return (int)cudaErrorInvalidValue;
@@ -298,6 +298,7 @@ extern "C" int sync_ce_split_fwd(const void* x, const void* w, const void* bias,
     return (int)cudaErrorInvalidValue;
   const dim3 grid((n + kRows - 1) / kRows, slots);
   sync_ce_split_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      tm_x, tm_w, (const float*)bias, (const int*)tok, (float*)partials, n, d, slots, vocab);
+      tm_x, tm_w, (const float*)bias, (const int*)tok, (float*)partials, (float*)out, n, d,
+      slots, vocab);
   return (int)cudaGetLastError();
 }

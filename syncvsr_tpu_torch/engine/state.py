@@ -48,6 +48,12 @@ def make_schedule(cfg: OptimConfig) -> Callable[[int], float]:
     return schedule
 
 
+# the shape each frontend reads, and its ranks
+_INPUT_RANKS = {"conv3d_resnet": ("[B, T, H, W, 1]", (5,)),
+                "landmark": ("[B, T, F]", (3,)),
+                "conv1d_resnet": ("[B, S] or [B, S, 1]", (2, 3))}
+
+
 @dataclass
 class TrainState:
     """Everything a train step reads and updates. ``step`` counts applied
@@ -111,7 +117,8 @@ def create_train_state(config: Config, model: nn.Module, example_batch: Dict[str
     """Optimizer state and generators for ``model`` (moved to ``device``,
     None = the GPU). The torch modules size themselves from the config, so
     ``example_batch`` only has to be a batch of the model's kind: word-level
-    video ``inputs``, or sentence-level ``videos`` with their ``lengths``."""
+    ``inputs`` (video or landmarks), or sentence-level ``videos`` (video or
+    waveform) with their ``lengths``."""
     dev = resolve_device(device)
     if config.optim.accum_steps > 1 or config.optim.skip_nonfinite:
         raise NotImplementedError("optim.accum_steps > 1 and optim.skip_nonfinite "
@@ -121,9 +128,11 @@ def create_train_state(config: Config, model: nn.Module, example_batch: Dict[str
         raise ValueError(f"a {config.model.task}-level batch needs "
                          f"{'videos and lengths' if key == 'videos' else 'inputs'}; "
                          f"got {sorted(example_batch)}")
-    video = example_batch[key]
-    if video.ndim != 5:
-        raise ValueError(f"expected video {key} [B, T, H, W, 1], got {tuple(video.shape)}")
+    shape = tuple(example_batch[key].shape)
+    kind = config.model.frontend.kind
+    expect, ranks = _INPUT_RANKS[kind]
+    if len(shape) not in ranks:
+        raise ValueError(f"expected {kind} {key} {expect}, got {shape}")
     model.to(dev)
     names, params = zip(*model.named_parameters())
     return TrainState(

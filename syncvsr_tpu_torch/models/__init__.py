@@ -1,3 +1,4 @@
-"""PyTorch model zoo (word-level video stack so far)."""
+"""PyTorch model zoo: the word-level (video, landmark) and sentence-level
+(video, audio) models."""
 
 from syncvsr_tpu_torch.models.registry import build_model  # noqa: F401

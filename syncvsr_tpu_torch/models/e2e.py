@@ -1,6 +1,6 @@
 """Sentence-level VSR model (port of ``syncvsr_tpu/models/e2e.py``):
-video frontend + Conformer encoder + CTC head + attention decoder + sync
-head.
+video or raw-audio frontend (``build_frontend``) + Conformer encoder + CTC
+head + attention decoder + sync head.
 
     loss = mtlalpha * ctc + (1 - mtlalpha) * att + sync_lambda * audio
 
@@ -22,7 +22,7 @@ from torch import nn
 from syncvsr_tpu_torch.config import ModelConfig
 from syncvsr_tpu_torch.models.conformer import ConformerEncoder
 from syncvsr_tpu_torch.models.decoder import TransformerDecoder
-from syncvsr_tpu_torch.models.frontend import Conv3DResNetFrontend
+from syncvsr_tpu_torch.models.frontend import build_frontend
 from syncvsr_tpu_torch.models.layers import Dense, dropout
 from syncvsr_tpu_torch.models.word import SyncHead
 from syncvsr_tpu_torch.ops.ctc import ctc_loss
@@ -41,11 +41,9 @@ class SentenceVSRModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
-        enc, fe, dec, codec = cfg.encoder, cfg.frontend, cfg.decoder, cfg.codec
+        enc, dec, codec = cfg.encoder, cfg.decoder, cfg.codec
         self.sos = self.eos = cfg.labels - 1
-        self.frontend = Conv3DResNetFrontend(
-            fe.stem_channels, fe.resnet_width, fe.relu_type, fe.stem_act,
-            fe.fold_threshold, self.dtype)
+        self.frontend = build_frontend(cfg.frontend, self.dtype)
         self.encoder = ConformerEncoder(
             self.frontend.out_dim, enc.layers, enc.dim, enc.heads,
             int(enc.hidden_ratio * enc.dim), enc.conv_kernel, enc.macaron,

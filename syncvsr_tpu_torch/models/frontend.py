@@ -1,15 +1,25 @@
-"""Video frontend (port of ``syncvsr_tpu/models/frontend.py::
-Conv3DResNetFrontend``): Conv3D stem -> stem BatchNorm -> GELU (tanh) ->
-(1, 3, 3) max-pool -> ResNet-18 trunk -> spatial mean, [B, T, H, W, 1] ->
-[B, T, 8*width]."""
+"""Input frontends (port of ``syncvsr_tpu/models/frontend.py``), mapping a
+modality to a [B, T, D] sequence:
+
+* ``Conv3DResNetFrontend``: Conv3D stem -> stem BatchNorm -> GELU (tanh)
+  -> (1, 3, 3) max-pool -> ResNet-18 trunk -> spatial mean,
+  [B, T, H, W, 1] -> [B, T, 8*width];
+* ``LandmarkFrontend``: one Dense over each frame's flattened landmarks
+  (flax name ``wte``), [B, T, F] -> [B, T, dim];
+* ``Conv1DResNetFrontend``: the raw-audio ResNet1D (flax name
+  ``resnet1d``), [B, S] or [B, S, 1] at 16 kHz -> [B, S // 640, 8*width].
+
+``build_frontend`` picks one by ``frontend.kind``, as the JAX function does.
+"""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from syncvsr_tpu_torch.models.layers import activation, variance_scaling_fan_out_
-from syncvsr_tpu_torch.models.resnet import ResNetTrunk
+from syncvsr_tpu_torch.config import FrontendConfig
+from syncvsr_tpu_torch.models.layers import Dense, activation, variance_scaling_fan_out_
+from syncvsr_tpu_torch.models.resnet import ResNet1D, ResNetTrunk
 from syncvsr_tpu_torch.ops.cuda_bn import FastBatchNorm
 from syncvsr_tpu_torch.ops.maxpool import max_pool_3x3_s2
 from syncvsr_tpu_torch.ops.stem import stem_conv3d
@@ -47,3 +57,47 @@ class Conv3DResNetFrontend(nn.Module):
         if fold:
             feats = feats.reshape(b, t, feats.shape[-1])
         return feats
+
+
+class LandmarkFrontend(nn.Module):
+    """[B, T, F] landmarks (the -100 pad sentinel already zeroed by the
+    word model) -> [B, T, dim] in ``dtype``."""
+
+    def __init__(self, features: int, dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.out_dim = dim
+        self.wte = Dense(features, dim, dtype)
+
+    def forward(self, landmarks: Tensor, train: bool = False) -> Tensor:
+        return self.wte(landmarks)
+
+
+class Conv1DResNetFrontend(nn.Module):
+    """Raw 16 kHz waveform [B, S] or [B, S, 1], cut to a multiple of 640
+    samples (one video frame) and cast to ``dtype`` -> ResNet1D features."""
+
+    def __init__(self, width: int = 64, relu_type: str = "swish",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.resnet1d = ResNet1D(width, relu_type=relu_type, dtype=dtype)
+        self.out_dim = self.resnet1d.out_dim
+
+    def forward(self, audio: Tensor, train: bool = False) -> Tensor:
+        if audio.dim() == 2:
+            audio = audio[..., None]
+        s = audio.shape[1] // 640 * 640
+        return self.resnet1d(audio[:, :s].to(self.dtype), train)
+
+
+def build_frontend(cfg: FrontendConfig, dtype: torch.dtype, embed_dim: int = 0) -> nn.Module:
+    """The frontend of ``cfg.kind``; ``embed_dim`` sets the landmark
+    embedding's width (the others have their own output widths)."""
+    if cfg.kind == "landmark":
+        return LandmarkFrontend(cfg.input_features, embed_dim or cfg.out_dim, dtype)
+    if cfg.kind == "conv3d_resnet":
+        return Conv3DResNetFrontend(cfg.stem_channels, cfg.resnet_width, cfg.relu_type,
+                                    cfg.stem_act, cfg.fold_threshold, dtype)
+    if cfg.kind == "conv1d_resnet":
+        return Conv1DResNetFrontend(cfg.resnet_width, cfg.relu_type, dtype=dtype)
+    raise ValueError(f"unknown frontend kind: {cfg.kind}")

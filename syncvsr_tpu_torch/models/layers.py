@@ -149,19 +149,25 @@ def apply_rope(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
 
 
 class FeedForward(nn.Module):
-    """GLU feed-forward: ``wo(gelu(wi_gate(x)) * wi(x))``."""
+    """Position-wise feed-forward: the GLU form ``wo(gelu(wi_gate(x)) *
+    wi(x))`` or the plain ``wo(gelu(wi(x)))`` (leaves ``wi`` and ``wo``
+    only), dropout before ``wo``."""
 
-    def __init__(self, dim: int, hidden: int, dropout: float = 0.0,
+    def __init__(self, dim: int, hidden: int, dropout: float = 0.0, use_glu: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.rate = dropout
-        self.wi_gate = Dense(dim, hidden, dtype)
+        if use_glu:
+            self.wi_gate = Dense(dim, hidden, dtype)
         self.wi = Dense(dim, hidden, dtype)
         self.wo = Dense(hidden, dim, dtype)
 
     def forward(self, x: Tensor, det: bool = True,
                 gen: Optional[torch.Generator] = None) -> Tensor:
-        h = F.gelu(self.wi_gate(x), approximate="tanh") * self.wi(x)
+        if hasattr(self, "wi_gate"):
+            h = F.gelu(self.wi_gate(x), approximate="tanh") * self.wi(x)
+        else:
+            h = F.gelu(self.wi(x), approximate="tanh")
         return self.wo(dropout(h, self.rate, det, gen))
 
 

@@ -7,6 +7,7 @@ from typing import Optional, Union
 import torch
 
 from syncvsr_tpu_torch.config import Config
+from syncvsr_tpu_torch.ops.cuda_sync import MAX_VOCAB
 from syncvsr_tpu_torch.utils.device import resolve_device
 
 
@@ -14,13 +15,9 @@ def _check_ported(config: Config) -> None:
     """Raise for configurations whose modules the port does not have yet."""
     m = config.model
     missing = []
-    if m.frontend.kind != "conv3d_resnet":
-        missing.append(f"model.frontend.kind={m.frontend.kind!r}")
     if m.task == "word":
         if m.encoder.kind != "transformer":
             missing.append(f"model.encoder.kind={m.encoder.kind!r}")
-        if not (m.encoder.use_rmsnorm and m.encoder.use_glu):
-            missing.append("a LayerNorm or plain-GELU transformer")
     elif m.task == "sentence":
         if m.encoder.kind != "conformer":
             missing.append(f"model.encoder.kind={m.encoder.kind!r} for task='sentence'")
@@ -28,6 +25,9 @@ def _check_ported(config: Config) -> None:
         missing.append(f"model.task={m.task!r}")
     if m.remat:
         missing.append("model.remat=True")
+    if m.codec.audio_vocab_size > MAX_VOCAB:   # lrw1000's wav2vec2 codec: 640
+        missing.append(f"model.codec.audio_vocab_size={m.codec.audio_vocab_size} "
+                       f"(the sync kernels take at most {MAX_VOCAB})")
     if missing:
         raise NotImplementedError(
             "not ported to PyTorch yet: " + ", ".join(missing))

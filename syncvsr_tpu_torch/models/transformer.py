@@ -1,6 +1,8 @@
 """Pre-norm rotary transformer encoder (port of
-``syncvsr_tpu/models/transformer.py``, the LRW video flavour: RMSNorm + GLU
-feed-forward + rotary attention).
+``syncvsr_tpu/models/transformer.py``), both flavours of the JAX module:
+RMSNorm + GLU feed-forward (the LRW video stack) or LayerNorm + plain GELU
+feed-forward (the LRW landmark stack), chosen by ``use_rmsnorm`` and
+``use_glu``, with rotary attention and drop-path.
 
 The attention's inner width (``dim`` = heads x head_dim) may differ from the
 residual stream it reads and writes: on ``lrw_video`` the stream is 513
@@ -17,6 +19,7 @@ from torch import nn
 
 from syncvsr_tpu_torch.models.layers import (
     FeedForward,
+    LayerNorm,
     RMSNorm,
     apply_rope,
     dot_attention,
@@ -102,15 +105,16 @@ class RotaryAttention(nn.Module):
 
 class TransformerBlock(nn.Module):
     def __init__(self, stream: int, dim: int, heads: int, hidden: int,
-                 rope: bool = True, rope_dim: int = 0, msa_dropout: float = 0.0,
-                 mlp_dropout: float = 0.0, droppath: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 use_rmsnorm: bool = True, use_glu: bool = True, rope: bool = True,
+                 rope_dim: int = 0, msa_dropout: float = 0.0, mlp_dropout: float = 0.0,
+                 droppath: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
+        norm = RMSNorm if use_rmsnorm else LayerNorm
         self.droppath = droppath
-        self.norm_attn = RMSNorm(stream, dtype)
+        self.norm_attn = norm(stream, dtype)
         self.attn = RotaryAttention(stream, dim, heads, msa_dropout, rope, rope_dim, dtype)
-        self.norm_ff = RMSNorm(stream, dtype)
-        self.ff = FeedForward(stream, hidden, mlp_dropout, dtype=dtype)
+        self.norm_ff = norm(stream, dtype)
+        self.ff = FeedForward(stream, hidden, mlp_dropout, use_glu, dtype)
 
     def forward(self, x: Tensor, positions: Tensor, det: bool = True,
                 gen: Optional[torch.Generator] = None) -> Tensor:
@@ -122,23 +126,28 @@ class TransformerBlock(nn.Module):
 
 class TransformerEncoder(nn.Module):
     """Stack of pre-norm rotary blocks over [B, T, stream], then a final
-    RMSNorm over every position (flax name ``RMSNorm_0``)."""
+    norm over every position, under flax's auto-name: ``RMSNorm_0``, or
+    ``LayerNorm_0`` (whose own parameters sit in a further ``LayerNorm_0``)."""
 
     def __init__(self, stream: int, layers: int, dim: int, heads: int, hidden: int,
-                 rope: bool = True, rope_dim: int = 0, msa_dropout: float = 0.0,
-                 mlp_dropout: float = 0.0, droppath: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 use_rmsnorm: bool = True, use_glu: bool = True, rope: bool = True,
+                 rope_dim: int = 0, msa_dropout: float = 0.0, mlp_dropout: float = 0.0,
+                 droppath: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.layers = layers
         for i in range(layers):
             self.add_module(f"block_{i}", TransformerBlock(
-                stream, dim, heads, hidden, rope, rope_dim, msa_dropout,
-                mlp_dropout, droppath, dtype))
-        self.RMSNorm_0 = RMSNorm(stream, dtype)
+                stream, dim, heads, hidden, use_rmsnorm, use_glu, rope, rope_dim,
+                msa_dropout, mlp_dropout, droppath, dtype))
+        if use_rmsnorm:
+            self.RMSNorm_0 = RMSNorm(stream, dtype)
+        else:
+            self.LayerNorm_0 = LayerNorm(stream, dtype)
 
     def forward(self, x: Tensor, det: bool = True,
                 gen: Optional[torch.Generator] = None) -> Tensor:
         positions = torch.arange(x.shape[1], device=x.device)
         for i in range(self.layers):
             x = getattr(self, f"block_{i}")(x, positions, det, gen)
-        return self.RMSNorm_0(x)
+        final = self.RMSNorm_0 if hasattr(self, "RMSNorm_0") else self.LayerNorm_0
+        return final(x)

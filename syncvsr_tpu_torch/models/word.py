@@ -1,6 +1,7 @@
 """Word-level VSR model, transformer path (port of
-``syncvsr_tpu/models/word.py``): video frontend + word-boundary channel +
-CLS token + rotary transformer + word head + sync head.
+``syncvsr_tpu/models/word.py``): video or landmark frontend (landmark
+frames equal to the -100 pad sentinel are zeroed first) + word-boundary
+channel + CLS token + rotary transformer + word head + sync head.
 
 Loss: word cross-entropy (label-smoothed, soft under CutMix) plus
 ``sync_lambda`` x the per-frame audio-token cross-entropy. In train mode
@@ -17,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from syncvsr_tpu_torch.config import ModelConfig
-from syncvsr_tpu_torch.models.frontend import Conv3DResNetFrontend
+from syncvsr_tpu_torch.models.frontend import build_frontend
 from syncvsr_tpu_torch.models.layers import Dense, dropout, trunc_normal_
 from syncvsr_tpu_torch.models.transformer import TransformerEncoder
 from syncvsr_tpu_torch.ops.cuda_sync import fused_sync_cross_entropy
@@ -68,9 +69,7 @@ class WordVSRModel(nn.Module):
         self.use_cutmix = use_cutmix
         self.dtype = getattr(torch, cfg.dtype)
         enc, fe, codec = cfg.encoder, cfg.frontend, cfg.codec
-        self.frontend = Conv3DResNetFrontend(
-            fe.stem_channels, fe.resnet_width, fe.relu_type, fe.stem_act,
-            fe.fold_threshold, self.dtype)
+        self.frontend = build_frontend(fe, self.dtype, embed_dim=enc.dim)
         width = self.frontend.out_dim
         if width != enc.dim:
             self.frontend_proj = Dense(width, enc.dim, self.dtype)
@@ -78,8 +77,8 @@ class WordVSRModel(nn.Module):
         self.cls_token = nn.Parameter(trunc_normal_(torch.empty(1, 1, stream)))
         self.encoder = TransformerEncoder(
             stream, enc.layers, enc.dim, enc.heads,
-            enc.hidden or int(enc.hidden_ratio * enc.dim), enc.rope, enc.rope_dim,
-            enc.msa_dropout, enc.mlp_dropout, enc.droppath, self.dtype)
+            enc.hidden or int(enc.hidden_ratio * enc.dim), enc.use_rmsnorm, enc.use_glu,
+            enc.rope, enc.rope_dim, enc.msa_dropout, enc.mlp_dropout, enc.droppath, self.dtype)
         self.category_classifier = Dense(stream, cfg.labels, torch.float32)
         self.audio_classifier = SyncHead(stream, codec.audio_alignment, codec.vq_groups,
                                          codec.audio_vocab_size)
@@ -92,6 +91,8 @@ class WordVSRModel(nn.Module):
                 dropout_gen: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
         # ``attention_mask`` belongs to the TCN path; the transformer path ignores it
         cfg, enc, codec, dtype = self.cfg, self.cfg.encoder, self.cfg.codec, self.dtype
+        if inputs.dim() == 3:   # landmark pad sentinel -> 0
+            inputs = torch.where(inputs == -100.0, torch.zeros_like(inputs), inputs)
         onehot = F.one_hot(labels.long(), cfg.labels).float() if labels.dim() == 1 else labels
         t_in = inputs.shape[1]
         need = t_in * codec.audio_alignment

@@ -16,6 +16,10 @@ product, the bias f32, f32 accumulation).
   sync_ce_split_fwd``, replacing ``_kernel_split``): grid (64-row tile,
   slot), TMA and wgmma, one launch (``split_geometry``).
 
+Both keep their partials in one per-device scratch buffer (they run on one
+stream at a time) and write their (sum, count) into a slice of the
+per-device result arena (``utils/kernels``): no allocation a call.
+
 ``sync_ce_partials`` picks between them by the JAX package's rule
 (``_pallas_forward``): K2 when the padded bf16 weight exceeds 4 MiB. The
 backward is the chunked recompute of ``ops/sync_loss.py`` in plain
@@ -39,7 +43,7 @@ from syncvsr_tpu_torch.utils import kernels
 Tensor = torch.Tensor
 
 _SMS = 132        # H100 SXM streaming multiprocessors
-_MAX_VOCAB = 320  # vocabulary one block holds per slot
+MAX_VOCAB = 320  # vocabulary one block holds per slot
 _MONO_ROWS = 128  # rows per block of K1 (two wgmma m64 tiles)
 _MONO_STAGES = 3
 _SPLIT_ROWS = 64  # rows per block of K2 (one wgmma m64)
@@ -82,9 +86,9 @@ def split_geometry(n: int, slots: int) -> dict:
     the 320 columns a block holds, over a ring of two 48 KB stages."""
     tiles = -(-n // _SPLIT_ROWS)
     return {"grid": (tiles, slots), "blocks": tiles * slots, "rows": _SPLIT_ROWS,
-            "threads": 256, "columns_per_warpgroup": _MAX_VOCAB // 2,
+            "threads": 256, "columns_per_warpgroup": MAX_VOCAB // 2,
             # the ring, its 1024-byte alignment, the barriers and merge buffers
-            "smem_bytes": 2 * (_SPLIT_ROWS + _MAX_VOCAB) * 64 * 2 + 1024 + 864}
+            "smem_bytes": 2 * (_SPLIT_ROWS + MAX_VOCAB) * 64 * 2 + 1024 + 864}
 
 
 def mono_geometry(n: int, slots: int) -> dict:
@@ -97,7 +101,7 @@ def mono_geometry(n: int, slots: int) -> dict:
     allow no second), and the waves of the 132 SMs the grid makes."""
     tiles = -(-n // _MONO_ROWS)
     threads, stages = 256, _MONO_STAGES
-    smem = (stages * (_MONO_ROWS * 64 * 2 + _MAX_VOCAB * 64 * 2) + 1024
+    smem = (stages * (_MONO_ROWS * 64 * 2 + MAX_VOCAB * 64 * 2) + 1024
             + 16 * stages + _MONO_ROWS * 3 * 4 + threads // 32 * 8)
     return {"grid": (tiles, slots), "blocks": tiles * slots, "rows": _MONO_ROWS,
             "threads": threads, "stages": stages, "accumulators": 80 * _MONO_ROWS // 64,
@@ -114,9 +118,9 @@ def _kernel_operands(name: str, x: Tensor, w: Tensor, b: Tensor, tok: Tensor):
         raise ValueError(f"{name}: shapes x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"b {tuple(b.shape)}, tok {tuple(tok.shape)} disagree")
     vocab = sv // s
-    if vocab > _MAX_VOCAB or vocab % 8:
+    if vocab > MAX_VOCAB or vocab % 8:
         raise ValueError(f"{name}: vocab {vocab} per slot must be a multiple "
-                         f"of 8 and at most {_MAX_VOCAB}")
+                         f"of 8 and at most {MAX_VOCAB}")
     if not (w.is_cuda and b.is_cuda and tok.is_cuda):
         raise ValueError(f"{name}: all inputs must be on the GPU")
     wb = w.to(torch.bfloat16).contiguous()
@@ -180,15 +184,16 @@ def sync_ce_split_partials(x: Tensor, w: Tensor, b: Tensor, tok: Tensor
         raise ValueError(f"sync_ce_split_partials: D={d} must be a multiple of 8")
     if xb.data_ptr() % 16:
         raise ValueError("sync_ce_split_partials: the features are not 16-byte aligned")
-    # the blocks' partials, and in the last row their sum in block order
-    partials = torch.empty((split_geometry(n, s)["blocks"] + 1, 2), device=x.device,
-                           dtype=torch.float32)
+    device = x.get_device()
+    partials = kernels.scratch("sync_partials", device,
+                               2 * split_geometry(n, s)["blocks"])[1]
+    out, res = kernels.result(device, 2)
     status = kernels.library().sync_ce_split_fwd(
-        xb.data_ptr(), wb.data_ptr(), bf.data_ptr(), ti.data_ptr(), partials.data_ptr(),
-        n, d, s, vocab, kernels.current_stream(x.device))
+        xb.data_ptr(), wb.data_ptr(), bf.data_ptr(), ti.data_ptr(), partials, out, n, d, s,
+        vocab, kernels.current_stream(device))
     kernels.check(status, "sync_ce_split_fwd")
     sync_ce_split_partials.launches += 1
-    return partials[-1].unbind(0)
+    return res[0], res[1]
 
 
 sync_ce_split_partials.launches = 0

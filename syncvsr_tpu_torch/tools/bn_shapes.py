@@ -8,8 +8,9 @@ one card:
         [--sweep]
 
 It imports ``syncvsr_tpu_torch`` and ``chip_smoke`` from ``--root`` and
-nothing of JAX. For every BatchNorm shape of the ``lrw_video`` and ``lrs3``
-train steps (``chip_smoke.bn_shapes()``), in bf16, it prints per kernel:
+nothing of JAX. For every BatchNorm shape of the train steps that have
+them (``chip_smoke.bn_shapes()``: ``lrw_video``, ``lrs3`` and, in a checkout
+that has it, ``lrs3_audio``), in bf16, it prints per kernel:
 ``ms`` (CUDA events around 20 warm back-to-back calls of the wrapper, host
 included, every timing taken before the first profiler window),
 ``device_ms`` (the kernel's own device time from a torch.profiler window

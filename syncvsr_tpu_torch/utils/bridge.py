@@ -13,6 +13,9 @@ Dense ``kernel``            [in, out]                       ``weight`` [out, in]
 DenseGeneral wq/wk/wv       [in, H, Dh]                     ``weight`` [H, Dh, in]
 DenseGeneral ``wo``         [H, Dh, out]                    ``weight`` [out, H, Dh]
 depthwise conv ``dw``       (K, 1, C)                       ``weight`` [C, 1, K]
+1-D conv (``stem_conv``,    (K, I, O)                       ``weight`` [O, I, K]
+``conv1``, ``conv2``,
+``downsample_conv``)
 ``stem_conv_kernel``        (5, 7, 7, 1, C) THWIO           same name, OITHW
 norm ``scale``              [C]                             ``weight`` [C]
 ``bias``, ``cls_token``,    any                             same
@@ -59,21 +62,32 @@ def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
             yield prefix + (k,), np.asarray(v)
 
 
+# 3-D kernels by module name: DenseGeneral projections into heads and out
+# of them, and 1-D convs (the depthwise one and ResNet1D's), whose
+# permutations are their own inverses
+_HEADS_IN = ("wq", "wk", "wv", "linear_pos")
+_CONV_1D = ("dw", "stem_conv", "conv1", "conv2", "downsample_conv")
+
+
+def _perm_3d(module: str, to_torch: bool) -> Tuple[int, int, int]:
+    if module in _CONV_1D:
+        return (2, 1, 0)
+    if module in _HEADS_IN:
+        return (1, 2, 0) if to_torch else (2, 0, 1)
+    if module == "wo":
+        return (2, 0, 1) if to_torch else (1, 2, 0)
+    raise KeyError(f"no layout for the 3-D kernel of module {module!r}")
+
+
 def _kernel_to_torch(path: Tuple[str, ...], a: np.ndarray) -> np.ndarray:
-    if a.ndim == 3:  # the depthwise conv, or a DenseGeneral
-        module = path[-2]
-        if module == "dw":
-            return a.transpose(2, 1, 0)
-        return a.transpose(2, 0, 1) if module == "wo" else a.transpose(1, 2, 0)
+    if a.ndim == 3:
+        return a.transpose(_perm_3d(path[-2], True))
     return a.transpose(_TO_TORCH[a.ndim])
 
 
 def _kernel_to_flax(key: str, a: np.ndarray) -> np.ndarray:
     if a.ndim == 3:
-        module = key.rsplit(".", 2)[-2]
-        if module == "dw":
-            return a.transpose(2, 1, 0)
-        return a.transpose(1, 2, 0) if module == "wo" else a.transpose(2, 0, 1)
+        return a.transpose(_perm_3d(key.rsplit(".", 2)[-2], False))
     return a.transpose(_TO_FLAX[a.ndim])
 
 

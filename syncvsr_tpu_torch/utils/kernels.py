@@ -33,8 +33,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     # x, w, b, tok, partials, out, n, d, ldx, slots, vocab, stream
     "sync_ce_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, w, b, tok, partials, n, d, slots, vocab, stream
-    "sync_ce_split_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w, b, tok, partials, out, n, d, slots, vocab, stream
+    "sync_ce_split_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, partials, out, n, c, n_strips, is_bf16, stream
     "bn_stats_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
     # g, x, mean, inv, partials, out, n, c, n_strips, is_bf16, stream

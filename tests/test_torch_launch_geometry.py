@@ -72,7 +72,8 @@ def test_k3_geometry(n, c, elem_size):
         cuda_bn._check_2d("bn_stats", torch.zeros(2, c, dtype=torch.float16))
 
 
-@pytest.mark.parametrize("n", [8 * chip_smoke.LRS3_FRAMES, 1000, 33, 1])
+@pytest.mark.parametrize("n", [8 * chip_smoke.LRS3_FRAMES, 32 * chip_smoke.AUDIO_FRAMES, 1000,
+                               33, 1])
 def test_k2_geometry(n):
     geo = cuda_sync.split_geometry(n, 8)
     tiles, slots = geo["grid"]
@@ -88,10 +89,11 @@ def test_k2_geometry(n):
 
 
 LRW_N = 29 * 96   # lrw_video's rows: 96 clips of 29 frames
+LANDMARK_N = 29 * 1024   # lrw_landmark's: 1024 clips of 29 frames
 
 
 @pytest.mark.parametrize("slots", [8, 3, 1])
-@pytest.mark.parametrize("n", [LRW_N, 1000, 33, 1])
+@pytest.mark.parametrize("n", [LRW_N, LANDMARK_N, 1000, 33, 1])
 def test_k1_geometry(n, slots):
     geo = cuda_sync.mono_geometry(n, slots)
     tiles, grid_slots = geo["grid"]
@@ -118,7 +120,7 @@ def test_k1_geometry(n, slots):
         assert geo["waves"] == pytest.approx(4 / 3, abs=0.01)
 
 
-@pytest.mark.parametrize("d", [513, 520, 7])
+@pytest.mark.parametrize("d", [513, 520, 7, 320])
 def test_k1_pad_features(d):
     # the pad columns are zero, the rest the features in bf16, and the plain
     # version over the padded operands (zero weight rows below D) gives the

@@ -144,4 +144,4 @@ def test_sentence_factory_and_batch_checks():
         create_train_state(cfg, model, {k: v for k, v in batch.items() if k != "lengths"},
                            device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(tcfg.lrs3_audio_config(), device="cpu")
+        build_model(tcfg.lrs3_config().override(**{"model.remat": True}), device="cpu")

@@ -1,7 +1,7 @@
 """Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
-a tiny ``lrw_video`` and a tiny ``lrs3`` configuration built in both
-packages, the JAX model's variables, and a port model carrying the same
-weights through the bridge."""
+tiny ``lrw_video``, ``lrw_landmark``, ``lrs3`` and ``lrs3_audio``
+configurations built in both packages, the JAX model's variables, and a
+port model carrying the same weights through the bridge."""
 
 import jax
 import jax.numpy as jnp
@@ -51,6 +51,22 @@ def sentence_configs(**over):
     return jcfg.lrs3_config().override(**o), tcfg.lrs3_config().override(**o)
 
 
+def landmark_configs(**over):
+    """(JAX config, port config) of the tiny lrw_landmark model: TINY's
+    encoder, heads and batch over the published 1434 landmark features."""
+    o = dict(TINY, **over)
+    return (jcfg.lrw_landmark_config().override(**o),
+            tcfg.lrw_landmark_config().override(**o))
+
+
+def audio_configs(**over):
+    """(JAX config, port config) of the tiny lrs3_audio model: the tiny lrs3
+    model over an 8-wide ResNet1D."""
+    o = dict(SENTENCE_TINY, **over)
+    return (jcfg.lrs3_audio_config().override(**o),
+            tcfg.lrs3_audio_config().override(**o))
+
+
 def to_np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
@@ -61,7 +77,7 @@ def jax_model_and_vars(cfg_j, batch):
         {"params": jax.random.PRNGKey(0), "mixup": jax.random.PRNGKey(1),
          "dropout": jax.random.PRNGKey(2)}, **b, det=True))(
         {k: jnp.asarray(v) for k, v in batch.items()})
-    return model, to_np(variables["params"]), to_np(variables["batch_stats"])
+    return model, to_np(variables["params"]), to_np(variables.get("batch_stats", {}))
 
 
 class JitInit:
