@@ -12,35 +12,44 @@ non-zero before the last line is printed:
    with nvcc for sm_90a, one process per source, and prints ptxas's
    registers / shared memory / spills;
 3. kernels: each kernel against its plain PyTorch version at the shapes
-   its train steps give it (K1 at ``lrw_video``'s and ``lrw_landmark``'s
-   sync heads and at ``MONO_CASES``, K2 at ``lrs3``'s and ``lrs3_audio``'s
-   and at ``SPLIT_CASES``, K3/K4 at every BatchNorm shape of the three
-   steps that have them and at ``BN_EXTRA``; each twice, bitwise), with
+   its train steps give it (K1 at ``lrw_video``'s, ``lrw_landmark``'s and
+   ``lrw1000``'s sync heads, this one 4 slots of 640 tokens, and at
+   ``MONO_CASES``; K2 at ``lrs3``'s, ``lrs3_audio``'s and ``lrw_dctcn``'s
+   and at ``SPLIT_CASES``; K3/K4 at every BatchNorm shape of the steps
+   that have them and at ``BN_EXTRA``; each twice, bitwise), with
    its time (``ms``: CUDA events around 20 warm back-to-back calls of the
    wrapper, host included) beside its bound, the plain version's time and
    one PyTorch library call's, per path; K3/K4 per shape too;
 4. reference, for each path: two train steps of a small f32 model on the
    card (through the kernels) against the same steps on the CPU (the plain
    versions): ``lrw_video``, ``lrs3`` (a 768-wide Conformer, so the sync
-   head takes K2), ``lrw_landmark`` (the pad sentinel in some frames) and
-   ``lrs3_audio`` (768 wide, 10240 samples a clip): the metrics and Adam's
-   first moment, less the ReLU units whose input f32 rounding put on the
-   other side of 0;
+   head takes K2; one clip shorter than its labels, so the CTC loss's
+   recursion for rows with no alignment runs), ``lrw_landmark`` (the pad sentinel in some frames),
+   ``lrs3_audio`` (768 wide, 10240 samples a clip), ``lrw1000`` (64 wide,
+   4 slots of 640 tokens: K1's two column passes) and ``lrw_dctcn`` (a
+   one-layer DC-TCN 896 wide, so its head takes K2, twice a step under
+   mixup): the metrics and Adam's first moment, less the ReLU units whose
+   input f32 rounding put on the other side of 0;
 5. train, for each path: the full-width train step (``lrw_video``: batch
    96, 29 uint8 96x112 frames; ``lrs3``: batch 8, 160 uint8 128x128 frames,
    12-layer Conformer + 6-layer decoder; ``lrw_landmark``: batch 1024, 29
    frames of 1434 f32 landmark features, 8 x 320 LayerNorm/GELU encoder;
    ``lrs3_audio``: batch 32, 102400 samples of waveform, ResNet1D then
-   ``lrs3``'s Conformer and decoder; bf16, augmentation and dropout as
+   ``lrs3``'s Conformer and decoder; ``lrw1000``: batch 96, 40 uint8
+   frames, 1000 labels, the wav2vec2 codec's 4 slots of 640; ``lrw_dctcn``:
+   batch 96, 29 uint8 frames, the 4 x 3-layer DC-TCN (1664 wide), mixup,
+   a ragged attention mask; bf16, augmentation and dropout as
    configured), 3 warm-up and two windows of 5 timed steps with the
    kernels' launches counted from 0, then one eval step; the audio stem
-   conv timed alone;
+   conv timed alone; ``lrs3`` also times 5 steps of a batch whose last
+   clip is shorter than its labels (the CTC recursion's cost);
 6. profiler windows, after every timing above (a process that torch.profiler
    has traced can pay more host time a launch from then on): each kernel's
    own device time (``device_ms``) over the calls phase 3 timed (K1's with
    its features' pad copy), each held to one kernel of its own a call (K3
    and K4 to one device kernel); with ``--profile DIR``, 3 profiled steps of
-   each path (device time by kernel group and the device's idle share);
+   each path (device time by kernel group and the device's idle share), and
+   of ``lrs3``'s batch with the infeasible row;
    then K4 at the Conformer's shape timed again, beside its phase-3 time;
 7. the ``kernels`` JSON line, the card line and the ``ok`` line.
 """
@@ -157,6 +166,22 @@ def lrs3_audio_cfg():
     return lrs3_audio_config().override(**{"data.batch_size": 32})
 
 
+def lrw1000_cfg():
+    from syncvsr_tpu_torch.config import lrw1000_config
+
+    # bs 96 x 40 frames, crop 96, 12 x 512 encoder over a 512-wide stream (no
+    # word boundary), 1000 labels, wav2vec2 codec (2 x 2 slots of 640), bf16
+    return lrw1000_config()
+
+
+def lrw_dctcn_cfg():
+    from syncvsr_tpu_torch.config import lrw_dctcn_config
+
+    # bs 96 x 29 frames, crop 96, DenseTCN 4 blocks x 3 layers, growth 384,
+    # reduced 512, SE on, dropout 0.2, mixup (alpha 1), 1664-wide sync head, bf16
+    return lrw_dctcn_config()
+
+
 def resnet1d_bn_shapes(cfg, frames):
     """(N, C, launches per step) of every BatchNorm statistics call of the
     ResNet1D audio frontend over ``frames`` frames (640 samples each) a clip:
@@ -171,6 +196,7 @@ def bn_shapes():
     """Per path with BatchNorms, (N, C, launches per step) of every
     BatchNorm statistics call (``lrw_landmark`` has none)."""
     lrw, lrs3, audio = lrw_video_cfg(), lrs3_cfg(), lrs3_audio_cfg()
+    lrw1000, dctcn = lrw1000_cfg(), lrw_dctcn_cfg()
 
     def conformer(cfg, frames):
         return (cfg.data.batch_size * frames, cfg.model.encoder.dim, cfg.model.encoder.layers)
@@ -178,7 +204,9 @@ def bn_shapes():
     return {"lrw_video": trunk_bn_shapes(lrw, lrw.data.num_frames),
             "lrs3": trunk_bn_shapes(lrs3, LRS3_FRAMES) + [conformer(lrs3, LRS3_FRAMES)],
             "lrs3_audio": (resnet1d_bn_shapes(audio, AUDIO_FRAMES)
-                           + [conformer(audio, AUDIO_FRAMES)])}
+                           + [conformer(audio, AUDIO_FRAMES)]),
+            "lrw1000": trunk_bn_shapes(lrw1000, lrw1000.data.num_frames),
+            "lrw_dctcn": trunk_bn_shapes(dctcn, dctcn.data.num_frames)}
 
 
 def device_ms(torch, fn, names, iters=20):
@@ -222,31 +250,46 @@ def device_ms(torch, fn, names, iters=20):
     return ms, None, None, "graph replay", ms
 
 
-# K1's cases (N, D, V, every token ignored, the features' dtype):
-# lrw_video's and lrw_landmark's shapes first (timed; the landmark head's
-# features reach the wrapper in f32, as in its step), then ragged row
-# counts, D = 512 and 640 (bf16 rows TMA reads as they lie) and 520 (no
-# copy, a ragged last stage), vocabularies below the 320 columns a block
-# holds, and no valid token
-MONO_CASES = [(29 * 96, 513, 320, False, "bfloat16"), (29 * 1024, 320, 320, False, "float32"),
-              (1000, 513, 320, False, "bfloat16"), (33, 513, 320, False, "bfloat16"),
-              (1, 513, 320, False, "bfloat16"), (1000, 320, 320, False, "float32"),
-              (33, 320, 320, False, "float32"), (29 * 96, 512, 320, False, "bfloat16"),
-              (29 * 96, 520, 320, False, "bfloat16"), (29 * 96, 640, 320, False, "bfloat16"),
-              (29 * 96, 513, 256, False, "bfloat16"), (29 * 1024, 320, 256, False, "float32"),
-              (29 * 96, 513, 320, True, "bfloat16")]
-# K2's cases: lrs3's and lrs3_audio's shapes first (timed; the audio head's
-# features in f32, as in its step), then ragged row counts, a D that is no
-# multiple of the 64-deep stage, a vocabulary below the 320 columns a block
-# holds, and no valid token
-SPLIT_CASES = [(8 * 160, 768, 320, False, "bfloat16"), (32 * 160, 768, 320, False, "float32"),
-               (1000, 768, 320, False, "bfloat16"), (33, 768, 320, False, "bfloat16"),
-               (1, 768, 320, False, "bfloat16"), (8 * 160, 776, 320, False, "bfloat16"),
-               (8 * 160, 768, 256, False, "bfloat16"), (8 * 160, 768, 320, True, "bfloat16")]
+# K1's cases (N, D, V, every token ignored, the features' dtype, slots):
+# lrw_video's, lrw_landmark's and lrw1000's shapes first (timed; the
+# landmark and lrw1000 heads' features reach the wrapper in f32, as in
+# their steps), then ragged row counts, D = 512 and 640 (bf16 rows TMA reads
+# as they lie) and 520 (no copy, a ragged last stage), vocabularies below
+# the 320 columns a block holds, no valid token; at V = 640 (two column
+# passes) ragged rows, D = 513 and 520, a second pass of 80 columns (V =
+# 400), and no valid token
+MONO_CASES = [(29 * 96, 513, 320, False, "bfloat16", 8),
+              (29 * 1024, 320, 320, False, "float32", 8),
+              (40 * 96, 512, 640, False, "float32", 4),
+              (1000, 513, 320, False, "bfloat16", 8), (33, 513, 320, False, "bfloat16", 8),
+              (1, 513, 320, False, "bfloat16", 8), (1000, 320, 320, False, "float32", 8),
+              (33, 320, 320, False, "float32", 8), (29 * 96, 512, 320, False, "bfloat16", 8),
+              (29 * 96, 520, 320, False, "bfloat16", 8),
+              (29 * 96, 640, 320, False, "bfloat16", 8),
+              (29 * 96, 513, 256, False, "bfloat16", 8),
+              (29 * 1024, 320, 256, False, "float32", 8),
+              (29 * 96, 513, 320, True, "bfloat16", 8),
+              (1000, 512, 640, False, "float32", 4), (33, 512, 640, False, "float32", 4),
+              (1, 512, 640, False, "float32", 4), (40 * 96, 513, 640, False, "bfloat16", 4),
+              (40 * 96, 520, 640, False, "bfloat16", 4),
+              (1000, 512, 400, False, "bfloat16", 4), (40 * 96, 512, 640, True, "float32", 4)]
+# K2's cases: lrs3's, lrs3_audio's and lrw_dctcn's shapes first (timed; the
+# audio and DC-TCN heads' features in f32, as in their steps), then ragged
+# row counts, a D that is no multiple of the 64-deep stage, a vocabulary
+# below the 320 columns a block holds, and no valid token
+SPLIT_CASES = [(8 * 160, 768, 320, False, "bfloat16", 8),
+               (32 * 160, 768, 320, False, "float32", 8),
+               (29 * 96, 1664, 320, False, "float32", 8),
+               (1000, 768, 320, False, "bfloat16", 8), (33, 768, 320, False, "bfloat16", 8),
+               (1, 768, 320, False, "bfloat16", 8), (8 * 160, 776, 320, False, "bfloat16", 8),
+               (8 * 160, 768, 256, False, "bfloat16", 8),
+               (8 * 160, 768, 320, True, "bfloat16", 8)]
 # the case of each path's sync head, timed: the entry's own numbers are its
 # first path's
-SYNC_PATHS = {"sync_ce_fwd": {"lrw_video": MONO_CASES[0], "lrw_landmark": MONO_CASES[1]},
-              "sync_ce_split_fwd": {"lrs3": SPLIT_CASES[0], "lrs3_audio": SPLIT_CASES[1]}}
+SYNC_PATHS = {"sync_ce_fwd": {"lrw_video": MONO_CASES[0], "lrw_landmark": MONO_CASES[1],
+                              "lrw1000": MONO_CASES[2]},
+              "sync_ce_split_fwd": {"lrs3": SPLIT_CASES[0], "lrs3_audio": SPLIT_CASES[1],
+                                    "lrw_dctcn": SPLIT_CASES[2]}}
 
 
 def check_sync(torch, dev, kind, later):
@@ -257,7 +300,6 @@ def check_sync(torch, dev, kind, later):
     with its features' pad copy, K2's with their cast)."""
     from syncvsr_tpu_torch.ops import cuda_sync
 
-    s = 8                                        # A*G slots of the vq codec
     if kind == "mono":
         name, fn, own = "K1 sync_ce_fwd", cuda_sync.sync_ce_mono_partials, "sync_ce_kernel"
         cases = MONO_CASES
@@ -269,14 +311,14 @@ def check_sync(torch, dev, kind, later):
     timed = {case: path for path, case in SYNC_PATHS[key].items()}
     # every K1 case is K1's by the dispatch rule; K2's are its by the call
     # (the rule gives V = 256 at D = 768 to K1)
-    for _, d0, v0, _, _ in (cases if kind == "mono" else timed):
-        if cuda_sync.uses_split_kernel(d0, s, v0) != (kind == "split"):
+    for _, d0, v0, _, _, s0 in (cases if kind == "mono" else timed):
+        if cuda_sync.uses_split_kernel(d0, s0, v0) != (kind == "split"):
             raise AssertionError(f"{name}: the dispatch rule does not pick it at D={d0}, "
                                  f"V={v0}")
     g = torch.Generator(device=dev).manual_seed(0)
     worst, paths = 0.0, {}
     for case in cases:
-        n, d, v, ignored, dtype = case
+        n, d, v, ignored, dtype, s = case
         w = torch.randn(d, s * v, device=dev, generator=g) * 0.05
         b = torch.randn(s * v, device=dev, generator=g) * 0.1
         x = torch.randn(n, d, device=dev, generator=g).to(getattr(torch, dtype))
@@ -319,7 +361,8 @@ def check_sync(torch, dev, kind, later):
         bound, by = bound_ms(2 * n * d * s * v, PEAK_BF16_FLOPS, nbytes)
         log(f"  {timed[case]}: kernel_ms {ms:.5f}  plain_ms {plain:.5f}  library_ms {lib}  "
             f"bound_ms {bound:.5f} ({by})")
-        row = paths[timed[case]] = {"n": n, "d": d, "features": dtype, "ms": ms,
+        row = paths[timed[case]] = {"n": n, "d": d, "slots": s, "vocab": v,
+                                    "features": dtype, "ms": ms,
                                     "device_ms": None, "plain_ms": plain, "bound_ms": bound,
                                     "bound_by": by, "library_ms": lib}
 
@@ -512,31 +555,45 @@ def relu_layers(model):
     and the decoder's): its output is the ReLU's input."""
     from syncvsr_tpu_torch.models.conformer import ConformerFeedForward
     from syncvsr_tpu_torch.models.decoder import FF
+    from syncvsr_tpu_torch.models.layers import SELayer1D
 
-    return {f"{n}.w1": m.w1 for n, m in model.named_modules()
-            if isinstance(m, (ConformerFeedForward, FF))}
+    layers = {f"{n}.w1": m.w1 for n, m in model.named_modules()
+              if isinstance(m, (ConformerFeedForward, FF))}
+    # the DC-TCN's squeeze-excitation: ReLU after Dense_0
+    layers.update({f"{n}.Dense_0": m.Dense_0 for n, m in model.named_modules()
+                   if isinstance(m, SELayer1D)})
+    return layers
 
 
 def zero_gradient_leaves(model):
     """Leaves whose true gradient is 0: the key bias of attention without
-    RoPE (the softmax cancels a per-query constant) and the depthwise
-    conv's bias (the train-mode BatchNorm after it subtracts the mean)."""
+    RoPE (the softmax cancels a per-query constant), and the bias of a conv
+    that a train-mode BatchNorm follows (it subtracts the mean): the
+    Conformer's depthwise conv, the DC-TCN's branch convs."""
     from syncvsr_tpu_torch.models.conformer import ConvModule, RelPositionAttention
     from syncvsr_tpu_torch.models.decoder import MHA
+    from syncvsr_tpu_torch.models.dense_tcn import TemporalConvLayer
 
     return ({f"{n}.wk.bias" for n, m in model.named_modules()
              if isinstance(m, (RelPositionAttention, MHA))}
-            | {f"{n}.dw.bias" for n, m in model.named_modules() if isinstance(m, ConvModule)})
+            | {f"{n}.dw.bias" for n, m in model.named_modules() if isinstance(m, ConvModule)}
+            | {f"{n}.conv.bias" for n, m in model.named_modules()
+               if isinstance(m, TemporalConvLayer)})
 
 
 def run_steps(torch, cfg, batch_np, device, n_steps, aug_fn):
     """Build the model on ``device`` (the same seeded weights on every
-    device) and run ``n_steps`` train steps; returns (state, metrics of
-    each step, {ReLU layer: its output in each step, on the CPU})."""
+    device; the DC-TCN's dropout, fixed at 0.2, set to 0) and run
+    ``n_steps`` train steps; returns (state, metrics of each step, {ReLU
+    layer: its output in each step, on the CPU})."""
     from syncvsr_tpu_torch.engine import build_train_step, create_train_state
     from syncvsr_tpu_torch.models import build_model
+    from syncvsr_tpu_torch.models.dense_tcn import MultiKernelLayer
 
     model = build_model(cfg, device=device)
+    for m in model.modules():
+        if isinstance(m, MultiKernelLayer):
+            m.rate = 0.0
     relu_in = {}
     for name, layer in relu_layers(model).items():
         layer.register_forward_hook(lambda m, i, o, name=name: relu_in.setdefault(
@@ -596,6 +653,26 @@ def uint8_sentences(np, cfg, frames, label_len, source, seed):
     return batch
 
 
+def with_infeasible_row(batch):
+    """The sentence batch with its last clip cut to one frame fewer than its
+    labels: a row with no CTC alignment, whose loss is optax's log-epsilon
+    one (~1e5), computed by the port's recursion (``ops/ctc.py``)."""
+    lengths = batch["lengths"].copy()
+    lengths[-1] = int((batch["labels"][-1] != -1).sum()) - 1
+    return dict(batch, lengths=lengths)
+
+
+def with_attention_mask(np, batch, seed):
+    """The batch with the LRW loader's ``attention_mask``: every 5th clip
+    padded over its last 1-4 frames (a clip shorter than the preset)."""
+    b, t = batch["inputs"].shape[:2]
+    am = np.ones((b, t), np.float32)
+    rng = np.random.RandomState(seed + 2)
+    for i in range(0, b, 5):
+        am[i, t - rng.randint(1, 5):] = 0.0
+    return dict(batch, attention_mask=am)
+
+
 def landmark_clips(cfg, seed):
     """word_batch (f32 landmark features [B, T, 1434]) with the loader's pad
     sentinel, -100, in the last 3 frames of every 8th clip."""
@@ -611,7 +688,9 @@ def landmark_clips(cfg, seed):
 PATH_KERNELS = {"lrw_video": {"sync_ce_fwd", "bn_stats_fwd", "bn_stats_bwd"},
                 "lrs3": {"sync_ce_split_fwd", "bn_stats_fwd", "bn_stats_bwd"},
                 "lrw_landmark": {"sync_ce_fwd"},
-                "lrs3_audio": {"sync_ce_split_fwd", "bn_stats_fwd", "bn_stats_bwd"}}
+                "lrs3_audio": {"sync_ce_split_fwd", "bn_stats_fwd", "bn_stats_bwd"},
+                "lrw1000": {"sync_ce_fwd", "bn_stats_fwd", "bn_stats_bwd"},
+                "lrw_dctcn": {"sync_ce_split_fwd", "bn_stats_fwd", "bn_stats_bwd"}}
 
 
 def check_reference(torch, np, path):
@@ -652,10 +731,31 @@ def check_reference(torch, np, path):
             **common, **word, **{"model.encoder.droppath": 0.0})
         batch = landmark_clips(cfg, seed=3)
         keys = word_keys
+    elif path == "lrw1000":
+        # the wav2vec2 codec's 2 x 2 slots of 640 over a 64-wide stream: K1
+        # (two column passes); no word boundary
+        cfg = config.lrw1000_config().override(
+            **common, **word, **{"model.frontend.resnet_width": 16})
+        batch = uint8_clips(np, cfg, seed=3)
+        aug = build_word_aug(cfg.data)
+        keys = word_keys
+    elif path == "lrw_dctcn":
+        # one dense layer (growth 384) over the 512-wide transition: an
+        # 896-wide head, over the 4 MiB rule, so K2, twice a step under mixup
+        cfg = config.lrw_dctcn_config().override(
+            **common, **{"model.encoder.tcn_blocks": (1,),
+                         "model.encoder.tcn_growth_rates": (384,),
+                         "model.frontend.resnet_width": 16, "data.batch_size": 4,
+                         "data.num_frames": 8})
+        batch = with_attention_mask(np, uint8_clips(np, cfg, seed=3), 3)
+        aug = build_word_aug(cfg.data)
+        keys = word_keys
     elif path == "lrs3":
         cfg = config.lrs3_config().override(**common, **sentence)
-        # 16 frames, clips of >= 8: labels of <= 4 keep every CTC alignment feasible
-        batch = uint8_sentences(np, cfg, 16, 4, 40, seed=3)
+        # 16 frames, clips of >= 8 and labels of <= 4, but the last clip is
+        # cut below its label count: the CTC recursion of infeasible rows
+        # runs on the card and on the CPU
+        batch = with_infeasible_row(uint8_sentences(np, cfg, 16, 4, 40, seed=3))
         aug = build_sentence_aug(cfg.data)
         keys = sentence_keys
     else:
@@ -671,6 +771,8 @@ def check_reference(torch, np, path):
     log(f"reference {path}: 2 f32 steps of a small model, card vs CPU; launches {launched}")
     log(f"  card step 1: {gpu_m[0]}")
     log(f"  cpu  step 1: {cpu_m[0]}")
+    if path == "lrs3" and not min(m["loss_ctc"] for m in cpu_m + gpu_m) > 1e4:
+        raise AssertionError("lrs3: the infeasible row's log-epsilon loss is missing")
     for k, n in launched.items():
         if (n > 0) != (k in PATH_KERNELS[path]):
             raise AssertionError(f"reference {path}: launches {launched}, expected exactly "
@@ -751,6 +853,23 @@ def train_full_width(torch, np, path, profile_dir=None):
         # 20 in the frontend's trunk, 12 in the Conformer's conv modules
         per_step = {"sync_ce_fwd": 0, "sync_ce_split_fwd": 1,
                     "bn_stats_fwd": 32, "bn_stats_bwd": 32}
+    elif path == "lrw1000":
+        cfg = lrw1000_cfg()
+        batch_np = uint8_clips(np, cfg, seed=0)
+        frames, video = cfg.data.num_frames, "inputs"
+        aug, transform = image.build_word_aug(cfg.data), image.build_eval_transform(cfg.data)
+        near_ln["loss_word"] = cfg.model.labels
+        per_step = {"sync_ce_fwd": 1, "sync_ce_split_fwd": 0,
+                    "bn_stats_fwd": 20, "bn_stats_bwd": 20}
+    elif path == "lrw_dctcn":
+        cfg = lrw_dctcn_cfg()
+        batch_np = with_attention_mask(np, uint8_clips(np, cfg, seed=0), 0)
+        frames, video = cfg.data.num_frames, "inputs"
+        aug, transform = image.build_word_aug(cfg.data), image.build_eval_transform(cfg.data)
+        near_ln["loss_word"] = cfg.model.labels
+        # mixup lerps the sync loss between own and rolled tokens: K2 twice
+        per_step = {"sync_ce_fwd": 0, "sync_ce_split_fwd": 2,
+                    "bn_stats_fwd": 20, "bn_stats_bwd": 20}
     elif path == "lrw_landmark":
         # no augmentation function (bench.py::bench_landmark); CutMix,
         # dropout and drop-path as configured
@@ -777,8 +896,13 @@ def train_full_width(torch, np, path, profile_dir=None):
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
     b = cfg.data.batch_size
     enc = cfg.model.encoder
+    trunk = (f"{enc.kind} {enc.layers} layers, dim {enc.dim}" if enc.kind != "dense_tcn" else
+             f"dense_tcn blocks {enc.tcn_blocks}, growth {enc.tcn_growth_rates}, reduced "
+             f"{enc.tcn_reduced_size}")
     log(f"train: {path}, {video} {tuple(batch[video].shape)} {batch[video].dtype}, "
-        f"{enc.kind} {enc.layers} layers, dim {enc.dim}, dtype {cfg.model.dtype}")
+        f"{trunk}, dtype {cfg.model.dtype}, "
+        f"sync head {cfg.model.codec.audio_alignment * cfg.model.codec.vq_groups} slots of "
+        f"{cfg.model.codec.audio_vocab_size}")
     model = build_model(cfg)
     n_params = sum(p.numel() for p in model.parameters())
     state = create_train_state(cfg, model, batch)
@@ -827,7 +951,7 @@ def train_full_width(torch, np, path, profile_dir=None):
     log(f"  eval step: {ev}")
     if not all(math.isfinite(v) for v in ev.values()):
         raise AssertionError(f"non-finite eval metrics: {ev}")
-    sync = "sync_ce_fwd" if cfg.model.task == "word" else "sync_ce_split_fwd"
+    sync = next(k for k, n in per_step.items() if k.startswith("sync") and n)
     got = {k: v - before[k] for k, v in read_counts().items() if k.startswith("sync")}
     if got != {k: int(k == sync) for k in got}:
         raise AssertionError(f"the {path} eval step launched {got}, expected one {sync}")
@@ -835,10 +959,30 @@ def train_full_width(torch, np, path, profile_dir=None):
                "launches_per_step": per_step}
     if cfg.model.frontend.kind == "conv1d_resnet":
         summary["stem_conv"] = time_stem_conv(torch, state.model, batch[video])
+    bad = None
+    if path == "lrs3":
+        # a batch with one infeasible row: the CTC recursion's cost on a step
+        bad = {k: torch.from_numpy(v).to(dev) for k, v in with_infeasible_row(batch_np).items()}
+        state, m = step(state, bad)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            state, m = step(state, bad)
+        torch.cuda.synchronize()
+        bad_s = (time.perf_counter() - t0) / TIMED_STEPS
+        m = {k: float(v) for k, v in m.items()}
+        log(f"  {TIMED_STEPS} steps with one infeasible CTC row: {bad_s * 1e3:.2f} ms/step; "
+            f"last step {m}")
+        if not (all(math.isfinite(v) for v in m.values()) and m["loss_ctc"] > 1e3):
+            raise AssertionError(f"lrs3 with an infeasible row: {m}")
+        summary["infeasible_row_step_ms"] = bad_s * 1e3
     window = None
     if profile_dir:
         def window():
             profile_steps(torch, state, step, batch, profile_dir, path, dt)
+            if bad is not None:
+                profile_steps(torch, state, step, bad, profile_dir, path + "_infeasible",
+                              bad_s)
     return launches, summary, window
 
 

@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernel syncvsr_tpu/ops/pallas_sync.py::_kernel
 // (launched by _pallas_forward when the padded bf16 weight is at most 4
-// MiB, e.g. D = 513 on lrw_video). For features x [N, D] (bf16), the head's
+// MiB: D = 513 on lrw_video, D = 512 and V = 640 on lrw1000). For features
+// x [N, D] (bf16), the head's
 // weight W [D, S*V] (bf16, slot s = columns s*V .. s*V+V-1), bias b [S*V]
 // (f32) and tokens tok [N, S] (int32, < 0 = ignore), it computes
 //     sum over rows n and slots s with tok[n,s] >= 0 of
@@ -49,13 +50,26 @@
 // as it lies (MN-major) in ten [64, 32] boxes at 64-byte swizzle; the
 // softmax-CE epilogue stays in registers (quad shuffles), the two halves of
 // a row's slot merge through shared memory; columns >= V are masked to
-// -inf, rows >= N are TMA's zero fill and take no token. Each block writes
+// -inf, rows >= N are TMA's zero fill and take no token.
+//
+// A slot wider than the 320 columns a block holds at once (lrw1000's
+// wav2vec2 codec: V = 640) takes two column passes in the same block: the
+// ring runs on over the passes as one sequence of (pass, depth tile) loads,
+// so the second pass's first tiles arrive while the first pass ends; after
+// each pass the two warpgroups merge their row statistics as above, and
+// warpgroup 0 folds them into a running (max, sum of exp, label logit) per
+// row in shared memory, the online logsumexp. The x tile is read again from
+// L2 in the second pass; the accumulators, the ring and the grid stay as
+// they are, so V <= 320 runs one pass, the code it ran before. (A wider,
+// shorter block, 64 rows with 320 columns a warpgroup, would read x once but
+// gives the 3840 rows of lrw1000 half the weight reuse a tile and needs a
+// second layout of the ring; see PERF.md.) Each block writes
 // its (sum, count) partial and takes a ticket of K1's own counter; the
 // block that draws the last one sums the partials in block order into out
 // and resets the counter: one launch, no float atomics, the same bits from
 // run to run, one stream at a time.
 //
-// V must be a multiple of 8 and at most 320; ldx >= D a multiple of 8; x
+// V must be a multiple of 8 and at most 640; ldx >= D a multiple of 8; x
 // and W 16-byte aligned. A barrier wait that has not finished after ~2 s
 // traps, so a fault ends the kernel instead of hanging.
 
@@ -65,8 +79,9 @@
 
 namespace {
 
-constexpr int kMaxVocab = 320;             // columns a block holds of its slot
-constexpr int kHalf = kMaxVocab / 2;       // columns per consumer warpgroup
+constexpr int kCols = 320;                 // columns a block holds of its slot a pass
+constexpr int kMaxVocab = 2 * kCols;       // two passes
+constexpr int kHalf = kCols / 2;           // columns per consumer warpgroup
 constexpr int kAcc = kHalf / 2;            // f32 accumulators a thread and tile (80)
 constexpr int kDepth = 64;                 // D per stage: one 128-byte row
 constexpr int kTiles = 2;                  // m64 row tiles a block
@@ -75,7 +90,7 @@ constexpr int kThreads = 256;              // two consumer warpgroups
 constexpr int kStages = 3;
 constexpr int kTileBytes = 64 * kDepth * 2;            // 8 KB: x of one m64 tile
 constexpr int kXBytes = kTiles * kTileBytes;           // 16 KB: x of a stage
-constexpr int kWBytes = kMaxVocab * kDepth * 2;        // 40 KB: the slot's W of a stage
+constexpr int kWBytes = kCols * kDepth * 2;            // 40 KB: the slot's W of a stage
 constexpr int kWHalfBytes = kWBytes / 2;               // a warpgroup's W
 constexpr int kWBox = kDepth * 32 * 2;                 // 4 KB: a [64, 32] box of W
 constexpr int kStageBytes = kXBytes + kWBytes;         // 56 KB
@@ -85,9 +100,9 @@ constexpr int kSmemBytes = kStages * kStageBytes + 1024;   // + 1024-byte alignm
 __device__ unsigned int g_mono_tickets;
 
 // The softmax-CE statistics of rows ra and ra + 8 over the warpgroup's 160
-// columns of slot s (col0 = s * vocab): acc in the wgmma accumulator layout,
-// where accumulators 4j, 4j+1 (row ra) and 4j+2, 4j+3 (row ra + 8) are
-// columns cb + 8j and cb + 8j + 1. Returns (max, sum of exp, label logit) of
+// columns of slot s in this pass (col0 = s * vocab): acc in the wgmma
+// accumulator layout, where accumulators 4j, 4j+1 (row ra) and 4j+2, 4j+3
+// (row ra + 8) are columns cb + 8j and cb + 8j + 1 of the slot. Returns (max, sum of exp, label logit) of
 // each row, reduced over the quad that holds it; bias is added to acc.
 __device__ __forceinline__ void row_stats(float* acc, const float* __restrict__ bias, int col0,
                                           int cb, int vocab, int ta, int tb,
@@ -129,17 +144,19 @@ __device__ __forceinline__ void row_stats(float* acc, const float* __restrict__ 
   st[1][2] = quad_sum(lb);
 }
 
-// the TMA loads of stage st, depth tile kt, issued by the threads with p set
-__device__ __forceinline__ void issue(unsigned char* ring, uint64_t* full, int st, int kt,
-                                      const CUtensorMap* tm_x, const CUtensorMap* tm_w,
+// the TMA loads of stage st for load j of the block's sequence (column pass
+// j / nk, depth tile j % nk), issued by the threads with p set
+__device__ __forceinline__ void issue(unsigned char* ring, uint64_t* full, int st, int j,
+                                      int nk, const CUtensorMap* tm_x, const CUtensorMap* tm_w,
                                       int row0, int s, int vocab, uint32_t p) {
   unsigned char* base = ring + st * kStageBytes;
+  const int kt = j % nk;
+  const int c0 = s * vocab + (j / nk) * kCols;
   mbar_expect_tx_if(full + st, kStageBytes, p);
   tma_load_if(base, tm_x, full + st, kt * kDepth, row0, p);
 #pragma unroll
-  for (int b = 0; b < kMaxVocab / 32; ++b)
-    tma_load_if(base + kXBytes + b * kWBox, tm_w, full + st, s * vocab + 32 * b, kt * kDepth,
-                p);
+  for (int b = 0; b < kCols / 32; ++b)
+    tma_load_if(base + kXBytes + b * kWBox, tm_w, full + st, c0 + 32 * b, kt * kDepth, p);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -151,6 +168,7 @@ sync_ce_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ __align__(8) uint64_t empty[kStages];
   __shared__ float merge[kTiles][64][3];   // warpgroup 1's (max, sum of exp, label)
+  __shared__ float rows[kTiles][64][3];    // each row's running (max, sum of exp, label)
   __shared__ float red[kThreads / 32][2];
 
   // 128-byte swizzle atoms are 1024 bytes: align the ring to them
@@ -166,6 +184,8 @@ sync_ce_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
   const int row0 = blockIdx.x * kRows;
   const int s = blockIdx.y;                 // the block's slot
   const int nk = (d + kDepth - 1) / kDepth;
+  const int passes = (vocab + kCols - 1) / kCols;
+  const int total = passes * nk;           // loads of the block's sequence
   const uint32_t leader = lane == 0;        // warp 0's lane 0 issues the loads
 
   if (tid == 0) {
@@ -177,8 +197,8 @@ sync_ce_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
   }
   __syncthreads();
   if (warp_id == 0)
-    for (int kt = 0; kt < kStages && kt < nk; ++kt)
-      issue(ring, full, kt, kt, &tm_x, &tm_w, row0, s, vocab, leader);
+    for (int j = 0; j < kStages && j < total; ++j)
+      issue(ring, full, j, j, nk, &tm_x, &tm_w, row0, s, vocab, leader);
 
   float acc[kTiles][kAcc];
 #pragma unroll
@@ -186,9 +206,14 @@ sync_ce_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) acc[t][i] = 0.f;
 
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt % kStages;
-    mbar_wait(&full[st], (kt / kStages) & 1);
+  // epilogue of each pass: a consumer thread holds rows ra and ra + 8 of
+  // each of its tiles, columns cb + 8j (+1) of the pass; warpgroup 1 hands
+  // its row statistics to warpgroup 0 through merge, and warpgroup 0 folds
+  // the block's into rows
+  const int ra = warp * 16 + lane / 4;
+  for (int i = 0; i < total; ++i) {
+    const int st = i % kStages;
+    mbar_wait(&full[st], (i / kStages) & 1);
     const unsigned char* sx = ring + st * kStageBytes;
     const unsigned char* sw = sx + kXBytes + half * kWHalfBytes;
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -211,56 +236,83 @@ sync_ce_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
 #pragma unroll
     for (int t = 0; t < kTiles; ++t)
 #pragma unroll
-      for (int i = 0; i < kAcc; ++i) asm volatile("" : "+f"(acc[t][i])::"memory");
-    if (kt > 0) {
-      const int prev = (kt - 1) % kStages;
+      for (int k = 0; k < kAcc; ++k) asm volatile("" : "+f"(acc[t][k])::"memory");
+    if (i > 0) {
+      const int prev = (i - 1) % kStages;
       mbar_arrive(&empty[prev]);
-      if (warp_id == 0 && kt - 1 + kStages < nk) {
-        mbar_wait(&empty[prev], ((kt - 1) / kStages) & 1);   // every consumer is done
-        issue(ring, full, prev, kt - 1 + kStages, &tm_x, &tm_w, row0, s, vocab, leader);
+      if (warp_id == 0 && i - 1 + kStages < total) {
+        mbar_wait(&empty[prev], ((i - 1) / kStages) & 1);   // every consumer is done
+        issue(ring, full, prev, i - 1 + kStages, nk, &tm_x, &tm_w, row0, s, vocab, leader);
       }
     }
-  }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#pragma unroll
-  for (int t = 0; t < kTiles; ++t)
-#pragma unroll
-    for (int i = 0; i < kAcc; ++i) asm volatile("" : "+f"(acc[t][i])::"memory");
+    if (i % nk != nk - 1) continue;
 
-  // epilogue: a consumer thread holds rows ra and ra + 8 of each of its
-  // tiles, columns cb + 8j (+1) of slot s; warpgroup 1 hands its row
-  // statistics to warpgroup 0 through merge
-  const int ra = warp * 16 + lane / 4;
-  const int cb = half * kHalf + 2 * (lane % 4);
-  float stats[kTiles][2][3];
-  int toks[kTiles][2];
+    const int pass = i / nk;
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
-  for (int t = 0; t < kTiles; ++t) {
-    const int rg = row0 + t * 64 + ra;
-    toks[t][0] = rg < n ? tok[(long long)rg * slots + s] : -1;
-    toks[t][1] = rg + 8 < n ? tok[(long long)(rg + 8) * slots + s] : -1;
-    row_stats(acc[t], bias, s * vocab, cb, vocab, toks[t][0], toks[t][1], stats[t]);
-    if (half == 1 && lane % 4 == 0)
+    for (int t = 0; t < kTiles; ++t)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+      for (int k = 0; k < kAcc; ++k) asm volatile("" : "+f"(acc[t][k])::"memory");
+    const int cb = pass * kCols + half * kHalf + 2 * (lane % 4);
+    float stats[kTiles][2][3];
 #pragma unroll
-        for (int k = 0; k < 3; ++k) merge[t][ra + 8 * h][k] = stats[t][h][k];
+    for (int t = 0; t < kTiles; ++t) {
+      const int rg = row0 + t * 64 + ra;
+      const int ta = rg < n ? tok[(long long)rg * slots + s] : -1;
+      const int tb = rg + 8 < n ? tok[(long long)(rg + 8) * slots + s] : -1;
+      row_stats(acc[t], bias, s * vocab, cb, vocab, ta, tb, stats[t]);
+      if (half == 1 && lane % 4 == 0)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int k = 0; k < 3; ++k) merge[t][ra + 8 * h][k] = stats[t][h][k];
+    }
+    __syncthreads();
+    if (half == 0 && lane % 4 == 0) {
+      // warpgroup 0 always holds the pass's first column, so its max is
+      // finite; warpgroup 1 with every column masked has max -inf and sum
+      // 0, and adds 0
+#pragma unroll
+      for (int t = 0; t < kTiles; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float* o = merge[t][ra + 8 * h];
+          float* r = rows[t][ra + 8 * h];
+          const float m0 = stats[t][h][0];
+          float m = fmaxf(m0, o[0]);
+          float se = stats[t][h][1] * expf(m0 - m) + o[1] * expf(o[0] - m);
+          float lab = stats[t][h][2] + o[2];
+          if (pass > 0) {   // the online logsumexp over the passes
+            const float mr = fmaxf(r[0], m);
+            se = r[1] * expf(r[0] - mr) + se * expf(m - mr);
+            m = mr;
+            lab += r[2];
+          }
+          r[0] = m;
+          r[1] = se;
+          r[2] = lab;
+        }
+    }
+    if (pass + 1 < passes) {
+      // merge is warpgroup 1's again in the next pass's epilogue
+      __syncthreads();
+#pragma unroll
+      for (int t = 0; t < kTiles; ++t)
+#pragma unroll
+        for (int k = 0; k < kAcc; ++k) acc[t][k] = 0.f;
+    }
   }
-  __syncthreads();
+
   float ce = 0.f, cnt = 0.f;
   if (half == 0 && lane % 4 == 0) {
-    // warpgroup 0 always holds column 0, so its max is finite where a
-    // token is; warpgroup 1 with every column masked has max -inf and sum
-    // 0, and adds 0
 #pragma unroll
     for (int t = 0; t < kTiles; ++t)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float* o = merge[t][ra + 8 * h];
-        const float m0 = stats[t][h][0], m = fmaxf(m0, o[0]);
-        if (toks[t][h] >= 0) {
-          const float se = stats[t][h][1] * expf(m0 - m) + o[1] * expf(o[0] - m);
-          ce += (m + logf(se)) - (stats[t][h][2] + o[2]);
+        const int rg = row0 + t * 64 + ra + 8 * h;
+        if (rg < n && tok[(long long)rg * slots + s] >= 0) {
+          const float* r = rows[t][ra + 8 * h];
+          ce += (r[0] + logf(r[1])) - r[2];
           cnt += 1.f;
         }
       }
@@ -317,7 +369,8 @@ sync_ce_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
 // bias [slots * vocab] f32; tok [n, slots] int32; partials [blocks, 2] f32
 // scratch, block (128-row tile, slot)'s (sum, count) at row slot * tiles +
 // tile; out [2] f32 = their sum in block order. x and w 16-byte aligned;
-// ldx >= d and vocab multiples of 8, vocab <= 320. One launch.
+// ldx >= d and vocab multiples of 8, vocab <= 640 (two column passes above
+// 320). One launch.
 extern "C" int sync_ce_fwd(const void* x, const void* w, const void* bias, const void* tok,
                            void* partials, void* out, int n, int d, int ldx, int slots,
                            int vocab, void* stream) {

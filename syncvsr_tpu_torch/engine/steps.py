@@ -2,7 +2,10 @@
 
 The step order of the JAX package: augmentation (mixup stream), forward in
 train mode (BatchNorm running stats updated in place), backward, then the
-clipped AdamW update. ``grad_norm`` is taken before clipping and
+clipped AdamW update. The forward draws CutMix's span or the TCN path's
+batch-mixup weight from the same mixup generator (the state's, on the CPU),
+after the augmentation; every batch key reaches the model as a keyword
+(``word_mask``, ``attention_mask``, ``sample_weight``, ...). ``grad_norm`` is taken before clipping and
 ``learning_rate`` is the rate the update used. PyTorch runs eagerly, so
 the state is updated in place and returned for the JAX calling shape.
 """

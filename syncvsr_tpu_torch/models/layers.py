@@ -37,12 +37,15 @@ def lecun_normal_(t: Tensor, fan_in: int) -> Tensor:
 
 
 def activation(name: str):
-    # flax nn.gelu defaults to the tanh approximation
+    # flax nn.gelu defaults to the tanh approximation; "prelu" is the JAX
+    # package's parameter-free stand-in, flax nn.leaky_relu (slope 0.01),
+    # not torch's PReLU
     return {
         "relu": F.relu,
         "gelu": lambda x: F.gelu(x, approximate="tanh"),
         "swish": F.silu,
         "silu": F.silu,
+        "prelu": lambda x: F.leaky_relu(x, 0.01),
     }[name]
 
 
@@ -84,6 +87,61 @@ class Dense(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         d = self.dtype
         return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
+
+
+SE_REDUCTION = 16
+BN_MOMENTUM, BN_EPS = 0.9, 1e-5   # flax nn.BatchNorm's, as the TCN modules use it
+
+
+class SELayer1D(nn.Module):
+    """Squeeze-excitation over the channels of [B, T, C]: the time mean
+    through ``Dense_0`` (C -> C // 16), ReLU, ``Dense_1`` (back to C) and a
+    sigmoid scales each channel (flax's auto-named Dense layers, their
+    default ``lecun_normal`` init)."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.Dense_0 = Dense(channels, channels // SE_REDUCTION, dtype, lecun=True)
+        self.Dense_1 = Dense(channels // SE_REDUCTION, channels, dtype, lecun=True)
+
+    def forward(self, x: Tensor) -> Tensor:
+        s = torch.sigmoid(self.Dense_1(F.relu(self.Dense_0(x.mean(1)))))
+        return x * s[:, None, :]
+
+
+class FlaxBatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the last axis
+    of a channels-last tensor, plain PyTorch (the TCN modules': the JAX
+    package runs them without a kernel). Train mode: f32 statistics over
+    every other axis with flax's fast variance, E[x^2] - E[x]^2 clipped at
+    0 (biased), and the running update ``ra = 0.9 ra + 0.1 batch`` in
+    place; eval mode: the running statistics. ``y = (x - mean) * (rsqrt(var
+    + eps) * scale) + bias`` in f32, emitted in ``dtype``. Parameters
+    ``weight`` (flax ``scale``) and ``bias``, buffers ``running_mean`` and
+    ``running_var`` (flax ``batch_stats`` ``mean`` and ``var``)."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: Tensor, train: bool) -> Tensor:
+        x32 = x.float()
+        if train:
+            axes = tuple(range(x.dim() - 1))
+            mean = x32.mean(axes)
+            var = torch.clamp((x32 * x32).mean(axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = BN_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x32 - mean) * (torch.rsqrt(var + BN_EPS) * self.weight) + self.bias
+        return y.to(self.dtype)
 
 
 class _Affine(nn.Module):

@@ -7,7 +7,7 @@ from typing import Optional, Union
 import torch
 
 from syncvsr_tpu_torch.config import Config
-from syncvsr_tpu_torch.ops.cuda_sync import MAX_VOCAB
+from syncvsr_tpu_torch.ops.cuda_sync import SPLIT_MAX_VOCAB, uses_split_kernel
 from syncvsr_tpu_torch.utils.device import resolve_device
 
 
@@ -16,7 +16,9 @@ def _check_ported(config: Config) -> None:
     m = config.model
     missing = []
     if m.task == "word":
-        if m.encoder.kind != "transformer":
+        from syncvsr_tpu_torch.models.word import TCN_KINDS
+
+        if m.encoder.kind not in ("transformer",) + TCN_KINDS:
             missing.append(f"model.encoder.kind={m.encoder.kind!r}")
     elif m.task == "sentence":
         if m.encoder.kind != "conformer":
@@ -25,9 +27,6 @@ def _check_ported(config: Config) -> None:
         missing.append(f"model.task={m.task!r}")
     if m.remat:
         missing.append("model.remat=True")
-    if m.codec.audio_vocab_size > MAX_VOCAB:   # lrw1000's wav2vec2 codec: 640
-        missing.append(f"model.codec.audio_vocab_size={m.codec.audio_vocab_size} "
-                       f"(the sync kernels take at most {MAX_VOCAB})")
     if missing:
         raise NotImplementedError(
             "not ported to PyTorch yet: " + ", ".join(missing))
@@ -49,4 +48,14 @@ def build_model(config: Config, device: Optional[Union[str, torch.device]] = Non
 
             model = WordVSRModel(config.model, cutmix_alpha=config.data.cutmix_alpha,
                                  use_cutmix=config.data.use_cutmix)
+    head = model.audio_classifier
+    slots = head.alignment * head.groups
+    if head.vocab > SPLIT_MAX_VOCAB and uses_split_kernel(head.weight.shape[1], slots,
+                                                          head.vocab):
+        # no preset: the wav2vec2 codec's 640 tokens (lrw1000) over a head
+        # wider than K1 takes
+        raise NotImplementedError(
+            f"not ported to PyTorch yet: a sync head of {head.weight.shape[1]} features x "
+            f"{slots} slots of {head.vocab} tokens (the split kernel K2 takes at most "
+            f"{SPLIT_MAX_VOCAB} a slot)")
     return model.to(dev)

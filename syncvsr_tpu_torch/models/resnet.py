@@ -108,35 +108,46 @@ def same_padding(length: int, kernel: int, stride: int) -> Tuple[int, int]:
 
 
 class Conv1d(nn.Module):
-    """flax ``nn.Conv(features, (k,), (s,), padding="SAME", use_bias=False)``
-    over [B, S, C] channels last; ``weight`` [O, I, k] (flax [k, I, O]),
-    flax's default ``lecun_normal`` init. Uneven padding is one explicit
-    ``F.pad``. On the GPU it runs as a 2-D conv over the free
-    ``channels_last`` [B, C, 1, S] view, so the output is contiguous
-    [B, S', O] as cuDNN writes it: no transpose around the BatchNorms. On
-    the CPU it runs as ``conv1d`` on the [B, C, S] transpose: oneDNN's
-    backward of that 2-D form corrupts the heap there (PyTorch 2.13 CPU,
-    seen from a chain of two blocks)."""
+    """flax ``nn.Conv(features, (k,), (s,), padding="SAME",
+    kernel_dilation=(dilation,), feature_group_count=groups,
+    use_bias=bias)`` over [B, S, C] channels last; ``weight`` [O, I /
+    groups, k] (flax [k, I / groups, O]), flax's default ``lecun_normal``
+    init, a zero ``bias`` where it has one (ResNet1D's convs have none; the
+    TCN family's do). Uneven padding is one explicit ``F.pad``. On the GPU
+    it runs as a 2-D conv over the free ``channels_last`` [B, C, 1, S] view,
+    so the output is contiguous [B, S', O] as cuDNN writes it: no transpose
+    around the BatchNorms. On the CPU it runs as ``conv1d`` on the [B, C, S]
+    transpose: oneDNN's backward of that 2-D form corrupts the heap there
+    (PyTorch 2.13 CPU, seen from a chain of two blocks)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dilation: int = 1, groups: int = 1,
+                 bias: bool = False):
         super().__init__()
-        self.stride = stride
+        self.stride, self.dilation, self.groups = stride, dilation, groups
         self.dtype = dtype
-        self.weight = nn.Parameter(lecun_normal_(torch.empty(cout, cin, kernel), kernel * cin))
+        fan_in = kernel * cin // groups
+        self.weight = nn.Parameter(lecun_normal_(torch.empty(cout, cin // groups, kernel),
+                                                 fan_in))
+        if bias:
+            self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: Tensor) -> Tensor:
-        lo, hi = same_padding(x.shape[1], self.weight.shape[-1], self.stride)
+        k = (self.weight.shape[-1] - 1) * self.dilation + 1
+        lo, hi = same_padding(x.shape[1], k, self.stride)
         x = x.to(self.dtype)
         if lo != hi:
             x, lo = F.pad(x, (0, 0, lo, hi)), 0
         w = self.weight.to(self.dtype)
+        b = self.bias.to(self.dtype) if hasattr(self, "bias") else None
         if not x.is_cuda:
-            y = F.conv1d(x.transpose(1, 2), w, stride=self.stride, padding=lo)
+            y = F.conv1d(x.transpose(1, 2), w, b, stride=self.stride, padding=lo,
+                         dilation=self.dilation, groups=self.groups)
             return y.transpose(1, 2).contiguous()
         x4 = x.unsqueeze(1).permute(0, 3, 1, 2)              # [B, C, 1, S]
         w4 = w.unsqueeze(2).contiguous(memory_format=torch.channels_last)
-        y = F.conv2d(x4, w4, stride=(1, self.stride), padding=(0, lo))
+        y = F.conv2d(x4, w4, b, stride=(1, self.stride), padding=(0, lo),
+                     dilation=(1, self.dilation), groups=self.groups)
         return y.permute(0, 2, 3, 1).reshape(y.shape[0], y.shape[3], y.shape[1])
 
 

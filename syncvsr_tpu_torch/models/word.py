@@ -1,12 +1,21 @@
-"""Word-level VSR model, transformer path (port of
-``syncvsr_tpu/models/word.py``): video or landmark frontend (landmark
-frames equal to the -100 pad sentinel are zeroed first) + word-boundary
-channel + CLS token + rotary transformer + word head + sync head.
+"""Word-level VSR model (port of ``syncvsr_tpu/models/word.py``).
 
-Loss: word cross-entropy (label-smoothed, soft under CutMix) plus
-``sync_lambda`` x the per-frame audio-token cross-entropy. In train mode
-(``det=False``) CutMix samples from the ``mixup_gen`` CPU generator and
-dropout draws from ``dropout_gen`` on the activations' device.
+Transformer path: video or landmark frontend (landmark frames equal to the
+-100 pad sentinel are zeroed first) + word-boundary channel + CLS token +
+rotary transformer + word head + sync head. Loss: word cross-entropy
+(label-smoothed, soft under CutMix) plus ``sync_lambda`` x the per-frame
+audio-token cross-entropy.
+
+TCN path (``encoder.kind`` "dense_tcn", "tcn", "mstcn"; ``_tcn_forward``):
+batch mixup of the inputs, frontend + word-boundary channel (not mixed),
+the temporal conv net, mean pooling under ``attention_mask``, word head and
+sync head on the pooled and per-frame features; in train mode each loss is
+lerped between the clip's own targets and the rolled batch's by the mixup
+weight, so the sync head runs twice.
+
+In train mode (``det=False``) CutMix and mixup sample from the
+``mixup_gen`` CPU generator and dropout draws from ``dropout_gen`` on the
+activations' device.
 """
 
 from __future__ import annotations
@@ -22,11 +31,19 @@ from syncvsr_tpu_torch.models.frontend import build_frontend
 from syncvsr_tpu_torch.models.layers import Dense, dropout, trunc_normal_
 from syncvsr_tpu_torch.models.transformer import TransformerEncoder
 from syncvsr_tpu_torch.ops.cuda_sync import fused_sync_cross_entropy
-from syncvsr_tpu_torch.ops.cutmix import cutmix_keep, sample_cutmix, temporal_cutmix_apply
+from syncvsr_tpu_torch.ops.cutmix import (
+    batch_mixup_apply,
+    cutmix_keep,
+    sample_cutmix,
+    sample_mixup,
+    temporal_cutmix_apply,
+)
 from syncvsr_tpu_torch.ops.masking import weighted_mean
 from syncvsr_tpu_torch.ops.sync_loss import sync_cross_entropy
 
 Tensor = torch.Tensor
+
+TCN_KINDS = ("dense_tcn", "tcn", "mstcn")
 
 
 def smooth_labels(onehot: Tensor, smoothing: float) -> Tensor:
@@ -71,6 +88,9 @@ class WordVSRModel(nn.Module):
         enc, fe, codec = cfg.encoder, cfg.frontend, cfg.codec
         self.frontend = build_frontend(fe, self.dtype, embed_dim=enc.dim)
         width = self.frontend.out_dim
+        if enc.kind in TCN_KINDS:
+            self._build_tcn(width)
+            return
         if width != enc.dim:
             self.frontend_proj = Dense(width, enc.dim, self.dtype)
         stream = enc.dim + (1 if cfg.use_word_boundary else 0)
@@ -81,6 +101,28 @@ class WordVSRModel(nn.Module):
             enc.rope, enc.rope_dim, enc.msa_dropout, enc.mlp_dropout, enc.droppath, self.dtype)
         self.category_classifier = Dense(stream, cfg.labels, torch.float32)
         self.audio_classifier = SyncHead(stream, codec.audio_alignment, codec.vq_groups,
+                                         codec.audio_vocab_size)
+
+    def _build_tcn(self, width: int) -> None:
+        from syncvsr_tpu_torch.models.dense_tcn import DenseTCN
+        from syncvsr_tpu_torch.models.tcn import MultibranchTemporalConvNet, TemporalConvNet
+
+        cfg, enc, codec = self.cfg, self.cfg.encoder, self.cfg.codec
+        cin = width + (1 if cfg.use_word_boundary else 0)
+        if enc.kind == "tcn":
+            self.encoder = TemporalConvNet(cin, enc.tcn_channels, enc.tcn_kernel,
+                                           enc.tcn_dropout, dwpw=enc.tcn_dwpw, dtype=self.dtype)
+        elif enc.kind == "mstcn":
+            self.encoder = MultibranchTemporalConvNet(
+                cin, enc.tcn_channels, enc.tcn_kernel_sizes, enc.tcn_dropout,
+                dwpw=enc.tcn_dwpw, dtype=self.dtype)
+        else:   # the JAX package leaves DenseTCN at its default dropout, 0.2
+            self.encoder = DenseTCN(cin, enc.tcn_growth_rates, enc.tcn_blocks,
+                                    enc.tcn_kernel_sizes, enc.tcn_dilations,
+                                    enc.tcn_reduced_size, use_se=enc.tcn_se, dtype=self.dtype)
+        out = self.encoder.out_dim
+        self.category_classifier = Dense(out, cfg.labels, torch.float32)
+        self.audio_classifier = SyncHead(out, codec.audio_alignment, codec.vq_groups,
                                          codec.audio_vocab_size)
 
     def forward(self, inputs: Tensor, labels: Tensor, audio_tokens: Tensor,
@@ -106,6 +148,9 @@ class WordVSRModel(nn.Module):
             # padded rows contribute nothing to the sync loss (-1 = ignore)
             audio_tokens = torch.where(sample_weight[:, None, None] > 0, audio_tokens,
                                        torch.full_like(audio_tokens, -1))
+        if enc.kind in TCN_KINDS:
+            return self._tcn_forward(inputs, onehot, audio_tokens, word_mask, attention_mask,
+                                     sample_weight, det, mixup_gen, dropout_gen)
         if not det:
             onehot = smooth_labels(onehot, cfg.label_smoothing)
             if self.use_cutmix and self.cutmix_alpha > 0:
@@ -132,7 +177,15 @@ class WordVSRModel(nn.Module):
         loss_word = weighted_mean(-(onehot * torch.log_softmax(logits, -1)).sum(-1),
                                   sample_weight)
         loss_audio = self.audio_classifier(encoded[:, 1:].float(), audio_tokens)
-        loss = loss_word + cfg.sync_lambda * loss_audio
+        return self._outputs(logits, onehot, loss_word, loss_audio, audio_tokens,
+                             sample_weight, det)
+
+    def _outputs(self, logits, onehot, loss_word, loss_audio, audio_tokens, sample_weight,
+                 det):
+        """The step's metrics: the composite loss, its parts, top-1/top-5
+        accuracy against the (soft) labels' argmax, and in eval the sync
+        slots' count."""
+        loss = loss_word + self.cfg.sync_lambda * loss_audio
         hard = onehot.argmax(-1)
         acc1 = weighted_mean((logits.argmax(-1) == hard).float(), sample_weight)
         k5 = min(5, logits.shape[-1])
@@ -144,3 +197,41 @@ class WordVSRModel(nn.Module):
             # loss_audio is a sync-slot mean: eval aggregation needs its denominator
             out["_slots"] = (audio_tokens >= 0).sum().float()
         return out
+
+    def _tcn_forward(self, inputs, onehot, audio_tokens, word_mask, attention_mask,
+                     sample_weight, det, mixup_gen, dropout_gen):
+        """``_dense_tcn_path`` of the JAX model (its mixup ignores
+        ``use_cutmix``, as there; labels are not smoothed)."""
+        cfg, dtype = self.cfg, self.dtype
+        mixing = not det and self.cutmix_alpha > 0
+        if mixing:
+            lam = sample_mixup(mixup_gen, self.cutmix_alpha)
+            inputs = batch_mixup_apply(inputs, lam)
+            lam = lam.to(inputs.device)   # f32, for the losses' lerp
+        hidden = self.frontend(inputs, train=not det)               # [B, T, width]
+        if cfg.use_word_boundary:
+            if word_mask is None:
+                raise ValueError("use_word_boundary needs a word_mask")
+            hidden = torch.cat((hidden, word_mask[:, :, None].to(dtype)), dim=-1)
+        feats = self.encoder(hidden, not det, dropout_gen).float()   # [B, T, C]
+        if attention_mask is None:
+            am = torch.ones(feats.shape[:2] + (1,), device=feats.device)
+        else:
+            am = attention_mask.float()[:, :, None]
+        pooled = (feats * am).sum(1) / (am.sum(1) + 1e-6)
+        logits = self.category_classifier(pooled)
+        logp = torch.log_softmax(logits, -1)
+
+        def ce(target):
+            return weighted_mean(-(target * logp).sum(-1), sample_weight)
+
+        sync = self.audio_classifier
+        if mixing:
+            loss_word = (1.0 - lam) * ce(onehot) + lam * ce(torch.roll(onehot, 1, 0))
+            loss_audio = ((1.0 - lam) * sync(feats, audio_tokens)
+                          + lam * sync(feats, torch.roll(audio_tokens, 1, 0)))
+        else:
+            loss_word = ce(onehot)
+            loss_audio = sync(feats, audio_tokens)
+        return self._outputs(logits, onehot, loss_word, loss_audio, audio_tokens,
+                             sample_weight, det)

@@ -8,13 +8,15 @@ product, the bias f32, f32 accumulation).
 
 * K1, ``sync_ce_mono_partials`` (``csrc/sync_ce.cu::sync_ce_fwd``,
   replacing the Pallas ``_kernel``): grid (128-row tile, slot), TMA and
-  wgmma, one launch (``mono_geometry``);
+  wgmma, one launch (``mono_geometry``); a slot of up to 640 columns, in
+  two 320-column passes above 320 (``lrw1000``'s wav2vec2 codec);
   features whose rows are no multiple of 16 bytes (D = 513) are copied
   into a zero-padded buffer first (``pad_features``), as the JAX wrapper
   pads them for its kernel;
 * K2, ``sync_ce_split_partials`` (``csrc/sync_ce_split.cu::
   sync_ce_split_fwd``, replacing ``_kernel_split``): grid (64-row tile,
-  slot), TMA and wgmma, one launch (``split_geometry``).
+  slot), TMA and wgmma, one launch (``split_geometry``); a slot of up to
+  320 columns.
 
 Both keep their partials in one per-device scratch buffer (they run on one
 stream at a time) and write their (sum, count) into a slice of the
@@ -43,7 +45,9 @@ from syncvsr_tpu_torch.utils import kernels
 Tensor = torch.Tensor
 
 _SMS = 132        # H100 SXM streaming multiprocessors
-MAX_VOCAB = 320  # vocabulary one block holds per slot
+BLOCK_VOCAB = 320        # columns of a slot a block holds at once
+MONO_MAX_VOCAB = 640     # K1: two column passes
+SPLIT_MAX_VOCAB = 320    # K2: one
 _MONO_ROWS = 128  # rows per block of K1 (two wgmma m64 tiles)
 _MONO_STAGES = 3
 _SPLIT_ROWS = 64  # rows per block of K2 (one wgmma m64)
@@ -86,31 +90,36 @@ def split_geometry(n: int, slots: int) -> dict:
     the 320 columns a block holds, over a ring of two 48 KB stages."""
     tiles = -(-n // _SPLIT_ROWS)
     return {"grid": (tiles, slots), "blocks": tiles * slots, "rows": _SPLIT_ROWS,
-            "threads": 256, "columns_per_warpgroup": MAX_VOCAB // 2,
+            "threads": 256, "columns_per_warpgroup": BLOCK_VOCAB // 2,
             # the ring, its 1024-byte alignment, the barriers and merge buffers
-            "smem_bytes": 2 * (_SPLIT_ROWS + MAX_VOCAB) * 64 * 2 + 1024 + 864}
+            "smem_bytes": 2 * (_SPLIT_ROWS + BLOCK_VOCAB) * 64 * 2 + 1024 + 864}
 
 
-def mono_geometry(n: int, slots: int) -> dict:
+def mono_geometry(n: int, slots: int, vocab: int = BLOCK_VOCAB) -> dict:
     """K1's launch, as ``csrc/sync_ce.cu`` makes it: a (128-row tile,
     slot) grid of blocks of two consumer warpgroups, each owning half of
-    the 320 columns of the slot for both of the block's 64-row tiles (80
-    f32 accumulators a tile), over a ring of three stages; the shared
-    memory a block takes (the ring, its 1024-byte alignment, barriers and
-    merge buffers), the one block an SM holds (its 255 registers a thread
-    allow no second), and the waves of the 132 SMs the grid makes."""
+    the 320 columns a pass holds of the slot for both of the block's 64-row
+    tiles (80 f32 accumulators a tile), over a ring of three stages that
+    runs on across the ``passes`` (two at V = 640, each reading the x tile
+    again); the shared memory a block takes (the ring, its 1024-byte
+    alignment, barriers, merge buffers and running row statistics), the one
+    block an SM holds (its 255 registers a thread allow no second), and the
+    waves of the 132 SMs the grid makes."""
     tiles = -(-n // _MONO_ROWS)
     threads, stages = 256, _MONO_STAGES
-    smem = (stages * (_MONO_ROWS * 64 * 2 + MAX_VOCAB * 64 * 2) + 1024
-            + 16 * stages + _MONO_ROWS * 3 * 4 + threads // 32 * 8)
+    smem = (stages * (_MONO_ROWS * 64 * 2 + BLOCK_VOCAB * 64 * 2) + 1024
+            + 16 * stages + 2 * _MONO_ROWS * 3 * 4 + threads // 32 * 8)
     return {"grid": (tiles, slots), "blocks": tiles * slots, "rows": _MONO_ROWS,
             "threads": threads, "stages": stages, "accumulators": 80 * _MONO_ROWS // 64,
+            "passes": -(-vocab // BLOCK_VOCAB), "columns_per_pass": BLOCK_VOCAB,
             "smem_bytes": smem, "blocks_per_sm": 1, "waves": tiles * slots / _SMS}
 
 
-def _kernel_operands(name: str, x: Tensor, w: Tensor, b: Tensor, tok: Tensor):
-    """Check the shapes both kernels take; returns (bf16 w, f32 b, int32
-    tok, n, d, slots, vocab), contiguous."""
+def _kernel_operands(name: str, x: Tensor, w: Tensor, b: Tensor, tok: Tensor,
+                     max_vocab: int):
+    """Check the shapes both kernels take (a slot of at most
+    ``max_vocab`` columns); returns (bf16 w, f32 b, int32 tok, n, d, slots,
+    vocab), contiguous."""
     n, d = x.shape
     s = tok.shape[1]
     sv = w.shape[1]
@@ -118,9 +127,9 @@ def _kernel_operands(name: str, x: Tensor, w: Tensor, b: Tensor, tok: Tensor):
         raise ValueError(f"{name}: shapes x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"b {tuple(b.shape)}, tok {tuple(tok.shape)} disagree")
     vocab = sv // s
-    if vocab > MAX_VOCAB or vocab % 8:
+    if vocab > max_vocab or vocab % 8:
         raise ValueError(f"{name}: vocab {vocab} per slot must be a multiple "
-                         f"of 8 and at most {MAX_VOCAB}")
+                         f"of 8 and at most {max_vocab}")
     if not (w.is_cuda and b.is_cuda and tok.is_cuda):
         raise ValueError(f"{name}: all inputs must be on the GPU")
     wb = w.to(torch.bfloat16).contiguous()
@@ -154,7 +163,8 @@ def sync_ce_mono_partials(x: Tensor, w: Tensor, b: Tensor, tok: Tensor
     its partials."""
     if not x.is_cuda:
         return sync_ce_partials_plain(x, w, b, tok)
-    wb, bf, ti, n, d, s, vocab = _kernel_operands("sync_ce_mono_partials", x, w, b, tok)
+    wb, bf, ti, n, d, s, vocab = _kernel_operands("sync_ce_mono_partials", x, w, b, tok,
+                                                  MONO_MAX_VOCAB)
     xp = pad_features(x)
     device = x.get_device()
     partials = kernels.scratch("sync_partials", device,
@@ -178,7 +188,8 @@ def sync_ce_split_partials(x: Tensor, w: Tensor, b: Tensor, tok: Tensor
     strides). One launch: the kernel also sums its partials."""
     if not x.is_cuda:
         return sync_ce_partials_plain(x, w, b, tok)
-    wb, bf, ti, n, d, s, vocab = _kernel_operands("sync_ce_split_partials", x, w, b, tok)
+    wb, bf, ti, n, d, s, vocab = _kernel_operands("sync_ce_split_partials", x, w, b, tok,
+                                                  SPLIT_MAX_VOCAB)
     xb = x.to(torch.bfloat16).contiguous()
     if d % 8:
         raise ValueError(f"sync_ce_split_partials: D={d} must be a multiple of 8")

@@ -1,5 +1,6 @@
-"""In-step temporal CutMix (port of ``syncvsr_tpu/ops/cutmix.py::
-temporal_cutmix``), split into a sampling part and a deterministic apply part.
+"""In-step temporal CutMix and batch mixup (port of
+``syncvsr_tpu/ops/cutmix.py::temporal_cutmix`` and ``batch_mixup``), each
+split into a sampling part and a deterministic apply part.
 
 A contiguous span of frames (beta-distributed length) is swapped with the
 partner sample (the batch reversed); soft labels and word-boundary masks are
@@ -7,6 +8,10 @@ lerped by the kept share; audio tokens are swapped over the same span
 repeated ``audio_rep`` times. Sampling draws from a CPU ``torch.Generator``
 so it never waits on the GPU; the keep-mask is built on the host in f32 and
 copied over.
+
+Batch mixup (the DC-TCN recipe) lerps every clip toward the batch rolled by
+one with a folded beta weight lambda in [0, 0.5]; the caller lerps the two
+losses (own and rolled targets) by the same lambda.
 """
 
 from __future__ import annotations
@@ -54,3 +59,19 @@ def temporal_cutmix_apply(inputs: Tensor, labels: Tensor, audio_tokens: Tensor,
     if word_mask is not None:
         word_mask = lam * word_mask + (1.0 - lam) * flip(word_mask)
     return inputs, labels, audio_tokens, word_mask
+
+
+def sample_mixup(gen: torch.Generator, alpha: float) -> Tensor:
+    """lambda ~ Beta(alpha, alpha) folded to 0.5 - |0.5 - lambda|, an f32
+    scalar on the CPU."""
+    a = torch.full((2,), float(alpha), dtype=torch.float32)
+    g = torch._standard_gamma(a, generator=gen)
+    lam = g[0] / (g[0] + g[1])
+    return 0.5 - torch.abs(0.5 - lam)
+
+
+def batch_mixup_apply(videos: Tensor, lam: Tensor) -> Tensor:
+    """videos [B, ...] + lambda (videos rolled by one along the batch -
+    videos), in the videos' dtype."""
+    lam = lam.to(device=videos.device, dtype=videos.dtype)
+    return videos + lam * (torch.roll(videos, 1, dims=0) - videos)

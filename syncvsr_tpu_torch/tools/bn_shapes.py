@@ -10,7 +10,8 @@ one card:
 It imports ``syncvsr_tpu_torch`` and ``chip_smoke`` from ``--root`` and
 nothing of JAX. For every BatchNorm shape of the train steps that have
 them (``chip_smoke.bn_shapes()``: ``lrw_video``, ``lrs3`` and, in a checkout
-that has it, ``lrs3_audio``), in bf16, it prints per kernel:
+that has them, ``lrs3_audio``, ``lrw1000`` and ``lrw_dctcn``), in bf16, it
+prints per kernel:
 ``ms`` (CUDA events around 20 warm back-to-back calls of the wrapper, host
 included, every timing taken before the first profiler window),
 ``device_ms`` (the kernel's own device time from a torch.profiler window

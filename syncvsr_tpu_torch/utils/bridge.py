@@ -15,7 +15,9 @@ DenseGeneral ``wo``         [H, Dh, out]                    ``weight`` [out, H, 
 depthwise conv ``dw``       (K, 1, C)                       ``weight`` [C, 1, K]
 1-D conv (``stem_conv``,    (K, I, O)                       ``weight`` [O, I, K]
 ``conv1``, ``conv2``,
-``downsample_conv``)
+``downsample_conv``; the
+TCN family's ``conv``,
+``downsample``, ``pw``)
 ``stem_conv_kernel``        (5, 7, 7, 1, C) THWIO           same name, OITHW
 norm ``scale``              [C]                             ``weight`` [C]
 ``bias``, ``cls_token``,    any                             same
@@ -23,6 +25,9 @@ norm ``scale``              [C]                             ``weight`` [C]
 ``embedding``
 batch_stats ``mean/var``    [C]                             ``running_mean/var``
 ==========================  ==============================  ===================
+
+``SELayer1D``'s ``Dense_0``/``Dense_1`` are Dense layers under flax's auto
+names, and the TCN family's flax BatchNorms are norms like the others.
 
 Both directions take and return numpy arrays, so the bridge needs no JAX
 (callers run ``np.asarray`` over a flax tree first).
@@ -63,10 +68,11 @@ def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
 
 
 # 3-D kernels by module name: DenseGeneral projections into heads and out
-# of them, and 1-D convs (the depthwise one and ResNet1D's), whose
-# permutations are their own inverses
+# of them, and 1-D convs (the depthwise ones, ResNet1D's and the TCN
+# family's), whose permutations are their own inverses
 _HEADS_IN = ("wq", "wk", "wv", "linear_pos")
-_CONV_1D = ("dw", "stem_conv", "conv1", "conv2", "downsample_conv")
+_CONV_1D = ("dw", "stem_conv", "conv1", "conv2", "downsample_conv", "conv", "downsample",
+            "pw")
 
 
 def _perm_3d(module: str, to_torch: bool) -> Tuple[int, int, int]:

@@ -143,3 +143,52 @@ def test_k1_pad_features(d):
     assert abs(float(ce) - float(ce0)) <= 1e-6 * abs(float(ce0))
     xb = x.to(torch.bfloat16)
     assert (cuda_sync.pad_features(xb) is xb) == (d % 8 == 0)
+
+
+LRW1000_N = 40 * 96   # lrw1000's rows: 96 clips of 40 frames
+
+
+@pytest.mark.parametrize("n", [LRW1000_N, 1000, 33, 1])
+def test_k1_geometry_at_v640(n):
+    """K1 at lrw1000's head (4 slots of 640 tokens): the grid and the ring
+    of V <= 320, two column passes of 320 over them; the weight, 2.6 MB at
+    D = 512, is the JAX rule's K1 call (at most 4 MiB)."""
+    geo = cuda_sync.mono_geometry(n, 4, 640)
+    assert geo == dict(cuda_sync.mono_geometry(n, 4), passes=2)
+    assert geo["passes"] * geo["columns_per_pass"] == cuda_sync.MONO_MAX_VOCAB == 640
+    assert cuda_sync.mono_geometry(n, 8, 320)["passes"] == 1
+    assert not cuda_sync.uses_split_kernel(512, 4, 640)
+    assert not cuda_sync.uses_split_kernel(513, 4, 640)
+    assert 512 * 4 * 640 * 2 == 2621440 <= cuda_sync._MONO_W_BYTES
+    if n == LRW1000_N:
+        # 30 tiles x 4 slots: 120 blocks, under one wave of the 132 SMs
+        assert geo["blocks"] == 120 and geo["waves"] < 1
+
+
+def test_k2_geometry_at_d1664():
+    """K2 at lrw_dctcn's head: the DC-TCN's 1664 f32 features a frame over
+    8 slots of 320 is 13.6 MB of bf16 weight, the JAX rule's K2 call; 26
+    stages of 64 deep, 44 row tiles x 8 slots."""
+    n, d = 29 * 96, 1664
+    assert cuda_sync.uses_split_kernel(d, 8, 320) and d % 8 == 0
+    geo = cuda_sync.split_geometry(n, 8)
+    assert geo["grid"] == (44, 8) and geo["blocks"] == 352
+    assert -(-d // 64) == 26
+
+
+def test_sync_kernels_refuse_what_they_do_not_take():
+    """The operand check both wrappers run before a launch: K1 takes a slot
+    of up to 640 columns, K2 up to 320 (CPU tensors pass the shape checks
+    and stop at the device check)."""
+    x = torch.zeros(4, 64)
+    tok = torch.zeros(4, 4, dtype=torch.int32)
+    for vocab, limit, ok in ((640, cuda_sync.MONO_MAX_VOCAB, True),
+                             (648, cuda_sync.MONO_MAX_VOCAB, False),
+                             (640, cuda_sync.SPLIT_MAX_VOCAB, False)):
+        w, b = torch.zeros(64, 4 * vocab), torch.zeros(4 * vocab)
+        if ok:
+            with pytest.raises(ValueError, match="on the GPU"):
+                cuda_sync._kernel_operands("k", x, w, b, tok, limit)
+        else:
+            with pytest.raises(ValueError, match=f"at most {limit}"):
+                cuda_sync._kernel_operands("k", x, w, b, tok, limit)
