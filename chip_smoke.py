@@ -43,7 +43,22 @@ non-zero before the last line is printed:
    kernels' launches counted from 0, then one eval step; the audio stem
    conv timed alone; ``lrs3`` also times 5 steps of a batch whose last
    clip is shorter than its labels (the CTC recursion's cost);
-6. profiler windows, after every timing above (a process that torch.profiler
+6. decode: the port's decoding entry points (``syncvsr_tpu_torch/decode``),
+   which launch none of K1-K4 (checked): (a) a small f32 ``lrs3`` model
+   (encoder and decoder 32 wide, 11 labels, 3 clips of 12, 9 and 6 frames),
+   seeded, decoded on the card and on the CPU: the batched beam search
+   with a TransformerLM and with an LSTM LM (equal tokens, or a near-tie
+   row: scores within 1e-4, at most one such row), the same search on
+   clip 0 alone on the card (equal to row 0), greedy CTC and forced
+   alignment (equal); (b) the full-width ``lrs3`` model (bf16, random
+   weights) on 8 clips of 160 frames (lengths 160, 152, ..., 104): the
+   batched beam search at beam 40 with ``lrs3.yaml``'s TransformerLM
+   (16 x 512) fused at weight 0.1, the same search on clip 0 alone (row
+   0's tokens, or, as bf16 rounds otherwise at B = 1, a score within 2^-9
+   of row 0's), greedy CTC and forced alignment (each path must spell its
+   labels): ms a batch, utterances/s, steps, host reads, encode against
+   search time, peak memory and WER;
+7. profiler windows, after every timing above (a process that torch.profiler
    has traced can pay more host time a launch from then on): each kernel's
    own device time (``device_ms``) over the calls phase 3 timed (K1's with
    its features' pad copy), each held to one kernel of its own a call (K3
@@ -51,7 +66,12 @@ non-zero before the last line is printed:
    each path (device time by kernel group and the device's idle share), and
    of ``lrs3``'s batch with the infeasible row;
    then K4 at the Conformer's shape timed again, beside its phase-3 time;
-7. the ``kernels`` JSON line, the card line and the ``ok`` line.
+   profiled decode calls: the encoder alone and a 16-step beam decode
+   (device launches a search step), greedy and align (launches, device
+   time, idle share); with ``--profile DIR``, the full beam decode too and
+   the tables in ``DIR/profile_decode_<name>.txt``;
+8. the ``decode`` JSON line, the ``kernels`` JSON line, the card line and
+   the ``ok`` line.
 """
 
 import json
@@ -1062,6 +1082,347 @@ def profile_steps(torch, state, step, batch, out_dir, path, step_s, n=3):
         log(f"  {ms:9.3f} ms/step  x{calls:<4} {name[:110]}")
 
 
+# ---- decoding (no kernel of K1-K4 runs here: eval BatchNorms use their
+# running statistics and the sync head is dropped) --------------------------
+
+DECODE_FRAMES, DECODE_LABEL_LEN, DECODE_BEAM, DECODE_LM_WEIGHT = 160, 48, 40, 0.1
+# the small f32 reference: the lrs3 model at toy widths with equal encoder
+# and decoder widths (tests/torch_parity.py's SENTENCE_DECODE), three clips
+SMALL_DECODE = {
+    "model.encoder.layers": 2, "model.encoder.dim": 32, "model.encoder.heads": 2,
+    "model.decoder.layers": 2, "model.decoder.dim": 32, "model.decoder.heads": 2,
+    "model.decoder.hidden": 24, "model.frontend.resnet_width": 8, "model.labels": 11,
+    "model.codec.audio_vocab_size": 13, "model.dtype": "float32",
+    "model.encoder.mlp_dropout": 0.0, "model.encoder.msa_dropout": 0.0,
+    "model.decoder.dropout": 0.0, "data.batch_size": 3, "data.crop_size": 16}
+SMALL_FRAMES = 12
+
+
+def seeded_lm(torch, kind, vocab, seed, **shape):
+    """A language model with weights drawn from ``seed`` on the CPU."""
+    from syncvsr_tpu_torch.models.lm import RNNLM, TransformerLM
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return (RNNLM if kind == "rnn" else TransformerLM)(vocab, **shape)
+
+
+def count_decode(torch, model, fn):
+    """Runs ``fn`` once with the decoder's steps counted (a wrapper on the
+    model's ``decoder.step``) and torch's synchronizing calls recorded (sync
+    debug mode: one warning per host read of a device value). Returns
+    (fn's result, decode steps, host reads)."""
+    import warnings
+
+    decoder, calls = model.decoder, [0]
+    step = decoder.step
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return step(*args, **kwargs)
+
+    decoder.step = counted
+    torch.cuda.synchronize()
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        del decoder.step
+    torch.cuda.synchronize()
+    reads = sum("synchroniz" in str(w.message) for w in seen)
+    return out, calls[0], reads
+
+
+def ctc_collapse(seq):
+    """A frame-level path without blanks and merged repeats."""
+    out, prev = [], None
+    for tok in seq:
+        if tok != 0 and tok != prev:
+            out.append(tok)
+        prev = tok
+    return out
+
+
+def check_decode_reference(torch, np):
+    """The small f32 model, seeded, decoded on the card and on the CPU
+    through the same entry points: the batched beam search with each LM
+    (tokens equal; a row whose tokens differ must be a near-tie, its two
+    hypotheses' scores within 1e-4, and at most one row may flip), greedy
+    CTC and forced alignment (equal); on the card, the single-utterance
+    decoder on clip 0 against the batched row 0 (equal tokens, scores to
+    1e-6). A length bonus of 5 a token (``penalty``; it also turns early
+    exit off) keeps the random model's hypotheses from ending at once: each
+    of their tokens is a ranking that must agree."""
+    from syncvsr_tpu_torch.config import lrs3_config
+    from syncvsr_tpu_torch.data.synthetic import sentence_batch
+    from syncvsr_tpu_torch.decode import BeamSearchConfig
+    from syncvsr_tpu_torch.decode.api import (
+        make_batched_beam_decoder,
+        make_beam_decoder,
+        make_forced_aligner,
+        make_greedy_ctc_decoder,
+    )
+    from syncvsr_tpu_torch.models import build_model
+
+    cfg = lrs3_config().override(**SMALL_DECODE)
+    v = cfg.model.labels
+    models = {"cpu": build_model(cfg, device="cpu")}
+    models["cuda"] = build_model(cfg)
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    raw = sentence_batch(cfg, num_frames=SMALL_FRAMES, label_len=5, seed=4)
+    raw["lengths"] = np.array([SMALL_FRAMES, 9, 6], np.int32)
+    lm_shapes = {"transformer": dict(layers=2, dim=16, heads=2, hidden=32, embed_dim=8),
+                 "rnn": dict(layers=2, dim=16, embed_dim=8)}
+    flips, worst = 0, 0.0
+    before = read_counts()
+    for kind, shape in lm_shapes.items():
+        lm_cpu = seeded_lm(torch, kind, v, 9, **shape)
+        lm_gpu = seeded_lm(torch, kind, v, 9, **shape).cuda()
+        cfg_b = BeamSearchConfig(beam_size=5, ctc_weight=0.1, lm_weight=0.3, penalty=5.0)
+        got = {}
+        for side, lm in (("cpu", lm_cpu), ("cuda", lm_gpu)):
+            dec = make_batched_beam_decoder(models[side], cfg_b, SMALL_FRAMES, lm=lm)
+            got[side] = [t.cpu() for t in dec(torch.from_numpy(raw["videos"]),
+                                              torch.from_numpy(raw["lengths"]))]
+        (t_c, n_c, s_c), (t_g, n_g, s_g) = got["cpu"], got["cuda"]
+        one = make_beam_decoder(models["cuda"], cfg_b, SMALL_FRAMES, lm=lm_gpu)(
+            torch.from_numpy(raw["videos"][:1]), int(raw["lengths"][0]))
+        if not (torch.equal(one[0].cpu(), t_g[0]) and int(one[1]) == int(n_g[0])
+                and abs(float(one[2]) - float(s_g[0])) <= 1e-6 * abs(float(s_g[0]))):
+            raise AssertionError(f"decode reference {kind} LM: clip 0 alone {one} vs "
+                                 f"batched row 0 {t_g[0]} ({float(s_g[0])})")
+        for i in range(t_c.shape[0]):
+            gap = abs(float(s_g[i]) - float(s_c[i])) / max(abs(float(s_c[i])), 1.0)
+            worst = max(worst, gap)
+            same = bool(torch.equal(t_c[i], t_g[i])) and int(n_c[i]) == int(n_g[i])
+            if not same:
+                flips += 1
+                log(f"  decode reference {kind} LM row {i}: card {t_g[i, :int(n_g[i])].tolist()} "
+                    f"({float(s_g[i])}) vs CPU {t_c[i, :int(n_c[i])].tolist()} "
+                    f"({float(s_c[i])})")
+            if gap > 1e-4:
+                raise AssertionError(f"decode reference {kind} LM row {i}: scores "
+                                     f"{float(s_g[i])} (card) vs {float(s_c[i])} (CPU)")
+        log(f"decode reference, {kind} LM: card {n_g.tolist()} tokens, scores {s_g.tolist()}; "
+            f"CPU {n_c.tolist()}, {s_c.tolist()}")
+    if flips > 1:
+        raise AssertionError(f"decode reference: {flips} rows flipped between card and CPU")
+    videos, lengths = torch.from_numpy(raw["videos"]), torch.from_numpy(raw["lengths"])
+    labels = torch.from_numpy(raw["labels"])
+    for name, run in (("greedy", lambda m: make_greedy_ctc_decoder(m)(videos, lengths)),
+                      ("align", lambda m: (make_forced_aligner(m)(videos, lengths, labels),))):
+        a, b = ([t.cpu() for t in run(models[side])] for side in ("cpu", "cuda"))
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"decode reference {name}: card {b} vs CPU {a}")
+    launched = {k: val - before[k] for k, val in read_counts().items()}
+    if any(launched.values()):
+        raise AssertionError(f"decode reference launched port kernels: {launched}")
+    log(f"decode reference: card vs CPU, beam (2 LMs), greedy and align; {flips} near-tie "
+        f"rows flipped, worst score gap {worst:.3e} (relative); launches {launched}")
+    return {"rows_flipped": flips, "worst_score_gap": worst}
+
+
+def time_call(torch, fn, n=2):
+    """(mean seconds a call over ``n`` calls, the last result), each call
+    synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out = fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n, out
+
+
+def decode_full_width(torch, np, card, profile_dir=None):
+    """The lrs3 model (bf16, random weights) decoding 8 clips of 160 frames
+    padded (lengths 160, 152, ..., 104): the batched beam search at beam 40
+    with TransformerLM fusion at lrs3.yaml's LM shape, one clip alone
+    through the single-utterance decoder, greedy CTC and forced alignment
+    of the batch's labels. A random model never emits eos, so every row
+    runs all 160 steps. Returns (summary, the profiled window to run after
+    every timing)."""
+    from syncvsr_tpu_torch.data.tokenizer import TextTransform
+    from syncvsr_tpu_torch.decode import BeamSearchConfig
+    from syncvsr_tpu_torch.decode.api import (
+        make_batched_beam_decoder,
+        make_beam_decoder,
+        make_forced_aligner,
+        make_greedy_ctc_decoder,
+    )
+    from syncvsr_tpu_torch.models import build_model
+    from syncvsr_tpu_torch.ops.image import build_sentence_eval_transform
+    from syncvsr_tpu_torch.utils.text import WordErrorRate
+
+    cfg = lrs3_cfg()
+    b, dev = cfg.data.batch_size, torch.device("cuda")
+    held = torch.cuda.memory_allocated()
+    raw = uint8_sentences(np, cfg, DECODE_FRAMES, DECODE_LABEL_LEN, LRS3_SOURCE, seed=0)
+    raw["lengths"] = (DECODE_FRAMES - 8 * np.arange(b)).astype(np.int32)
+    batch = build_sentence_eval_transform(cfg.data)(
+        {k: torch.from_numpy(val).to(dev) for k, val in raw.items()})
+    videos, lengths, labels = batch["videos"], batch["lengths"], batch["labels"]
+    model = build_model(cfg)
+    # lrs3.yaml's language model (the JAX package's evaluate.py LM shape),
+    # in the model's dtype
+    lm = seeded_lm(torch, "transformer", cfg.model.labels, cfg.train.seed + 1, layers=16,
+                   dim=512, heads=8, hidden=2048, embed_dim=128, pos_enc="none",
+                   dtype=torch.bfloat16).to(dev)
+    bcfg = BeamSearchConfig(beam_size=DECODE_BEAM, ctc_weight=cfg.model.mtlalpha,
+                            lm_weight=DECODE_LM_WEIGHT)
+    log(f"decode: lrs3 {tuple(videos.shape)} {videos.dtype}, lengths {lengths.tolist()}, "
+        f"bf16, beam {bcfg.beam_size} (pre-beam {bcfg.pre_beam_size}), ctc_weight "
+        f"{bcfg.ctc_weight}, TransformerLM 16 x 512 at lm_weight {bcfg.lm_weight}, max_len "
+        f"{DECODE_FRAMES}")
+    beam = make_batched_beam_decoder(model, bcfg, DECODE_FRAMES, lm=lm)
+    greedy = make_greedy_ctc_decoder(model)
+    align = make_forced_aligner(model)
+
+    def encode():
+        with torch.inference_mode():
+            enc = model.encode(videos, lengths, det=True)
+            return model.ctc_log_probs(enc), model.decoder_precompute_memory(enc)
+
+    reset_counts()
+    _, steps, reads = count_decode(torch, model, lambda: beam(videos, lengths))
+    _, _, g_reads = count_decode(torch, model, lambda: greedy(videos, lengths))
+    _, _, a_reads = count_decode(torch, model, lambda: align(videos, lengths, labels))
+    launched = read_counts()
+    if any(launched.values()):
+        raise AssertionError(f"decode launched port kernels: {launched}")
+    encode()
+    torch.cuda.reset_peak_memory_stats()
+    beam_s, (toks, n, score) = time_call(torch, lambda: beam(videos, lengths))
+    beam_peak = torch.cuda.max_memory_allocated() - held
+    enc_s, _ = time_call(torch, encode, 3)
+    torch.cuda.reset_peak_memory_stats()
+    greedy_s, (g_toks, g_n) = time_call(torch, lambda: greedy(videos, lengths), 5)
+    greedy_peak = torch.cuda.max_memory_allocated() - held
+    torch.cuda.reset_peak_memory_stats()
+    align_s, al = time_call(torch, lambda: align(videos, lengths, labels), 5)
+    align_peak = torch.cuda.max_memory_allocated() - held
+    one_s, (t1, n1, s1) = time_call(
+        torch, lambda: make_beam_decoder(model, bcfg, DECODE_FRAMES, lm=lm)(videos[:1],
+                                                                           lengths[0]), 1)
+
+    n_cpu, toks_cpu, score_cpu = n.cpu(), toks.cpu(), score.cpu()
+    log(f"  beam: {beam_s * 1e3:.2f} ms a batch ({b / beam_s:.3f} utterances/s), {steps} "
+        f"steps ({(beam_s - enc_s) * 1e3 / steps:.3f} ms a step of search), {reads} host "
+        f"reads, encode {enc_s * 1e3:.2f} ms, peak {beam_peak} B above {held} B held; tokens "
+        f"{n_cpu.tolist()}, scores {score_cpu.tolist()}")
+    if not (bool(torch.isfinite(score_cpu).all()) and 0 < steps <= DECODE_FRAMES
+            and bool(((n_cpu >= 0) & (n_cpu < DECODE_FRAMES)).all())):
+        raise AssertionError(f"beam: {steps} steps, counts {n_cpu.tolist()}, scores "
+                             f"{score_cpu.tolist()}")
+    # bf16 at B = 1 and B = 8 rounds differently (other conv algorithms and
+    # GEMM tiles), so over 160 steps the best hypothesis may change; its
+    # score must then stay within half of bf16's relative spacing (2^-9).
+    # The f32 reference above holds the same comparison to 1e-6.
+    same = torch.equal(t1.cpu(), toks_cpu[0]) and int(n1) == int(n_cpu[0])
+    gap = abs(float(s1) - float(score_cpu[0])) / abs(float(score_cpu[0]))
+    differ = int((t1.cpu() != toks_cpu[0]).sum())
+    log(f"  one clip alone: {one_s * 1e3:.2f} ms, {int(n1)} tokens, score {float(s1)} "
+        f"(batched row 0: {float(score_cpu[0])}, relative gap {gap:.3e}); tokens equal: "
+        f"{same} ({differ} positions differ)")
+    if not (same or gap <= 2.0 ** -9):
+        raise AssertionError("make_beam_decoder on clip 0: neither row 0's tokens nor a "
+                             "score within 2^-9 of row 0's")
+    al_cpu, lab_cpu, len_cpu = al.cpu(), labels.cpu(), lengths.cpu()
+    for i in range(b):
+        path = al_cpu[i, :int(len_cpu[i])].tolist()
+        want = [t for t in lab_cpu[i].tolist() if t >= 0]
+        if ctc_collapse(path) != want or not (al_cpu[i, int(len_cpu[i]):] == -1).all():
+            raise AssertionError(f"align row {i}: its path does not spell its labels")
+    log(f"  greedy: {greedy_s * 1e3:.3f} ms a batch, tokens {g_n.tolist()}; align: "
+        f"{align_s * 1e3:.3f} ms a batch, every path spells its labels")
+
+    text = TextTransform()
+
+    def wer(hyps, counts):
+        meter = WordErrorRate()
+        for i in range(b):
+            meter.update(text.post_process(lab_cpu[i].numpy()),
+                         text.post_process(hyps[i, :int(counts[i])].cpu().numpy()))
+        return meter.wer
+
+    summary = {
+        "card": card,
+        "beam_lm": {"ms_per_batch": beam_s * 1e3, "utterances_per_s": b / beam_s,
+                    "steps": steps, "ms_per_step": (beam_s - enc_s) * 1e3 / steps,
+                    "host_reads_per_batch": reads, "encode_ms": enc_s * 1e3,
+                    "search_ms": (beam_s - enc_s) * 1e3, "peak_bytes": beam_peak,
+                    "wer": wer(toks, n_cpu), "one_clip_ms": one_s * 1e3,
+                    "one_clip_tokens_equal": same, "one_clip_score_gap": gap},
+        "greedy": {"ms_per_batch": greedy_s * 1e3, "utterances_per_s": b / greedy_s,
+                   "host_reads_per_batch": g_reads, "peak_bytes": greedy_peak,
+                   "wer": wer(g_toks, g_n.cpu())},
+        "align": {"ms_per_batch": align_s * 1e3, "utterances_per_s": b / align_s,
+                  "frames": DECODE_FRAMES, "host_reads_per_batch": a_reads,
+                  "peak_bytes": align_peak},
+    }
+
+    # launches a step from a 16-step decode of the same batch (one stage,
+    # the same operations a step): a profiled 160-step decode traces ~2e5
+    # launches and takes minutes, so it runs only with --profile
+    short = make_batched_beam_decoder(model, bcfg, 16, lm=lm)
+
+    def window():
+        profile_decode(torch, model, summary, profile_dir, encode,
+                       (("beam_lm", lambda: beam(videos, lengths), beam_s),
+                        ("greedy", lambda: greedy(videos, lengths), greedy_s),
+                        ("align", lambda: align(videos, lengths, labels), align_s)),
+                       lambda: short(videos, lengths))
+    return summary, window
+
+
+def profile_decode(torch, model, summary, out_dir, encode, runs, short_beam):
+    """Profiled calls: the encoder alone and a short beam decode (device
+    kernel launches a search step), greedy and align (launches a batch,
+    device time, idle share); with ``out_dir``, the full beam decode too,
+    and the tables in ``out_dir/profile_decode_<name>.txt``."""
+    import os
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def traced(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, steps, _ = count_decode(torch, model, fn)
+        avgs = prof.key_averages()
+        key = ("self_device_time_total" if hasattr(avgs[0], "self_device_time_total")
+               else "self_cuda_time_total")
+        kern = [e for e in avgs if e.device_type == DeviceType.CUDA and getattr(e, key) > 0]
+        return (avgs, key, steps, sum(e.count for e in kern),
+                sum(getattr(e, key) for e in kern) / 1e3)
+
+    enc_launches = traced(encode)[3]
+    _, _, steps, launches, _ = traced(short_beam)
+    beam = summary["beam_lm"]
+    beam["encode_launches"] = enc_launches
+    beam["launches_per_step"] = (launches - enc_launches) / steps
+    log(f"profile decode: encode {enc_launches} launches; a {steps}-step beam decode "
+        f"{launches}, so {beam['launches_per_step']:.1f} a step")
+    for name, fn, wall_s in runs:
+        if name == "beam_lm" and not out_dir:
+            continue
+        avgs, key, _, launches, device_ms = traced(fn)
+        entry = summary[name]
+        entry["launches_per_batch"] = launches
+        entry["device_ms"] = device_ms
+        entry["idle_share"] = 1 - device_ms / (wall_s * 1e3)
+        log(f"profile decode {name}: {launches} launches, device {device_ms:.3f} ms of "
+            f"{wall_s * 1e3:.3f} ms unprofiled (idle {entry['idle_share']:.1%})")
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, f"profile_decode_{name}.txt"), "w") as f:
+                f.write(avgs.table(sort_by=key, row_limit=60, max_name_column_width=90))
+                f.write("\nby host time:\n")
+                f.write(avgs.table(sort_by="self_cpu_time_total", row_limit=40,
+                                   max_name_column_width=90))
+
+
 def main():
     import argparse
 
@@ -1098,6 +1459,7 @@ def main():
     entries += bn_entries
     for path in PATH_KERNELS:
         check_reference(torch, np, path)
+    decode_ref = check_decode_reference(torch, np)
     torch.backends.cudnn.benchmark = True     # the warm-up steps absorb the autotuning
     summary, per_step, windows = {}, {}, []
     launches = {k: 0 for k in counters()}
@@ -1107,9 +1469,12 @@ def main():
         per_step[path] = summary[path]["launches_per_step"]
         if window:
             windows.append(window)
+    summary["decode"], decode_window = decode_full_width(torch, np, card, args.profile)
+    summary["decode"]["reference"] = decode_ref
+    per_step["decode"] = {k: 0 for k in counters()}
     # the kernels' windows first: after the steps' windows, torch.profiler
     # traced no kernel of theirs (run on an H100, PyTorch 2.11)
-    for job in later + windows:
+    for job in later + windows + [decode_window]:
         job()
     log(f"K4 at the Conformer's BatchNorm shape: {retime_k4():.5f} ms a call after the "
         f"profiler windows, {entries[-1]['paths']['lrs3']['shapes'][-1]['ms']:.5f} before them")
@@ -1117,6 +1482,7 @@ def main():
         # launches over every path's timed steps, and per step of each path
         e["launches"] = launches[e["name"]]
         e["launches_per_step"] = {p: per_step[p][e["name"]] for p in per_step}
+    log(f"decode: {json.dumps(summary['decode'])}")
     log(f"summary: {json.dumps(summary)} on {card}")
     log(json.dumps({"kernels": entries}))
     log(card)

@@ -1,1 +1,2 @@
-"""Data: synthetic batches (loaders are not ported yet)."""
+"""Data: synthetic batches and the transcript tokenizer (loaders are not
+ported yet)."""

@@ -7,14 +7,20 @@ vocab projection.
 The self-attention bias is the causal bias plus the padding bias, both the
 f32 minimum, so masked entries of a padded future position sum to -inf;
 that is harmless because the scores stay f32 and every row keeps its first
-position. The decoding step, its KV cache and the precomputed memory
-projections are not ported yet.
+position.
+
+Decoding: ``TransformerDecoder.step`` attends from one new token per row
+over a self-attention K/V cache of every layer stacked as [N, layers, L, H,
+Dk] (written in place at (layer, pos)), and over the encoder memory's
+cross-attention K/V, projected once per utterance by ``precompute_memory``
+and shared by every hypothesis of that utterance (``MHA.attend_shared``).
+``grow_cache`` resizes the length axis between the beam search's stages.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -64,6 +70,31 @@ class MHA(nn.Module):
         q, k, v = self.wq(q_in), self.wk(kv_in), self.wv(kv_in)
         return self.wo(dot_attention(q, k, v, bias, self.rate, det, gen, self.dtype))
 
+    def project_kv(self, kv_in: Tensor) -> Tuple[Tensor, Tensor]:
+        return self.wk(kv_in), self.wv(kv_in)
+
+    def attend_cached(self, q_in: Tensor, k: Tensor, v: Tensor,
+                      bias: Optional[Tensor]) -> Tensor:
+        q = self.wq(q_in)
+        return self.wo(dot_attention(q, k, v, bias, 0.0, True, None, self.dtype))
+
+    def attend_shared(self, q_in: Tensor, k: Tensor, v: Tensor,
+                      mem_bias: Optional[Tensor]) -> Tensor:
+        """Single-query attention of q_in [N, 1, D] over K/V [B, T, H, Dk]
+        that the N // B consecutive rows of each utterance share (the beam's
+        hypotheses attend one encoder memory); ``mem_bias`` [B, T] additive
+        f32. Scores, softmax and both products in f32 (the JAX package's
+        ``preferred_element_type``: a bf16 matmul here would round its
+        output to bf16), probabilities and output rounded to ``dtype``."""
+        b, t, h, dk = k.shape
+        q = self.wq(q_in[:, 0]).float().reshape(b, -1, h, dk)           # [B, W, H, Dk]
+        scores = torch.einsum("bwhd,bthd->bwht", q, k.float()) / math.sqrt(dk)
+        if mem_bias is not None:
+            scores = scores + mem_bias[:, None, None, :]
+        probs = torch.softmax(scores, dim=-1).to(self.dtype)
+        o = torch.einsum("bwht,bthd->bwhd", probs.float(), v.to(self.dtype).float())
+        return self.wo(o.to(self.dtype).reshape(-1, h, dk))[:, None, :]
+
 
 class FF(nn.Module):
     def __init__(self, dim: int, hidden: int, dropout: float = 0.1,
@@ -100,6 +131,46 @@ class DecoderLayer(nn.Module):
         x = x + drop(self.self_attn(h, h, self_bias, det, gen))
         x = x + drop(self.src_attn(self.norm2(x), memory, mem_bias, det, gen))
         return x + drop(self.ff(self.norm3(x), det, gen))
+
+    def project_step_kv(self, x: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+        """x [N, 1, D], the new token -> (its normed input h, its
+        self-attention K/V [N, 1, H, Dk]) for the cache write."""
+        h = self.norm1(x)
+        k_new, v_new = self.self_attn.project_kv(h)
+        return h, k_new, v_new
+
+    def step_attend(self, x: Tensor, h: Tensor, k: Tensor, v: Tensor, self_bias: Tensor,
+                    memory: Optional[Tensor], mem_bias: Optional[Tensor],
+                    mem_kv: Optional[Dict[str, Tensor]] = None) -> Tensor:
+        """Finish one decode step over this layer's cache k, v [N, L, H,
+        Dk] (the new token already written); ``self_bias`` keeps the
+        positions <= pos. With ``mem_kv`` ({"k", "v"} [B, T, H, Dk] from
+        ``precompute_memory``) the cross-attention skips its K/V
+        projections and ``mem_bias`` is [B, T]; without, it attends
+        ``memory`` [N, T, D] under ``mem_bias`` [N, 1, 1, T]."""
+        x = x + self.self_attn.attend_cached(h, k, v, self_bias)
+        if mem_kv is not None:
+            x = x + self.src_attn.attend_shared(self.norm2(x), mem_kv["k"], mem_kv["v"],
+                                                mem_bias)
+        else:
+            x = x + self.src_attn(self.norm2(x), memory, mem_bias)
+        return x + self.ff(self.norm3(x))
+
+
+def grow_cache(cache: Dict[str, Tensor], new_len: int) -> Dict[str, Tensor]:
+    """Pad the length axis (axis 2 of [N, layers, L, H, Dk]) of a stacked
+    K/V cache with zeros up to ``new_len`` (positions past the current one
+    are never attended). The TransformerLM's cache has the same layout.
+    The JAX package's version also shrinks, for its LM's fresh cache; here
+    every cache starts at its first stage's capacity."""
+    return {k: F.pad(v, (0, 0, 0, 0, 0, new_len - v.shape[2])) for k, v in cache.items()}
+
+
+def step_bias(length: int, pos: int, device=None) -> Tensor:
+    """Additive f32 bias [1, 1, 1, L] of a decode step at ``pos``: 0 on
+    the positions <= pos, the f32 minimum after them."""
+    keep = torch.arange(length, device=device) <= pos
+    return torch.where(keep, 0.0, torch.finfo(torch.float32).min)[None, None, None]
 
 
 class _Embed(nn.Module):
@@ -145,3 +216,50 @@ class TransformerDecoder(nn.Module):
         for i in range(self.layers):
             x = getattr(self, f"block_{i}")(x, self_bias, memory, mem_bias, det, gen)
         return self.output(self.after_norm(x).float())
+
+    def init_cache(self, batch: int, max_len: int) -> Dict[str, Tensor]:
+        """Self-attention K/V of every layer stacked on axis 1, [N, layers,
+        L, H, Dk] in ``dtype``: the beam search reorders hypotheses with one
+        gather per tensor, not one per layer."""
+        blk = self.block_0.self_attn.wk
+        heads, d_k = blk.weight.shape[:2]
+        shape = (batch, self.layers, max_len, heads, d_k)
+        dev = blk.weight.device
+        return {"k": torch.zeros(shape, dtype=self.dtype, device=dev),
+                "v": torch.zeros(shape, dtype=self.dtype, device=dev)}
+
+    def precompute_memory(self, memory: Tensor) -> Dict[str, Dict[str, Tensor]]:
+        """Every layer's cross-attention K/V [B, T, H, Dk] of the encoder
+        memory [B, T, D], projected once for all decode steps."""
+        out = {}
+        for i in range(self.layers):
+            k, v = getattr(self, f"block_{i}").src_attn.project_kv(memory)
+            out[f"block_{i}"] = {"k": k, "v": v}
+        return out
+
+    def step(self, y_prev: Tensor, pos: int, cache: Dict[str, Tensor],
+             memory: Optional[Tensor], memory_mask: Optional[Tensor],
+             mem_kv: Optional[Dict] = None) -> Tuple[Tensor, Dict[str, Tensor]]:
+        """One decode step: y_prev [N] token ids at position ``pos`` ->
+        (f32 log-probs [N, V] of the next token, the cache, updated in
+        place). With ``mem_kv``, ``memory_mask`` is [B, T] per utterance and
+        N = B x hypotheses; without, ``memory`` [N, T, D] and
+        ``memory_mask`` [N, T]."""
+        x = self.embed.embedding[y_prev.long()].to(self.dtype)[:, None] * math.sqrt(self.dim)
+        x = x + sinusoid_pe(1, self.dim, pos, self.dtype, x.device)[None]
+        mem_bias = None
+        if memory_mask is not None:
+            mem_bias = torch.where(memory_mask, 0.0, torch.finfo(torch.float32).min)
+            if mem_kv is None:
+                mem_bias = mem_bias[:, None, None, :]
+        k_all, v_all = cache["k"], cache["v"]
+        self_bias = step_bias(k_all.shape[2], pos, x.device)
+        for i in range(self.layers):
+            block = getattr(self, f"block_{i}")
+            h, k_new, v_new = block.project_step_kv(x)
+            k_all[:, i, pos] = k_new[:, 0]
+            v_all[:, i, pos] = v_new[:, 0]
+            x = block.step_attend(x, h, k_all[:, i], v_all[:, i], self_bias, memory, mem_bias,
+                                  None if mem_kv is None else mem_kv[f"block_{i}"])
+        logits = self.output(self.after_norm(x[:, 0]).float())
+        return torch.log_softmax(logits, dim=-1), cache

@@ -10,11 +10,17 @@ conventions: blank 0, sos = eos = labels - 1, ignore -1. In train mode
 (``det=False``) dropout draws from ``dropout_gen``; ``mixup_gen`` is
 accepted for the train step's calling shape and not used (the sentence
 recipe has no CutMix).
+
+The decoding hooks (``ctc_log_probs``, ``decoder_init_cache``,
+``decoder_step``, ``decoder_precompute_memory``) feed the encoder output to
+the decoder as it is, without ``proj_decoder``, as the JAX package's hooks
+do; a model whose encoder and decoder widths differ trains but cannot
+decode there, and raises here.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -118,3 +124,28 @@ class SentenceVSRModel(nn.Module):
             out["_tokens"] = valid_out.sum().float()
             out["_slots"] = (masked_tokens >= 0).sum().float()
         return out
+
+    # ---- decoding hooks (used by syncvsr_tpu_torch.decode) ------------------
+    def _check_decodable(self) -> None:
+        enc, dec = self.cfg.encoder.dim, self.cfg.decoder.dim
+        if enc != dec:
+            raise ValueError(
+                f"cannot decode: the encoder is {enc} wide and the decoder {dec}; the "
+                "decoding hooks feed the encoder output to the decoder without "
+                "proj_decoder, as the JAX package's do")
+
+    def ctc_log_probs(self, encoded: Tensor) -> Tensor:
+        return torch.log_softmax(self.ctc_head(encoded.float()), dim=-1)
+
+    def decoder_init_cache(self, batch: int, max_len: int) -> Dict[str, Tensor]:
+        return self.decoder.init_cache(batch, max_len)
+
+    def decoder_step(self, y_prev: Tensor, pos: int, cache: Dict[str, Tensor],
+                     memory: Optional[Tensor], memory_mask: Optional[Tensor],
+                     mem_kv: Optional[Dict] = None) -> Tuple[Tensor, Dict[str, Tensor]]:
+        self._check_decodable()
+        return self.decoder.step(y_prev, pos, cache, memory, memory_mask, mem_kv=mem_kv)
+
+    def decoder_precompute_memory(self, memory: Tensor) -> Dict[str, Dict[str, Tensor]]:
+        self._check_decodable()
+        return self.decoder.precompute_memory(memory)

@@ -15,13 +15,16 @@ over the frames, nor ``zero_infinity``'s own launches.
 
 PyTorch's CTC backward returns the gradient for normalised
 log-probabilities, so the log-softmax is taken here in f32 and the gradient
-reaches the logits through it. Greedy decoding and forced alignment belong
-to decoding and are not ported yet.
+reaches the logits through it.
+
+Decoding: greedy collapse (``ctc_greedy_decode``) and Viterbi forced
+alignment (``ctc_forced_align``), ports of the functions of the same names,
+equal to them token for token.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -95,3 +98,84 @@ def ctc_loss(logits: Tensor, logit_lengths: Tensor, labels: Tensor, label_length
         per_seq = torch.where(bad, ctc_loss_optax(log_probs, logit_lengths, safe,
                                                   label_lengths, blank_id), per_seq)
     return weighted_mean(per_seq, sample_weight)
+
+
+def ctc_greedy_decode(logits: Tensor, logit_lengths: Tensor,
+                      blank_id: int = 0) -> Tuple[Tensor, Tensor]:
+    """Greedy CTC collapse: argmax per frame, merge repeats, drop blanks.
+
+    Returns (tokens [B, T] padded with -1, lengths [B]). Each kept token is
+    scattered to its rank among the row's kept tokens and every other frame
+    to a column of its own past T, so no two writes meet (a scatter with
+    repeated indices is nondeterministic on CUDA)."""
+    b, t, _ = logits.shape
+    path = logits.argmax(-1)                                     # first maximum
+    frames = torch.arange(t, device=logits.device)
+    prev = F.pad(path[:, :-1], (1, 0), value=blank_id)
+    keep = (path != blank_id) & (path != prev) & (frames[None, :] < logit_lengths[:, None])
+    rank = keep.cumsum(1) - 1
+    dest = torch.where(keep, rank, t + frames[None, :])
+    out = torch.full((b, 2 * t), -1, dtype=path.dtype, device=path.device)
+    out.scatter_(1, dest, torch.where(keep, path, -1))
+    return out[:, :t], keep.sum(1)
+
+
+_NEG = -1e30  # log(0) stand-in that survives f32 additions over T frames
+
+
+def ctc_forced_align(logits: Tensor, logit_lengths: Tensor, labels: Tensor,
+                     label_lengths: Tensor, blank_id: int = 0) -> Tensor:
+    """Batched CTC forced alignment: the most likely frame-level path of
+    the blank-interleaved trellis [blank, l1, blank, ..., lN, blank]
+    (transitions stay / advance 1 / advance 2 where the label differs from
+    the one two states back; the path ends in the last blank or the last
+    label). A forward max-DP over the frames keeps uint8 backpointers, then
+    a reverse backtrace reads the path; both are loops over T. The three
+    transitions are stacked in the order [stay, advance 1, advance 2] and
+    ``torch.max`` takes the first maximum, as ``jnp.argmax`` does.
+
+    logits [B, T, V] raw; labels [B, N], anything past ``label_lengths``.
+    Returns [B, T] int32 token ids (blank between emissions), -1 past
+    ``logit_lengths``; a row with no labels aligns every frame to blank."""
+    b, t, _ = logits.shape
+    n = labels.shape[1]
+    s = 2 * n + 1
+    dev = logits.device
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    label_pad = torch.arange(n, device=dev)[None, :] >= label_lengths[:, None]
+    y_int = torch.full((b, s), blank_id, dtype=torch.long, device=dev)
+    y_int[:, 1::2] = torch.where(label_pad, blank_id, labels.long())
+    states = torch.arange(s, device=dev)
+    prev2 = F.pad(y_int[:, :-2], (2, 0), value=-1)
+    allow2 = (states[None, :] % 2 == 1) & (y_int != prev2)
+    # states past a row's own trellis can never be entered
+    s_eff = 2 * label_lengths.long() + 1
+    in_trellis = states[None, :] < s_eff[:, None]
+    emit = torch.gather(lp, 2, y_int[:, None, :].expand(b, t, s))        # [B, T, S]
+    emit = torch.where(in_trellis[:, None, :], emit, _NEG)
+    live = torch.arange(t, device=dev)[None, :] < logit_lengths[:, None]  # [B, T]
+
+    delta = torch.full((b, s), _NEG, device=dev)
+    delta[:, :2] = emit[:, 0, :2]
+    neg = torch.full((b, 2), _NEG, device=dev)
+    bps = []
+    for i in range(1, t):
+        shift1 = torch.cat((neg[:, :1], delta[:, :-1]), 1)
+        shift2 = torch.where(allow2, torch.cat((neg, delta[:, :-2]), 1), _NEG)
+        best, bp = torch.max(torch.stack((delta, shift1, shift2)), 0)
+        on = live[:, i:i + 1]
+        # past its length a row's lattice stays as it is (stay, no emission)
+        delta = torch.where(on, best + emit[:, i], delta)
+        bps.append(torch.where(on, bp, 0).to(torch.uint8))
+
+    last_blank = s_eff - 1
+    last_label = torch.clamp(s_eff - 2, min=0)
+    take = lambda idx: torch.gather(delta, 1, idx[:, None])[:, 0]  # noqa: E731
+    state = torch.where(take(last_blank) >= take(last_label), last_blank, last_label)
+    path = [state]
+    for bp in reversed(bps):
+        state = state - torch.gather(bp, 1, state[:, None])[:, 0].long()
+        path.append(state)
+    path = torch.stack(path[::-1], 1)                                     # [B, T]
+    align = torch.gather(y_int, 1, path).to(torch.int32)
+    return torch.where(live, align, -1)

@@ -27,7 +27,11 @@ batch_stats ``mean/var``    [C]                             ``running_mean/var``
 ==========================  ==============================  ===================
 
 ``SELayer1D``'s ``Dense_0``/``Dense_1`` are Dense layers under flax's auto
-names, and the TCN family's flax BatchNorms are norms like the others.
+names, and the TCN family's flax BatchNorms are norms like the others. The
+language models' trees (``models/lm.py``) take the same rules: the
+TransformerLM is Dense, DenseGeneral, norm and ``embedding`` leaves, and the
+LSTM cells' ``ii``/``if``/``ig``/``io`` (kernel) and ``hi``/``hf``/``hg``/
+``ho`` (kernel and bias) are flax ``DenseParams``, 2-D kernels like Dense's.
 
 Both directions take and return numpy arrays, so the bridge needs no JAX
 (callers run ``np.asarray`` over a flax tree first).

@@ -39,6 +39,12 @@ SENTENCE_TINY = {
 }
 
 
+# the lrs3 sentence model at toy widths with EQUAL encoder and decoder
+# widths: the decoding hooks of both packages feed the encoder output to the
+# decoder without proj_decoder, so SENTENCE_TINY (32 / 16) cannot decode
+SENTENCE_DECODE = dict(SENTENCE_TINY, **{"model.decoder.dim": 32, "model.decoder.layers": 2})
+
+
 def configs(**over):
     """(JAX config, port config) of the tiny lrw_video model."""
     o = dict(TINY, **over)
@@ -48,6 +54,13 @@ def configs(**over):
 def sentence_configs(**over):
     """(JAX config, port config) of the tiny lrs3 model."""
     o = dict(SENTENCE_TINY, **over)
+    return jcfg.lrs3_config().override(**o), tcfg.lrs3_config().override(**o)
+
+
+def sentence_decode_configs(**over):
+    """(JAX config, port config) of the tiny lrs3 model that both packages
+    can decode (encoder and decoder 32 wide)."""
+    o = dict(SENTENCE_DECODE, **over)
     return jcfg.lrs3_config().override(**o), tcfg.lrs3_config().override(**o)
 
 
