@@ -14,8 +14,9 @@ non-zero before the last line is printed:
 3. kernels: each kernel against its plain PyTorch version at the shapes
    its train steps give it (K1 at ``lrw_video``'s, ``lrw_landmark``'s and
    ``lrw1000``'s sync heads, this one 4 slots of 640 tokens, and at
-   ``MONO_CASES``; K2 at ``lrs3``'s, ``lrs3_audio``'s and ``lrw_dctcn``'s
-   and at ``SPLIT_CASES``; K3/K4 at every BatchNorm shape of the steps
+   ``MONO_CASES``; K2 at ``lrs3``'s, ``lrs3_audio``'s, ``lrw_dctcn``'s and
+   ``lrw1000_dctcn``'s, this one 4 slots of 640 tokens in two column
+   passes, and at ``SPLIT_CASES``; K3/K4 at every BatchNorm shape of the steps
    that have them and at ``BN_EXTRA``; each twice, bitwise), with
    its time (``ms``: CUDA events around 20 warm back-to-back calls of the
    wrapper, host included) beside its bound, the plain version's time and
@@ -26,10 +27,11 @@ non-zero before the last line is printed:
    head takes K2; one clip shorter than its labels, so the CTC loss's
    recursion for rows with no alignment runs), ``lrw_landmark`` (the pad sentinel in some frames),
    ``lrs3_audio`` (768 wide, 10240 samples a clip), ``lrw1000`` (64 wide,
-   4 slots of 640 tokens: K1's two column passes) and ``lrw_dctcn`` (a
+   4 slots of 640 tokens: K1's two column passes), ``lrw_dctcn`` (a
    one-layer DC-TCN 896 wide, so its head takes K2, twice a step under
-   mixup): the metrics and Adam's first moment, less the ReLU units whose
-   input f32 rounding put on the other side of 0;
+   mixup) and ``lrw1000_dctcn`` (the same DC-TCN over ``lrw1000``'s data:
+   K2 at 4 slots of 640): the metrics and Adam's first moment, less the
+   ReLU units whose input f32 rounding put on the other side of 0;
 5. train, for each path: the full-width train step (``lrw_video``: batch
    96, 29 uint8 96x112 frames; ``lrs3``: batch 8, 160 uint8 128x128 frames,
    12-layer Conformer + 6-layer decoder; ``lrw_landmark``: batch 1024, 29
@@ -38,7 +40,8 @@ non-zero before the last line is printed:
    ``lrs3``'s Conformer and decoder; ``lrw1000``: batch 96, 40 uint8
    frames, 1000 labels, the wav2vec2 codec's 4 slots of 640; ``lrw_dctcn``:
    batch 96, 29 uint8 frames, the 4 x 3-layer DC-TCN (1664 wide), mixup,
-   a ragged attention mask; bf16, augmentation and dropout as
+   a ragged attention mask; ``lrw1000_dctcn``: ``lrw1000``'s batch under
+   that DC-TCN, K2 at 4 slots of 640; bf16, augmentation and dropout as
    configured), 3 warm-up and two windows of 5 timed steps with the
    kernels' launches counted from 0, then one eval step; the audio stem
    conv timed alone; ``lrs3`` also times 5 steps of a batch whose last
@@ -58,7 +61,17 @@ non-zero before the last line is printed:
    of row 0's), greedy CTC and forced alignment (each path must spell its
    labels): ms a batch, utterances/s, steps, host reads, encode against
    search time, peak memory and WER;
-7. profiler windows, after every timing above (a process that torch.profiler
+7. cli: the entry points a user runs, ``python -m syncvsr_tpu_torch.train``
+   and ``.evaluate``, each in its own process, on synthetic data, into a
+   temporary directory removed at the end (``cli_phase``): ``lrw_video`` at
+   full width trains 6 steps with an eval and a save at step 4, resumes to
+   step 8, and ``evaluate`` reads its ``best.msgpack``; ``lrw1000`` with the
+   DC-TCN at full width trains 4 steps (K2 at V = 640); ``lrs3`` cut to 2 +
+   1 layers trains 4 steps, then decodes its ``best.msgpack`` greedily and
+   with the batched beam search; the kernels' launches a step are read
+   from the driver's ``metrics.jsonl``, and its ``step_ms_ema`` is printed
+   beside phase 5's step time;
+8. profiler windows, after every timing above (a process that torch.profiler
    has traced can pay more host time a launch from then on): each kernel's
    own device time (``device_ms``) over the calls phase 3 timed (K1's with
    its features' pad copy), each held to one kernel of its own a call (K3
@@ -70,8 +83,8 @@ non-zero before the last line is printed:
    (device launches a search step), greedy and align (launches, device
    time, idle share); with ``--profile DIR``, the full beam decode too and
    the tables in ``DIR/profile_decode_<name>.txt``;
-8. the ``decode`` JSON line, the ``kernels`` JSON line, the card line and
-   the ``ok`` line.
+9. the ``decode`` and ``cli`` JSON lines, the ``kernels`` JSON line, the
+   card line and the ``ok`` line.
 """
 
 import json
@@ -202,6 +215,17 @@ def lrw_dctcn_cfg():
     return lrw_dctcn_config()
 
 
+# the DC-TCN on LRW-1000 (both reference recipes): lrw1000's data and codec
+LRW1000_DCTCN = {"model.encoder.kind": "dense_tcn"}
+
+
+def lrw1000_dctcn_cfg():
+    # lrw1000's bs 96 x 40 frames, 1000 labels, no word boundary, under
+    # lrw_dctcn's DenseTCN: a 1664-wide head over 4 slots of 640 tokens, an
+    # 8.5 MB bf16 weight, so K2 with two column passes, bf16
+    return lrw1000_cfg().override(**LRW1000_DCTCN)
+
+
 def resnet1d_bn_shapes(cfg, frames):
     """(N, C, launches per step) of every BatchNorm statistics call of the
     ResNet1D audio frontend over ``frames`` frames (640 samples each) a clip:
@@ -216,7 +240,7 @@ def bn_shapes():
     """Per path with BatchNorms, (N, C, launches per step) of every
     BatchNorm statistics call (``lrw_landmark`` has none)."""
     lrw, lrs3, audio = lrw_video_cfg(), lrs3_cfg(), lrs3_audio_cfg()
-    lrw1000, dctcn = lrw1000_cfg(), lrw_dctcn_cfg()
+    lrw1000, dctcn, lrw1000_dctcn = lrw1000_cfg(), lrw_dctcn_cfg(), lrw1000_dctcn_cfg()
 
     def conformer(cfg, frames):
         return (cfg.data.batch_size * frames, cfg.model.encoder.dim, cfg.model.encoder.layers)
@@ -226,7 +250,8 @@ def bn_shapes():
             "lrs3_audio": (resnet1d_bn_shapes(audio, AUDIO_FRAMES)
                            + [conformer(audio, AUDIO_FRAMES)]),
             "lrw1000": trunk_bn_shapes(lrw1000, lrw1000.data.num_frames),
-            "lrw_dctcn": trunk_bn_shapes(dctcn, dctcn.data.num_frames)}
+            "lrw_dctcn": trunk_bn_shapes(dctcn, dctcn.data.num_frames),
+            "lrw1000_dctcn": trunk_bn_shapes(lrw1000_dctcn, lrw1000_dctcn.data.num_frames)}
 
 
 def device_ms(torch, fn, names, iters=20):
@@ -293,23 +318,32 @@ MONO_CASES = [(29 * 96, 513, 320, False, "bfloat16", 8),
               (1, 512, 640, False, "float32", 4), (40 * 96, 513, 640, False, "bfloat16", 4),
               (40 * 96, 520, 640, False, "bfloat16", 4),
               (1000, 512, 400, False, "bfloat16", 4), (40 * 96, 512, 640, True, "float32", 4)]
-# K2's cases: lrs3's, lrs3_audio's and lrw_dctcn's shapes first (timed; the
-# audio and DC-TCN heads' features in f32, as in their steps), then ragged
+# K2's cases: lrs3's, lrs3_audio's, lrw_dctcn's and lrw1000_dctcn's shapes
+# first (timed; the audio and DC-TCN heads' features in f32, as in their
+# steps; lrw1000_dctcn's 4 slots of 640 in two column passes), then ragged
 # row counts, a D that is no multiple of the 64-deep stage, a vocabulary
-# below the 320 columns a block holds, and no valid token
+# below the 320 columns a block holds, and no valid token; at V = 640
+# ragged rows, a D past the last full stage, a second pass of 80 columns
+# (V = 400), and no valid token
 SPLIT_CASES = [(8 * 160, 768, 320, False, "bfloat16", 8),
                (32 * 160, 768, 320, False, "float32", 8),
                (29 * 96, 1664, 320, False, "float32", 8),
+               (40 * 96, 1664, 640, False, "float32", 4),
                (1000, 768, 320, False, "bfloat16", 8), (33, 768, 320, False, "bfloat16", 8),
                (1, 768, 320, False, "bfloat16", 8), (8 * 160, 776, 320, False, "bfloat16", 8),
                (8 * 160, 768, 256, False, "bfloat16", 8),
-               (8 * 160, 768, 320, True, "bfloat16", 8)]
+               (8 * 160, 768, 320, True, "bfloat16", 8),
+               (1000, 1664, 640, False, "float32", 4), (33, 1664, 640, False, "bfloat16", 4),
+               (1, 1664, 640, False, "float32", 4), (40 * 96, 1672, 640, False, "float32", 4),
+               (40 * 96, 1664, 400, False, "float32", 4),
+               (40 * 96, 1664, 640, True, "float32", 4)]
 # the case of each path's sync head, timed: the entry's own numbers are its
 # first path's
 SYNC_PATHS = {"sync_ce_fwd": {"lrw_video": MONO_CASES[0], "lrw_landmark": MONO_CASES[1],
                               "lrw1000": MONO_CASES[2]},
               "sync_ce_split_fwd": {"lrs3": SPLIT_CASES[0], "lrs3_audio": SPLIT_CASES[1],
-                                    "lrw_dctcn": SPLIT_CASES[2]}}
+                                    "lrw_dctcn": SPLIT_CASES[2],
+                                    "lrw1000_dctcn": SPLIT_CASES[3]}}
 
 
 def check_sync(torch, dev, kind, later):
@@ -553,12 +587,11 @@ def profile_bn(torch, dev, name, n, c, kind, kern, row):
 
 
 def counters():
-    from syncvsr_tpu_torch.ops import cuda_bn, cuda_sync
+    """The kernels' wrappers by name (imported here: the script must run
+    without the package to fail there)."""
+    from syncvsr_tpu_torch.ops import kernel_wrappers
 
-    return {"sync_ce_fwd": cuda_sync.sync_ce_mono_partials,
-            "sync_ce_split_fwd": cuda_sync.sync_ce_split_partials,
-            "bn_stats_fwd": cuda_bn.bn_stats,
-            "bn_stats_bwd": cuda_bn.bn_bwd_stats}
+    return kernel_wrappers()
 
 
 def reset_counts():
@@ -567,7 +600,9 @@ def reset_counts():
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in counters().items()}
+    from syncvsr_tpu_torch.ops import launch_counts
+
+    return launch_counts()
 
 
 def relu_layers(model):
@@ -710,7 +745,8 @@ PATH_KERNELS = {"lrw_video": {"sync_ce_fwd", "bn_stats_fwd", "bn_stats_bwd"},
                 "lrw_landmark": {"sync_ce_fwd"},
                 "lrs3_audio": {"sync_ce_split_fwd", "bn_stats_fwd", "bn_stats_bwd"},
                 "lrw1000": {"sync_ce_fwd", "bn_stats_fwd", "bn_stats_bwd"},
-                "lrw_dctcn": {"sync_ce_split_fwd", "bn_stats_fwd", "bn_stats_bwd"}}
+                "lrw_dctcn": {"sync_ce_split_fwd", "bn_stats_fwd", "bn_stats_bwd"},
+                "lrw1000_dctcn": {"sync_ce_split_fwd", "bn_stats_fwd", "bn_stats_bwd"}}
 
 
 def check_reference(torch, np, path):
@@ -767,6 +803,18 @@ def check_reference(torch, np, path):
                          "model.encoder.tcn_growth_rates": (384,),
                          "model.frontend.resnet_width": 16, "data.batch_size": 4,
                          "data.num_frames": 8})
+        batch = with_attention_mask(np, uint8_clips(np, cfg, seed=3), 3)
+        aug = build_word_aug(cfg.data)
+        keys = word_keys
+    elif path == "lrw1000_dctcn":
+        # the same one-layer DC-TCN over lrw1000's data: an 896-wide head
+        # over 4 slots of 640 (4.6 MB of bf16 weight), so K2's two column
+        # passes, twice a step under mixup
+        cfg = config.lrw1000_config().override(
+            **common, **LRW1000_DCTCN, **{"model.encoder.tcn_blocks": (1,),
+                                          "model.encoder.tcn_growth_rates": (384,),
+                                          "model.frontend.resnet_width": 16,
+                                          "data.batch_size": 4, "data.num_frames": 8})
         batch = with_attention_mask(np, uint8_clips(np, cfg, seed=3), 3)
         aug = build_word_aug(cfg.data)
         keys = word_keys
@@ -888,6 +936,15 @@ def train_full_width(torch, np, path, profile_dir=None):
         aug, transform = image.build_word_aug(cfg.data), image.build_eval_transform(cfg.data)
         near_ln["loss_word"] = cfg.model.labels
         # mixup lerps the sync loss between own and rolled tokens: K2 twice
+        per_step = {"sync_ce_fwd": 0, "sync_ce_split_fwd": 2,
+                    "bn_stats_fwd": 20, "bn_stats_bwd": 20}
+    elif path == "lrw1000_dctcn":
+        cfg = lrw1000_dctcn_cfg()
+        batch_np = with_attention_mask(np, uint8_clips(np, cfg, seed=0), 0)
+        frames, video = cfg.data.num_frames, "inputs"
+        aug, transform = image.build_word_aug(cfg.data), image.build_eval_transform(cfg.data)
+        near_ln["loss_word"] = cfg.model.labels
+        # K2 at V = 640, twice a step under mixup
         per_step = {"sync_ce_fwd": 0, "sync_ce_split_fwd": 2,
                     "bn_stats_fwd": 20, "bn_stats_bwd": 20}
     elif path == "lrw_landmark":
@@ -1236,6 +1293,174 @@ def time_call(torch, fn, n=2):
     return (time.perf_counter() - t0) / n, out
 
 
+# the CLI phase: the entry points a user runs, each in its own process
+CLI_TIMEOUT = 300     # seconds a command may take
+
+
+def run_cli(module, args, cwd, what):
+    """``python -m syncvsr_tpu_torch.<module> <args>`` in ``cwd`` (the
+    repository on the path); returns (its standard output, seconds), or
+    raises with the end of its output if it fails."""
+    import os
+
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", f"syncvsr_tpu_torch.{module}", *args],
+                         cwd=cwd, env=env, capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT)
+    dt = time.perf_counter() - t0
+    tail = "\n".join((out.stdout + out.stderr).strip().splitlines()[-12:])
+    log(f"cli {what}: python -m syncvsr_tpu_torch.{module} {' '.join(args)} -> exit "
+        f"{out.returncode} in {dt:.1f} s\n{tail}")
+    if out.returncode != 0:
+        raise AssertionError(f"cli {what} failed (exit {out.returncode})")
+    return out.stdout, dt
+
+
+def train_records(ckpt_dir):
+    """The per-step records of ``metrics.jsonl`` (one each ``log_every``
+    steps, with the kernels' launches; the train metrics in them lag one
+    step, so the first has none)."""
+    import os
+
+    with open(os.path.join(ckpt_dir, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if "train/launches/sync_ce_fwd" in r]
+
+
+def losses(records, what):
+    """The records' train losses, each finite."""
+    got = [r["train/loss"] for r in records if "train/loss" in r]
+    if not (got and all(math.isfinite(v) for v in got)):
+        raise AssertionError(f"cli {what}: train losses {got}")
+    return got
+
+
+def check_launches(records, per_step, what):
+    """Every train record's kernel launches a step equal ``per_step``."""
+    for r in records:
+        got = {k: r[f"train/launches/{k}"] for k in per_step}
+        if got != {k: float(n) for k, n in per_step.items()}:
+            raise AssertionError(f"cli {what} step {r['step']}: launches a step {got}, "
+                                 f"expected {per_step}")
+
+
+def last_json(stdout, what):
+    line = stdout.strip().splitlines()[-1]
+    try:
+        return json.loads(line)
+    except json.JSONDecodeError:
+        raise AssertionError(f"cli {what}: the last line is no JSON object: {line}") from None
+
+
+def cli_phase(steps):
+    """The train and evaluate CLIs (``python -m syncvsr_tpu_torch.train`` /
+    ``.evaluate``) on synthetic data, into a temporary directory removed at
+    the end: (a) ``lrw_video`` at full width, 6 steps with an eval and a
+    ``ckpt_every`` save at step 4, then ``resume=auto`` to step 8; (b)
+    ``evaluate`` of its ``best.msgpack``; (c) ``lrw1000`` with the DC-TCN
+    at full width, 4 steps (K2 at V = 640); (d) ``lrs3`` cut to 2 encoder
+    layers and 1 decoder layer, 4 steps with an eval at step 2, then
+    ``evaluate`` of its ``best.msgpack`` with ``decode=greedy`` and with
+    ``decode=beam_batched decode_pad=bucket``. The kernels' launches a step
+    come from the driver's ``metrics.jsonl``; ``steps`` (the step phase's
+    summaries) gives the bare step's ms beside the driver's
+    ``step_ms_ema``. Returns the phase's summary."""
+    import os
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="syncvsr_cli_")
+    summary = {}
+    try:
+        # (a) lrw_video: train, eval at 4, save at 4, end at 6; resume to 8
+        video = os.path.join(tmp, "lrw_video")
+        common = ["data.dataset=synthetic", "train.log_every=1", f"train.ckpt_dir={video}"]
+        out, dt = run_cli("train", ["preset=lrw_video", *common, "optim.total_steps=6",
+                                    "train.eval_every=4", "train.ckpt_every=4"], tmp,
+                          "(a) lrw_video train")
+        first = train_records(video)
+        losses(first, "(a)")
+        names = sorted(os.listdir(video))
+        log(f"  files: {names}")
+        for f in ("metrics.jsonl", "best.msgpack", "step_4.msgpack", "step_6.msgpack"):
+            if f not in names:
+                raise AssertionError(f"cli (a): {f} missing from {names}")
+        if [r["step"] for r in first] != list(range(1, 7)):
+            raise AssertionError(f"cli (a): train records at steps {[r['step'] for r in first]}")
+        out, dt2 = run_cli("train", ["preset=lrw_video", *common, "optim.total_steps=8",
+                                     "train.eval_every=4", "train.ckpt_every=4",
+                                     "train.resume=auto"], tmp, "(a) lrw_video resume")
+        if f"resumed from {os.path.join(video, 'step_6.msgpack')} @ step 6" not in out:
+            raise AssertionError("cli (a): the second run did not resume from step 6")
+        resumed = train_records(video)[len(first):]
+        if [r["step"] for r in resumed] != [7, 8] or \
+                "step_8.msgpack" not in os.listdir(video):
+            raise AssertionError(f"cli (a): resumed records at "
+                                 f"{[r['step'] for r in resumed]}")
+        per_step = {"sync_ce_fwd": 1, "sync_ce_split_fwd": 0, "bn_stats_fwd": 20,
+                    "bn_stats_bwd": 20}
+        check_launches(first + resumed, per_step, "(a)")
+        summary["lrw_video"] = {"seconds": [dt, dt2],
+                                "step_ms_ema": first[-1]["train/step_ms_ema"],
+                                "step_phase_ms": steps["lrw_video"]["step_ms"],
+                                "launches_per_step": per_step}
+        # (b) evaluate the best checkpoint
+        out, dt = run_cli("evaluate", ["preset=lrw_video", "data.dataset=synthetic",
+                                       f"ckpt={os.path.join(video, 'best.msgpack')}"],
+                          tmp, "(b) lrw_video evaluate")
+        res = last_json(out, "(b)")
+        if not all(math.isfinite(res.get(f"test/{k}", math.nan)) for k in ("acc1", "acc5")):
+            raise AssertionError(f"cli (b): {res}")
+        summary["lrw_video"]["evaluate"] = res
+        # (c) lrw1000 with the DC-TCN: K2 at V = 640
+        tcn = os.path.join(tmp, "lrw1000_dctcn")
+        run_cli("train", ["preset=lrw1000", "model.encoder.kind=dense_tcn",
+                          "data.dataset=synthetic", "optim.total_steps=4", "train.log_every=1",
+                          "train.eval_every=100", "train.ckpt_every=100",
+                          f"train.ckpt_dir={tcn}"], tmp, "(c) lrw1000 dense_tcn train")
+        rec = train_records(tcn)
+        per_step = {"sync_ce_fwd": 0, "sync_ce_split_fwd": 2, "bn_stats_fwd": 20,
+                    "bn_stats_bwd": 20}
+        check_launches(rec, per_step, "(c)")
+        summary["lrw1000_dctcn"] = {"step_ms_ema": rec[-1]["train/step_ms_ema"],
+                                    "step_phase_ms": steps["lrw1000_dctcn"]["step_ms"],
+                                    "launches_per_step": per_step,
+                                    "train_loss": losses(rec, "(c)")}
+        # (d) lrs3 at 2 + 1 layers: the sentence branch, then greedy and beam
+        sent = os.path.join(tmp, "lrs3")
+        cut = ["preset=lrs3", "model.encoder.layers=2", "model.decoder.layers=1",
+               "data.dataset=synthetic"]
+        run_cli("train", [*cut, "optim.total_steps=4", "train.log_every=1",
+                          "train.eval_every=2", "train.ckpt_every=100",
+                          f"train.ckpt_dir={sent}"], tmp, "(d) lrs3 train")
+        rec = train_records(sent)
+        per_step = {"sync_ce_fwd": 0, "sync_ce_split_fwd": 1, "bn_stats_fwd": 22,
+                    "bn_stats_bwd": 22}
+        check_launches(rec, per_step, "(d)")
+        losses(rec, "(d)")
+        if "best.msgpack" not in os.listdir(sent):
+            raise AssertionError("cli (d): no best.msgpack")
+        summary["lrs3"] = {"step_ms_ema": rec[-1]["train/step_ms_ema"],
+                           "launches_per_step": per_step}
+        for mode in (["decode=greedy"], ["decode=beam_batched", "decode_pad=bucket"]):
+            out, dt = run_cli("evaluate", [*cut, f"ckpt={os.path.join(sent, 'best.msgpack')}",
+                                           *mode], tmp, f"(d) lrs3 evaluate {mode[0]}")
+            res = last_json(out, "(d)")
+            hyps = open(os.path.join(tmp, "hypotheses.jsonl")).read().splitlines()
+            if not (math.isfinite(res.get("test/wer", math.nan)) and len(hyps) == 4 * 16):
+                raise AssertionError(f"cli (d) {mode[0]}: {res}, {len(hyps)} hypotheses")
+            summary["lrs3"][mode[0].split("=")[1]] = dict(res, seconds=dt)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for path in ("lrw_video", "lrw1000_dctcn"):
+        s = summary[path]
+        log(f"cli {path}: the driver's step_ms_ema {s['step_ms_ema']:.2f} ms against "
+            f"{s['step_phase_ms']:.2f} ms a bare step (step phase)")
+    return summary
+
+
 def decode_full_width(torch, np, card, profile_dir=None):
     """The lrs3 model (bf16, random weights) decoding 8 clips of 160 frames
     padded (lengths 160, 152, ..., 104): the batched beam search at beam 40
@@ -1472,6 +1697,8 @@ def main():
     summary["decode"], decode_window = decode_full_width(torch, np, card, args.profile)
     summary["decode"]["reference"] = decode_ref
     per_step["decode"] = {k: 0 for k in counters()}
+    torch.cuda.empty_cache()      # room for the CLI processes on the card
+    summary["cli"] = cli_phase(summary)
     # the kernels' windows first: after the steps' windows, torch.profiler
     # traced no kernel of theirs (run on an H100, PyTorch 2.11)
     for job in later + windows + [decode_window]:
@@ -1482,7 +1709,11 @@ def main():
         # launches over every path's timed steps, and per step of each path
         e["launches"] = launches[e["name"]]
         e["launches_per_step"] = {p: per_step[p][e["name"]] for p in per_step}
+        # and a train step of each CLI run (the driver's metrics.jsonl)
+        e["cli_launches_per_step"] = {p: c["launches_per_step"][e["name"]]
+                                      for p, c in summary["cli"].items()}
     log(f"decode: {json.dumps(summary['decode'])}")
+    log(f"cli: {json.dumps(summary['cli'])}")
     log(f"summary: {json.dumps(summary)} on {card}")
     log(json.dumps({"kernels": entries}))
     log(card)

@@ -253,10 +253,10 @@ class TrainConfig:
     pretrained: str = ""
     wandb: bool = False
     donate: bool = True
-    profile_steps: str = ""     # "start:stop" step range to capture a jax trace
+    profile_steps: str = ""     # "start:stop" step range to profile with torch.profiler
     profile_dir: str = "trace"  # where the trace is written
-    distributed: bool = False   # call jax.distributed.initialize() (multi-host)
-    tabulate: bool = False      # print the flax module summary at init
+    distributed: bool = False   # multi-process training (the port raises: not ported yet)
+    tabulate: bool = False      # print the model's module tree at init
     # XLA scoped-VMEM ceiling (KiB) read by the JAX package only; kept so
     # both packages serialize the same config tree
     scoped_vmem_kib: int = 0

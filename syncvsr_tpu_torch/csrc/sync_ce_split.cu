@@ -56,8 +56,22 @@
 // completion (wgmma.wait_group 0) before its slot is handed back, so a
 // block's loads and products overlap only across the two stages.
 //
+// A slot wider than the 320 columns a block holds at once (the wav2vec2
+// codec's V = 640 over the DC-TCN's 1664-wide head on lrw1000, an 8.5 MB
+// weight) takes two column passes in the same block, as K1 does: the ring
+// runs on over the passes as one sequence of (pass, depth tile) loads, so
+// the second pass's first tiles arrive while the first pass ends; after
+// each pass the two warpgroups merge their row statistics as above; the
+// first pass's (max, sum of exp, label logit) of each row waits in shared
+// memory, and warpgroup 0 folds the second's into it, the online
+// logsumexp. The x tile is read again from L2 in the second pass. The two
+// are instantiations of one template: V <= 320 runs the one-pass kernel
+// as it was (a generic pass loop cost it 7-17% of its device time,
+// measured on an H100; PERF.md). At 128 registers a thread ptxas spills 40
+// bytes in the one-pass kernel and 168 in the two-pass one.
+//
 // D must be a multiple of 8 (16-byte rows for TMA), V a multiple of 8 and
-// at most 320; x and W 16-byte aligned. A barrier wait that has not
+// at most 640; x and W 16-byte aligned. A barrier wait that has not
 // finished after ~2 s traps, so a fault ends the kernel instead of hanging.
 
 #include <math.h>
@@ -67,8 +81,9 @@
 namespace {
 
 constexpr int kRows = 64;                  // rows per block (one wgmma m64)
-constexpr int kMaxVocab = 320;             // columns a block holds per slot
-constexpr int kHalf = kMaxVocab / 2;       // columns per consumer warpgroup
+constexpr int kCols = 320;                 // columns a block holds of its slot a pass
+constexpr int kMaxVocab = 2 * kCols;       // two passes
+constexpr int kHalf = kCols / 2;           // columns per consumer warpgroup
 constexpr int kAcc = kHalf / 2;            // f32 accumulators a thread (80)
 constexpr int kDepth = 64;                 // D per stage: one 128-byte row
 constexpr int kStages = 2;
@@ -83,6 +98,9 @@ constexpr int kSmemBytes = kStages * kStageBytes + 1024;  // + 1024-byte alignme
 // tickets drawn by the blocks of the running call; the last block resets it
 __device__ unsigned int g_split_tickets;
 
+// kTwoPass: a slot of 320 < V <= 640 columns in two column passes; else one
+// pass of V <= 320, the one-pass kernel as it was
+template <bool kTwoPass>
 __global__ void __launch_bounds__(kThreads, 2)
 sync_ce_split_kernel(const __grid_constant__ CUtensorMap tm_x,
                      const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ bias,
@@ -92,6 +110,7 @@ sync_ce_split_kernel(const __grid_constant__ CUtensorMap tm_x,
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ __align__(8) uint64_t empty[kStages];
   __shared__ float merge[kRows][3];   // warpgroup 1's (max, sum of exp, label) per row
+  __shared__ float rows[kTwoPass ? kRows : 1][3];   // the first pass's, per row
   __shared__ float red[kWarps][2];
 
   // 128-byte swizzle atoms are 1024 bytes: align the ring to them
@@ -105,6 +124,7 @@ sync_ce_split_kernel(const __grid_constant__ CUtensorMap tm_x,
   const int s = blockIdx.y;
   const int col0 = s * vocab;   // the slot's first column of W
   const int nk = (d + kDepth - 1) / kDepth;
+  const int total = kTwoPass ? 2 * nk : nk;   // loads of the block's sequence
 
   if (tid == 0) {
     for (int i = 0; i < kStages; ++i) {
@@ -115,23 +135,93 @@ sync_ce_split_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
   __syncthreads();
 
-  auto issue = [&](int st, int kt) {
+  // load j of the sequence: column pass j / nk, depth tile j % nk
+  auto issue = [&](int st, int j) {
     unsigned char* base = ring + st * kStageBytes;
+    const int kt = kTwoPass ? j % nk : j;
+    const int c0 = kTwoPass ? col0 + (j / nk) * kCols : col0;
     mbar_expect_tx(&full[st], kStageBytes);
     tma_load(base, &tm_x, &full[st], kt * kDepth, row0);
-    for (int b = 0; b < kMaxVocab / 32; ++b)
-      tma_load(base + kXBytes + b * kWBox, &tm_w, &full[st], col0 + 32 * b, kt * kDepth);
+    for (int b = 0; b < kCols / 32; ++b)
+      tma_load(base + kXBytes + b * kWBox, &tm_w, &full[st], c0 + 32 * b, kt * kDepth);
   };
   if (tid == 0)
-    for (int kt = 0; kt < kStages && kt < nk; ++kt) issue(kt, kt);
+    for (int j = 0; j < kStages && j < total; ++j) issue(j, j);
 
   float acc[kAcc];
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
 
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt % kStages;
-    const uint32_t parity = (kt / kStages) & 1;
+  // a thread holds rows ra and ra + 8; accumulators 4j, 4j+1 (row ra) and
+  // 4j+2, 4j+3 (row ra + 8) are columns cb + 8j and cb + 8j + 1 of the slot
+  const int ra = warp * 16 + lane / 4;
+  // the softmax-CE statistics of rows ra and ra + 8 over the pass's columns,
+  // the two warpgroups' merged: (max, sum of exp, label logit) of each row
+  // in st, valid in warpgroup 0's quad leaders; adds the bias to acc
+  auto pass_stats = [&](int pass, int ta, int tb, float (&st)[2][3]) {
+    const int cb = pass * kCols + wg * kHalf + 2 * (lane % 4);
+    float ma = -INFINITY, mb = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kAcc / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = cb + 8 * j + e;
+        if (col < vocab) {
+          const float bv = __ldg(bias + col0 + col);
+          acc[4 * j + e] += bv;
+          acc[4 * j + 2 + e] += bv;
+          ma = fmaxf(ma, acc[4 * j + e]);
+          mb = fmaxf(mb, acc[4 * j + 2 + e]);
+        }
+      }
+    ma = quad_max(ma);
+    mb = quad_max(mb);
+    float sa = 0.f, sb = 0.f, la = 0.f, lb = 0.f;
+#pragma unroll
+    for (int j = 0; j < kAcc / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = cb + 8 * j + e;
+        if (col < vocab) {
+          sa += expf(acc[4 * j + e] - ma);
+          sb += expf(acc[4 * j + 2 + e] - mb);
+          if (col == ta) la = acc[4 * j + e];
+          if (col == tb) lb = acc[4 * j + 2 + e];
+        }
+      }
+    sa = quad_sum(sa);
+    sb = quad_sum(sb);
+    la = quad_sum(la);
+    lb = quad_sum(lb);
+    if (wg == 1 && lane % 4 == 0) {
+      merge[ra][0] = ma;
+      merge[ra][1] = sa;
+      merge[ra][2] = la;
+      merge[ra + 8][0] = mb;
+      merge[ra + 8][1] = sb;
+      merge[ra + 8][2] = lb;
+    }
+    __syncthreads();
+    if (wg == 0 && lane % 4 == 0) {
+      // warpgroup 0 always holds the pass's first column, so its max is
+      // finite; a warpgroup 1 with every column masked has max -inf and
+      // sum 0, and adds 0
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = ra + 8 * h;
+        const float m0 = h ? mb : ma, s0 = h ? sb : sa, l0 = h ? lb : la;
+        const float m1 = merge[r][0], s1 = merge[r][1], l1 = merge[r][2];
+        const float m = fmaxf(m0, m1);
+        st[h][0] = m;
+        st[h][1] = s0 * expf(m0 - m) + s1 * expf(m1 - m);
+        st[h][2] = l0 + l1;
+      }
+    }
+  };
+  int ta = -1, tb = -1;
+  for (int i = 0; i < total; ++i) {
+    const int st = i % kStages;
+    const uint32_t parity = (i / kStages) & 1;
     mbar_wait(&full[st], parity);
     __syncwarp();   // wgmma is .aligned: the warp issues it together
     const unsigned char* sx = ring + st * kStageBytes;
@@ -150,78 +240,50 @@ sync_ce_split_kernel(const __grid_constant__ CUtensorMap tm_x,
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
-    for (int i = 0; i < kAcc; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+    for (int k = 0; k < kAcc; ++k) asm volatile("" : "+f"(acc[k])::"memory");
     mbar_arrive(&empty[st]);
-    if (tid == 0 && kt + kStages < nk) {
+    if (tid == 0 && i + kStages < total) {
       mbar_wait(&empty[st], parity);   // every consumer is done with the stage
-      issue(st, kt + kStages);
+      issue(st, i + kStages);
     }
     __syncwarp();
+    if (kTwoPass && i == nk - 1) {
+      // the first pass's statistics wait in rows for the second's
+      if (row0 + ra < n) ta = tok[(long long)(row0 + ra) * slots + s];
+      if (row0 + ra + 8 < n) tb = tok[(long long)(row0 + ra + 8) * slots + s];
+      float first[2][3];
+      pass_stats(0, ta, tb, first);
+      if (wg == 0 && lane % 4 == 0)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int k = 0; k < 3; ++k) rows[ra + 8 * h][k] = first[h][k];
+      __syncthreads();   // merge is warpgroup 1's again in the second pass
+#pragma unroll
+      for (int k = 0; k < kAcc; ++k) acc[k] = 0.f;
+    }
   }
 
-  // epilogue: thread holds rows ra and ra + 8; accumulators 4j, 4j+1 (row ra)
-  // and 4j+2, 4j+3 (row ra + 8) are columns cb + 8j and cb + 8j + 1
-  const int ra = warp * 16 + lane / 4;
-  const int cb = wg * kHalf + 2 * (lane % 4);
-  int ta = -1, tb = -1;
-  if (row0 + ra < n) ta = tok[(long long)(row0 + ra) * slots + s];
-  if (row0 + ra + 8 < n) tb = tok[(long long)(row0 + ra + 8) * slots + s];
-  float ma = -INFINITY, mb = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < kAcc / 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = cb + 8 * j + e;
-      if (col < vocab) {
-        const float bv = __ldg(bias + col0 + col);
-        acc[4 * j + e] += bv;
-        acc[4 * j + 2 + e] += bv;
-        ma = fmaxf(ma, acc[4 * j + e]);
-        mb = fmaxf(mb, acc[4 * j + 2 + e]);
-      }
-    }
-  ma = quad_max(ma);
-  mb = quad_max(mb);
-  float sa = 0.f, sb = 0.f, la = 0.f, lb = 0.f;
-#pragma unroll
-  for (int j = 0; j < kAcc / 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = cb + 8 * j + e;
-      if (col < vocab) {
-        sa += expf(acc[4 * j + e] - ma);
-        sb += expf(acc[4 * j + 2 + e] - mb);
-        if (col == ta) la = acc[4 * j + e];
-        if (col == tb) lb = acc[4 * j + 2 + e];
-      }
-    }
-  sa = quad_sum(sa);
-  sb = quad_sum(sb);
-  la = quad_sum(la);
-  lb = quad_sum(lb);
-  if (wg == 1 && lane % 4 == 0) {
-    merge[ra][0] = ma;
-    merge[ra][1] = sa;
-    merge[ra][2] = la;
-    merge[ra + 8][0] = mb;
-    merge[ra + 8][1] = sb;
-    merge[ra + 8][2] = lb;
+  if (!kTwoPass) {
+    if (row0 + ra < n) ta = tok[(long long)(row0 + ra) * slots + s];
+    if (row0 + ra + 8 < n) tb = tok[(long long)(row0 + ra + 8) * slots + s];
   }
-  __syncthreads();
+  float last[2][3];
+  pass_stats(kTwoPass ? 1 : 0, ta, tb, last);
   float ce = 0.f, cnt = 0.f;
   if (wg == 0 && lane % 4 == 0) {
-    // warpgroup 0 always holds column 0, so its max is finite; a warpgroup
-    // 1 with every column masked has max -inf and sum 0, and adds 0
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int r = ra + 8 * h;
-      const int t = h ? tb : ta;
-      const float m0 = h ? mb : ma, s0 = h ? sb : sa, l0 = h ? lb : la;
-      const float m1 = merge[r][0], s1 = merge[r][1], l1 = merge[r][2];
-      const float m = fmaxf(m0, m1);
-      const float se = s0 * expf(m0 - m) + s1 * expf(m1 - m);
-      if (t >= 0) {
-        ce += (m + logf(se)) - (l0 + l1);
+      float m = last[h][0], se = last[h][1], lab = last[h][2];
+      if (kTwoPass) {   // the online logsumexp over the two passes
+        const float* r = rows[ra + 8 * h];
+        const float mr = fmaxf(r[0], m);
+        se = r[1] * expf(r[0] - mr) + se * expf(m - mr);
+        m = mr;
+        lab += r[2];
+      }
+      if ((h ? tb : ta) >= 0) {
+        ce += (m + logf(se)) - lab;
         cnt += 1.f;
       }
     }
@@ -272,13 +334,28 @@ sync_ce_split_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
+// launch the kernel of kTwoPass (its dynamic shared memory opted in once a
+// process)
+template <bool kTwoPass>
+int launch(const CUtensorMap& tm_x, const CUtensorMap& tm_w, const void* bias, const void* tok,
+           void* partials, void* out, int n, int d, int slots, int vocab, void* stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      sync_ce_split_kernel<kTwoPass>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((n + kRows - 1) / kRows, slots);
+  sync_ce_split_kernel<kTwoPass><<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      tm_x, tm_w, (const float*)bias, (const int*)tok, (float*)partials, (float*)out, n, d,
+      slots, vocab);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x [n, d] bf16; w [d, slots * vocab] bf16; bias [slots * vocab] f32; tok
 // [n, slots] int32; partials [ceil(n/64) * slots, 2] f32: block (tile,
 // slot)'s (sum, count) at row slot * tiles + tile; out [2] f32 = their sum
 // in block order. x and w 16-byte aligned; d and vocab multiples of 8,
-// vocab <= 320. One launch.
+// vocab <= 640 (two column passes above 320). One launch.
 extern "C" int sync_ce_split_fwd(const void* x, const void* w, const void* bias,
                                  const void* tok, void* partials, void* out, int n, int d,
                                  int slots, int vocab, void* stream) {
@@ -287,18 +364,12 @@ extern "C" int sync_ce_split_fwd(const void* x, const void* w, const void* bias,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  // opt in to the dynamic shared memory once per process
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      sync_ce_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (attr != cudaSuccess) return (int)attr;
   CUtensorMap tm_x, tm_w;
   if (!make_map(&tm_x, x, n, d, d, kRows, kDepth, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !make_map(&tm_w, w, d, slots * vocab, slots * vocab, kDepth, 32,
                 CU_TENSOR_MAP_SWIZZLE_64B))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + kRows - 1) / kRows, slots);
-  sync_ce_split_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      tm_x, tm_w, (const float*)bias, (const int*)tok, (float*)partials, (float*)out, n, d,
-      slots, vocab);
-  return (int)cudaGetLastError();
+  return vocab > kCols
+             ? launch<true>(tm_x, tm_w, bias, tok, partials, out, n, d, slots, vocab, stream)
+             : launch<false>(tm_x, tm_w, bias, tok, partials, out, n, d, slots, vocab, stream);
 }

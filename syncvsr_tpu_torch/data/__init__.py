@@ -1,2 +1,2 @@
-"""Data: synthetic batches and the transcript tokenizer (loaders are not
-ported yet)."""
+"""Data: synthetic batches, the transcript tokenizer, the LRW video readers
+(pkl trees and packed), the threaded loader and the loader factory."""

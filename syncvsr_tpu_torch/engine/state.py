@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -58,7 +58,9 @@ _INPUT_RANKS = {"conv3d_resnet": ("[B, T, H, W, 1]", (5,)),
 class TrainState:
     """Everything a train step reads and updates. ``step`` counts applied
     updates (optax's ``count``); ``mu``/``nu`` are Adam's moments, in the
-    order of ``names``."""
+    order of ``names``; ``seeds`` the generators' (``train.mixup_seed``,
+    ``train.dropout_seed``), which a checkpoint restore re-seeds from where
+    the file holds no generator state."""
 
     model: nn.Module
     optim: OptimConfig
@@ -70,6 +72,7 @@ class TrainState:
     nu: List[torch.Tensor]
     mixup_gen: torch.Generator
     dropout_gen: torch.Generator
+    seeds: Tuple[int, int]
     step: int = 0
 
 
@@ -146,4 +149,5 @@ def create_train_state(config: Config, model: nn.Module, example_batch: Dict[str
         nu=[torch.zeros_like(p) for p in params],
         mixup_gen=torch.Generator().manual_seed(config.train.mixup_seed),
         dropout_gen=torch.Generator(device=dev).manual_seed(config.train.dropout_seed),
+        seeds=(config.train.mixup_seed, config.train.dropout_seed),
     )

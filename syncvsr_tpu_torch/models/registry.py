@@ -7,7 +7,6 @@ from typing import Optional, Union
 import torch
 
 from syncvsr_tpu_torch.config import Config
-from syncvsr_tpu_torch.ops.cuda_sync import SPLIT_MAX_VOCAB, uses_split_kernel
 from syncvsr_tpu_torch.utils.device import resolve_device
 
 
@@ -48,14 +47,4 @@ def build_model(config: Config, device: Optional[Union[str, torch.device]] = Non
 
             model = WordVSRModel(config.model, cutmix_alpha=config.data.cutmix_alpha,
                                  use_cutmix=config.data.use_cutmix)
-    head = model.audio_classifier
-    slots = head.alignment * head.groups
-    if head.vocab > SPLIT_MAX_VOCAB and uses_split_kernel(head.weight.shape[1], slots,
-                                                          head.vocab):
-        # no preset: the wav2vec2 codec's 640 tokens (lrw1000) over a head
-        # wider than K1 takes
-        raise NotImplementedError(
-            f"not ported to PyTorch yet: a sync head of {head.weight.shape[1]} features x "
-            f"{slots} slots of {head.vocab} tokens (the split kernel K2 takes at most "
-            f"{SPLIT_MAX_VOCAB} a slot)")
     return model.to(dev)

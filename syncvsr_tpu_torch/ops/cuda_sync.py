@@ -16,7 +16,9 @@ product, the bias f32, f32 accumulation).
 * K2, ``sync_ce_split_partials`` (``csrc/sync_ce_split.cu::
   sync_ce_split_fwd``, replacing ``_kernel_split``): grid (64-row tile,
   slot), TMA and wgmma, one launch (``split_geometry``); a slot of up to
-  320 columns.
+  640 columns, in two 320-column passes above 320 (the wav2vec2 codec over
+  a head wider than the 4 MiB rule lets K1 take: ``lrw1000`` with the
+  DC-TCN).
 
 Both keep their partials in one per-device scratch buffer (they run on one
 stream at a time) and write their (sum, count) into a slice of the
@@ -47,7 +49,7 @@ Tensor = torch.Tensor
 _SMS = 132        # H100 SXM streaming multiprocessors
 BLOCK_VOCAB = 320        # columns of a slot a block holds at once
 MONO_MAX_VOCAB = 640     # K1: two column passes
-SPLIT_MAX_VOCAB = 320    # K2: one
+SPLIT_MAX_VOCAB = 640    # K2: two column passes too
 _MONO_ROWS = 128  # rows per block of K1 (two wgmma m64 tiles)
 _MONO_STAGES = 3
 _SPLIT_ROWS = 64  # rows per block of K2 (one wgmma m64)
@@ -84,15 +86,22 @@ def sync_ce_partials_plain(x: Tensor, w: Tensor, b: Tensor, tok: Tensor
     return ce.sum(), valid.sum().float()
 
 
-def split_geometry(n: int, slots: int) -> dict:
+def split_geometry(n: int, slots: int, vocab: int = BLOCK_VOCAB) -> dict:
     """K2's launch, as ``csrc/sync_ce_split.cu`` makes it: a (64-row tile,
     slot) grid of blocks of two consumer warpgroups, each owning half of
-    the 320 columns a block holds, over a ring of two 48 KB stages."""
+    the 320 columns a block holds a pass, over a ring of two 48 KB stages
+    that runs on across the ``passes`` (two at V = 640, each reading the x
+    tile again)."""
     tiles = -(-n // _SPLIT_ROWS)
+    passes = -(-vocab // BLOCK_VOCAB)
     return {"grid": (tiles, slots), "blocks": tiles * slots, "rows": _SPLIT_ROWS,
             "threads": 256, "columns_per_warpgroup": BLOCK_VOCAB // 2,
-            # the ring, its 1024-byte alignment, the barriers and merge buffers
-            "smem_bytes": 2 * (_SPLIT_ROWS + BLOCK_VOCAB) * 64 * 2 + 1024 + 864}
+            "passes": passes, "columns_per_pass": BLOCK_VOCAB,
+            # the ring, its 1024-byte alignment, the barriers, the merge
+            # buffer, the warps' partials and, with two passes, the first
+            # pass's row statistics
+            "smem_bytes": 2 * (_SPLIT_ROWS + BLOCK_VOCAB) * 64 * 2 + 1024 + 32
+            + _SPLIT_ROWS * 3 * 4 * (1 + (passes > 1)) + 8 * 2 * 4}
 
 
 def mono_geometry(n: int, slots: int, vocab: int = BLOCK_VOCAB) -> dict:

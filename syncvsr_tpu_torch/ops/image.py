@@ -180,6 +180,8 @@ def build_sentence_aug(data_cfg):
 
     def aug(gen: torch.Generator, batch):
         videos = batch["videos"]
+        if videos.dim() != 5:
+            return batch  # landmark or waveform inputs pass through
         adaptive = data_cfg.adaptive_time_mask
         v = fused_train_aug(
             gen, videos, data_cfg.crop_size, (0.7, 1.0), hflip_prob=0.5,
@@ -195,6 +197,8 @@ def build_sentence_eval_transform(data_cfg, dataset: str = "lrs3"):
     resize_first = dataset != "lrs2"
 
     def transform(batch):
+        if batch["videos"].dim() != 5:
+            return batch  # landmark or waveform inputs pass through
         v = center_crop_resize(to_float(batch["videos"]), data_cfg.crop_size, resize_first)
         return dict(batch, videos=normalize(v, data_cfg.mean, data_cfg.std))
 

@@ -21,10 +21,12 @@ device time (``torch.batch_norm_stats`` /
 then the sums per step of each path. Then K1 at ``lrw_video``'s sync head
 ([2784, 513] x [513, 8 x 320], bf16): ``ms``, its own kernel's device time
 and that of all the call's device kernels (the features' pad copy
-included), beside ``cross_entropy(addmm)``. Last, the card's name and power
-limit. ``--sweep`` (for this checkout only) adds K3's and K4's device time
-at each shape over ``SWEEP_STRIPS`` strips beside the count the wrapper
-picks.
+included), beside ``cross_entropy(addmm)``, and K2 the same way at each
+path's sync head in ``chip_smoke.SYNC_PATHS`` (``lrs3``, ``lrs3_audio``,
+``lrw_dctcn`` and, in a checkout that has it, ``lrw1000_dctcn``'s 4 slots of
+640). Last, the card's name and power limit. ``--sweep`` (for this checkout
+only) adds K3's and K4's device time at each shape over ``SWEEP_STRIPS``
+strips beside the count the wrapper picks.
 """
 
 import argparse
@@ -34,7 +36,7 @@ import sys
 
 # the kernels' device function names, old and new
 OWN = {"K3": ("stats_fwd", "sum_strips"), "K4": ("stats_bwd", "sum_strips"),
-       "K1": ("sync_ce_kernel",)}
+       "K1": ("sync_ce_kernel",), "K2": ("sync_ce_split_kernel",)}
 PEAK_BYTES = 3.35e12
 # K3/K4 grids for --sweep: 1, 2, 3, 4, 6 and 8 blocks a SM of the H100's 132
 SWEEP_STRIPS = (132, 264, 396, 528, 792, 1056)
@@ -137,13 +139,36 @@ def main():
     k1_row = {"ms": cuda_ms(lambda: cuda_sync.sync_ce_mono_partials(*k1_args)),
               "library_ms": cuda_ms(k1_lib)}
 
+    def sync_window(what, fn, args, lib, row, own_names):
+        own, own_n, every, every_n = device_ms(lambda: fn(*args), own_names)
+        row.update(device_ms=every, own_device_ms=own,
+                   library_device_ms=device_ms(lib, ("",))[2])
+        show(what, row, f" ({own_n:.0f} own and {every_n:.0f} device kernels a call)")
+
+    # K2 at each path's sync head (features in the path's dtype)
+    k2_calls = []
+    for path, (n, d, v, _, dtype, s) in chip_smoke.SYNC_PATHS["sync_ce_split_fwd"].items():
+        x = torch.randn(n, d, device=dev, generator=g).to(getattr(torch, dtype))
+        w = (torch.randn(d, s * v, device=dev, generator=g) * 0.05).to(torch.bfloat16)
+        b = torch.randn(s * v, device=dev, generator=g) * 0.1
+        t = torch.randint(0, v, (n, s), device=dev, generator=g, dtype=torch.int32)
+        t[torch.rand(n, s, device=dev, generator=g) < 0.1] = -1
+
+        def lib(x=x, w=w, b=b.to(torch.bfloat16), t=t.reshape(-1).long(), n=n, s=s, v=v):
+            return torch.nn.functional.cross_entropy(
+                torch.addmm(b, x.to(torch.bfloat16), w).reshape(n * s, v).float(), t,
+                ignore_index=-1, reduction="sum")
+
+        k2_args = (x, w, b, t)
+        row = {"ms": cuda_ms(lambda a=k2_args: cuda_sync.sync_ce_split_partials(*a)),
+               "library_ms": cuda_ms(lib)}
+        k2_calls.append((f"K2 {path} [{n}, {d}] {dtype} x [{d}, {s}x{v}]", k2_args, lib, row))
+
     def k1_window():
-        own, own_n, every, every_n = device_ms(
-            lambda: cuda_sync.sync_ce_mono_partials(*k1_args), OWN["K1"])
-        k1_row.update(device_ms=every, own_device_ms=own,
-                      library_device_ms=device_ms(k1_lib, ("",))[2])
-        show(f"K1 [{kn}, {kd}] x [{kd}, {ks}x{kv}]", k1_row,
-             f" ({own_n:.0f} own and {every_n:.0f} device kernels a call)")
+        sync_window(f"K1 [{kn}, {kd}] x [{kd}, {ks}x{kv}]", cuda_sync.sync_ce_mono_partials,
+                    k1_args, k1_lib, k1_row, OWN["K1"])
+        for what, k2_args, lib, row in k2_calls:
+            sync_window(what, cuda_sync.sync_ce_split_partials, k2_args, lib, row, OWN["K2"])
 
     totals = {}
     for name, n, c, per_step, kern, lib, row in calls:

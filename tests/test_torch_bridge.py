@@ -132,11 +132,12 @@ def test_entry_points_need_a_card_or_cpu():
     state = create_train_state(cfg, model, batch, device="cpu")
     assert state.dropout_gen.device.type == "cpu"
     assert all(p.device.type == "cpu" for p in state.params)
-    # still to port: model.remat, and the split kernel (K2) at 640 tokens a
-    # slot: no preset has it, a DC-TCN head (1664 wide) with the wav2vec2 codec would
-    for cfg_open in (tcfg.lrw1000_config().override(**{"model.remat": True}),
-                     tcfg.lrw_dctcn_config().override(**{
-                         "model.codec.audio_alignment": 2, "model.codec.vq_groups": 2,
-                         "model.codec.audio_vocab_size": 640})):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_model(cfg_open, device="cpu")
+    # still to port: model.remat
+    with pytest.raises(NotImplementedError, match="not ported"):
+        build_model(tcfg.lrw1000_config().override(**{"model.remat": True}), device="cpu")
+    # the split kernel (K2) at 640 tokens a slot is ported: a DC-TCN head
+    # (1664 wide) with the wav2vec2 codec builds
+    head = build_model(tcfg.lrw_dctcn_config().override(**{
+        "model.codec.audio_alignment": 2, "model.codec.vq_groups": 2,
+        "model.codec.audio_vocab_size": 640}), device="cpu").audio_classifier
+    assert head.vocab == 640 and head.weight.shape == (4 * 640, 1664)

@@ -1,0 +1,235 @@
+"""PyTorch port: the train and evaluate CLIs (``syncvsr_tpu_torch.train``,
+``.evaluate``) on the CPU (``device="cpu"``), against the JAX package's.
+The driver end to end on synthetic data and its ``resume=auto``; the word
+evaluation of one JAX-written checkpoint by both packages (equal metrics,
+f32: 1e-5 relative, sums in other orders); and the sentence decode modes
+(greedy, batched beam with and without a fused LM, forced alignment) on one
+JAX-written checkpoint, with equal hypotheses and alignments and scores
+within 1e-4 relative (the prefix scorer's scans agree to ~1e-4,
+``tests/test_torch_decode_beam.py``)."""
+
+import json
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from syncvsr_tpu import config as jcfg
+from syncvsr_tpu import evaluate as jevaluate
+from syncvsr_tpu.data.synthetic import sentence_batch, word_batch
+from syncvsr_tpu.engine import create_train_state as jax_create_train_state
+from syncvsr_tpu.models import build_model as jax_build_model
+from syncvsr_tpu.utils import checkpoint as jckpt
+from syncvsr_tpu_torch import evaluate as tevaluate
+from syncvsr_tpu_torch import train as ttrain
+from syncvsr_tpu_torch.utils import checkpoint as tckpt
+from torch_parity import JitInit
+
+WORD_ARGS = [
+    "preset=lrw_landmark", "model.encoder.layers=2", "model.encoder.dim=32",
+    "model.encoder.heads=2", "model.frontend.input_features=12", "model.labels=11",
+    "model.codec.audio_vocab_size=17", 'model.dtype="float32"', 'data.dataset="synthetic"',
+    "data.batch_size=8", "data.num_frames=6"]
+# tests/test_evaluate_cli.py's sentence model: a landmark frontend under
+# the lrs3 stack, encoder and decoder 16 wide
+SENT_ARGS = [
+    "preset=lrs3", 'model.frontend.kind="landmark"',
+    "model.frontend.input_features=8", "model.encoder.layers=1",
+    "model.encoder.dim=16", "model.encoder.heads=2",
+    "model.encoder.conv_kernel=7", "model.decoder.layers=1",
+    "model.decoder.dim=16", "model.decoder.heads=2",
+    "model.decoder.hidden=32", "model.labels=13",
+    "model.codec.audio_vocab_size=11", 'model.dtype="float32"',
+    'data.dataset="synthetic"', "data.batch_size=2"]
+
+
+def test_train_end_to_end_and_resume(tmp_path):
+    """As tests/test_train_driver.py holds the JAX driver: metrics.jsonl,
+    best.msgpack and step checkpoints written; resume=auto goes on from
+    the newest step; the driver's launch counts are 0 on the CPU."""
+    ckpt_dir = tmp_path / "ckpt"
+    args = WORD_ARGS + ["optim.total_steps=0", "optim.lr=1e-3", "train.epochs=1",
+                        "train.log_every=4", "train.eval_every=8", "train.ckpt_every=8",
+                        f"train.ckpt_dir={json.dumps(str(ckpt_dir))}"]
+    final = ttrain.main(args, device="cpu")
+    assert "val/loss" in final and np.isfinite(final["val/loss"])
+    assert sorted(os.listdir(ckpt_dir)) == ["best.msgpack", "metrics.jsonl",
+                                            "step_16.msgpack", "step_8.msgpack"]
+    best = tckpt.load_msgpack(str(ckpt_dir / "best.msgpack"))
+    assert set(best) == {"params", "batch_stats", "step", "acc1"} and best["step"] in (8, 16)
+    records = [json.loads(line) for line in open(ckpt_dir / "metrics.jsonl")]
+    train_logs = [r for r in records if "train/launches/sync_ce_fwd" in r]
+    assert [r["step"] for r in train_logs] == [4, 8, 12, 16]
+    assert all(r["train/launches/bn_stats_fwd"] == 0.0 for r in train_logs)
+    assert all(np.isfinite(r["train/loss"]) for r in train_logs)
+
+    final2 = ttrain.main(args + ['train.resume="auto"'], device="cpu")
+    assert np.isfinite(final2["val/loss"])
+    assert tckpt.latest_checkpoint(str(ckpt_dir)) == str(ckpt_dir / "step_32.msgpack")
+    records = [json.loads(line) for line in open(ckpt_dir / "metrics.jsonl")]
+    assert [r["step"] for r in records if "train/launches/sync_ce_fwd" in r] == \
+        [4, 8, 12, 16, 20, 24, 28, 32]
+
+
+def test_train_pretrained_and_profile_window(tmp_path, capsys):
+    """train.pretrained warm-starts every leaf of a checkpoint's params by
+    intersection; train.profile_steps=a:b writes a torch.profiler trace."""
+    first = tmp_path / "first"
+    args = WORD_ARGS + ["optim.total_steps=2", "train.log_every=1", "train.eval_every=100",
+                        "train.ckpt_every=100"]
+    ttrain.main(args + [f"train.ckpt_dir={json.dumps(str(first))}"], device="cpu")
+    trace = tmp_path / "trace"
+    ttrain.main(args + [f"train.ckpt_dir={json.dumps(str(tmp_path / 'second'))}",
+                        f"train.pretrained={json.dumps(str(first / 'step_2.msgpack'))}",
+                        'train.profile_steps="0:1"',
+                        f"train.profile_dir={json.dumps(str(trace))}"], device="cpu")
+    out = capsys.readouterr().out
+    assert "[ckpt] loaded 41/41 params from pretrained tree" in out
+    assert f"[trace] wrote {trace}" in out
+    assert (trace / "trace.json").stat().st_size > 0 and (trace / "ops.txt").exists()
+
+
+def test_train_raises_for_what_is_not_ported(tmp_path):
+    cfg = ttrain.load_config(WORD_ARGS + [f"train.ckpt_dir={json.dumps(str(tmp_path))}"])
+    for over in ({"mesh.data": 2}, {"mesh.fsdp": True}, {"train.distributed": True},
+                 {"mesh.model": 2}):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            ttrain.train(cfg.override(**over), device="cpu")
+    assert ttrain.monitored_metric(cfg) == "acc1"
+    assert ttrain.monitored_metric(ttrain.load_config(["preset=lrs3"])) == "decoder_acc"
+
+
+def _jax_checkpoint(args, path, batch_fn, seed=0):
+    """A JAX train state of the config ``args`` make, its params moved off
+    their init by two updates with random gradients, saved as the train
+    driver saves best.msgpack."""
+    cfg = jcfg.PRESETS[args[0].split("=")[1]]().override(
+        **jcfg.parse_cli_overrides(args[1:]))
+    state = jax_create_train_state(cfg, JitInit(jax_build_model(cfg)),
+                                   {k: jnp.asarray(v) for k, v in batch_fn(cfg).items()})
+    rng = np.random.RandomState(seed)
+    apply = jax.jit(lambda st, g: st.apply_gradients(grads=g))   # eager optax is slow
+    for _ in range(2):
+        grads = jax.tree_util.tree_map(
+            lambda p: jnp.asarray(rng.randn(*p.shape).astype(np.float32)), state.params)
+        state = apply(state, grads)
+    jckpt.save_msgpack(str(path), {"params": jax.device_get(state.params),
+                                   "batch_stats": jax.device_get(state.batch_stats or {}),
+                                   "step": 2, "acc1": 0.5})
+    return str(path)
+
+
+def _run(main, args, monkeypatch, capsys, **kw):
+    monkeypatch.setattr(sys, "argv", ["evaluate"] + args)
+    main(**kw)
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_word_evaluate_matches_jax(tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    ckpt = _jax_checkpoint(WORD_ARGS, tmp_path / "best.msgpack", word_batch)
+    args = WORD_ARGS + [f"ckpt={json.dumps(ckpt)}"]
+    want = _run(jevaluate.main, args, monkeypatch, capsys)
+    got = _run(tevaluate.main, args, monkeypatch, capsys, device="cpu")
+    assert set(got) == set(want) and "test/acc1" in got and "test/acc5" in got
+    for k, v in want.items():
+        assert got[k] == pytest.approx(v, rel=1e-5, abs=1e-6), k
+
+
+def _hypotheses(main, args, monkeypatch, capsys, **kw):
+    summary = _run(main, args, monkeypatch, capsys, **kw)
+    with open("hypotheses.jsonl") as f:
+        return summary, [json.loads(line) for line in f]
+
+
+@pytest.fixture(scope="module")
+def sentence_ckpt(tmp_path_factory):
+    path = tmp_path_factory.mktemp("sent") / "best.msgpack"
+    return _jax_checkpoint(SENT_ARGS, path,
+                           lambda cfg: sentence_batch(cfg, num_frames=32), seed=1)
+
+
+@pytest.mark.parametrize("mode", [["decode=greedy"], ["decode=beam", "beam_size=4"],
+                                  ["decode=beam_batched", "beam_size=4"], ["decode=align"]],
+                         ids=["greedy", "beam", "beam_batched", "align"])
+def test_sentence_decode_matches_jax(sentence_ckpt, mode, tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    args = SENT_ARGS + [f"ckpt={json.dumps(sentence_ckpt)}", 'decode_pad="bucket"'] + mode
+    want_sum, want = _hypotheses(jevaluate.main, args, monkeypatch, capsys)
+    got_sum, got = _hypotheses(tevaluate.main, args, monkeypatch, capsys, device="cpu")
+    assert len(got) == len(want) == 8
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for k in w:
+            if k == "score":
+                assert g[k] == pytest.approx(w[k], rel=1e-4)
+            else:
+                assert g[k] == w[k], k
+    assert got_sum == want_sum
+
+
+def test_beam_batched_lm_fusion_matches_jax(sentence_ckpt, tmp_path, monkeypatch, capsys):
+    """lm_ckpt (a JAX-written TransformerLM msgpack) fused at lm_weight 0.7:
+    the same hypotheses as JAX's, and other scores than without it."""
+    from syncvsr_tpu.models.lm import TransformerLM
+
+    monkeypatch.chdir(tmp_path)
+    lm = TransformerLM(vocab=13, layers=1, dim=16, heads=2, hidden=32, embed_dim=8)
+    params = lm.init(jax.random.PRNGKey(3), jnp.zeros((1, 4), jnp.int32))["params"]
+    jckpt.save_msgpack(str(tmp_path / "lm.msgpack"), {"params": jax.device_get(params)})
+    base = SENT_ARGS + [f"ckpt={json.dumps(sentence_ckpt)}", "decode=beam_batched",
+                        "beam_size=4", 'decode_pad="bucket"']
+    lm_args = [f"lm_ckpt={json.dumps(str(tmp_path / 'lm.msgpack'))}", "lm_weight=0.7",
+               "lm_layers=1", "lm_dim=16", "lm_heads=2", "lm_hidden=32", "lm_embed_dim=8"]
+    _, want = _hypotheses(jevaluate.main, base + lm_args, monkeypatch, capsys)
+    _, got = _hypotheses(tevaluate.main, base + lm_args, monkeypatch, capsys, device="cpu")
+    assert [g["hyp"] for g in got] == [w["hyp"] for w in want]
+    for g, w in zip(got, want):
+        assert g["score"] == pytest.approx(w["score"], rel=1e-4)
+    _, plain = _hypotheses(tevaluate.main, base, monkeypatch, capsys, device="cpu")
+    assert [p["score"] for p in plain] != [g["score"] for g in got]
+
+
+def test_lm_checkpoint_formats(tmp_path):
+    """A torch (espnet) LM checkpoint raises until its conversion is
+    ported; an RNN LM msgpack loads onto the seeded init by intersection."""
+    import torch
+
+    from syncvsr_tpu.models.lm import RNNLM
+
+    torch.save({"x": torch.zeros(1)}, tmp_path / "lm.pth")
+    shape = {"layers": 1, "dim": 16, "heads": 1, "hidden": 16, "embed_dim": 16}
+    with pytest.raises(NotImplementedError, match="torch checkpoint"):
+        tevaluate.load_lm(str(tmp_path / "lm.pth"), "rnn", 13, shape, torch.device("cpu"))
+    jlm = RNNLM(vocab=13, layers=1, dim=16, embed_dim=16)
+    params = jax.device_get(jlm.init(jax.random.PRNGKey(1), jnp.zeros((1, 4), jnp.int32))
+                            ["params"])
+    jckpt.save_msgpack(str(tmp_path / "rnn.msgpack"), {"params": params})
+    lm = tevaluate.load_lm(str(tmp_path / "rnn.msgpack"), "rnn", 13, shape,
+                           torch.device("cpu"))
+    from syncvsr_tpu_torch.utils.bridge import to_flax
+
+    got = to_flax(lm.state_dict())[0]
+    for (path, w), g in zip(jax.tree_util.tree_leaves_with_path(params),
+                            jax.tree_util.tree_leaves(got)):
+        np.testing.assert_array_equal(g, w, err_msg=jax.tree_util.keystr(path))
+
+
+def test_sentence_transforms_pass_other_inputs_through():
+    """The sentence augmentation and eval transform leave landmark [B, T, F]
+    and waveform [B, S] inputs as they are, as the JAX package's do (the
+    train driver hands them every sentence batch)."""
+    import torch
+
+    from syncvsr_tpu_torch import config as tcfg
+    from syncvsr_tpu_torch.ops.image import build_sentence_aug, build_sentence_eval_transform
+
+    data = tcfg.lrs3_config().data
+    gen = torch.Generator().manual_seed(0)
+    for videos in (torch.randn(2, 5, 8), torch.randn(2, 3200)):
+        batch = {"videos": videos, "lengths": torch.tensor([5, 4])}
+        assert build_sentence_aug(data)(gen, batch) is batch
+        assert build_sentence_eval_transform(data)(batch) is batch

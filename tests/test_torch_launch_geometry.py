@@ -177,14 +177,15 @@ def test_k2_geometry_at_d1664():
 
 
 def test_sync_kernels_refuse_what_they_do_not_take():
-    """The operand check both wrappers run before a launch: K1 takes a slot
-    of up to 640 columns, K2 up to 320 (CPU tensors pass the shape checks
-    and stop at the device check)."""
+    """The operand check both wrappers run before a launch: each takes a
+    slot of up to 640 columns, in two passes above 320 (CPU tensors pass the
+    shape checks and stop at the device check)."""
     x = torch.zeros(4, 64)
     tok = torch.zeros(4, 4, dtype=torch.int32)
     for vocab, limit, ok in ((640, cuda_sync.MONO_MAX_VOCAB, True),
                              (648, cuda_sync.MONO_MAX_VOCAB, False),
-                             (640, cuda_sync.SPLIT_MAX_VOCAB, False)):
+                             (640, cuda_sync.SPLIT_MAX_VOCAB, True),
+                             (648, cuda_sync.SPLIT_MAX_VOCAB, False)):
         w, b = torch.zeros(64, 4 * vocab), torch.zeros(4 * vocab)
         if ok:
             with pytest.raises(ValueError, match="on the GPU"):
