@@ -1,5 +1,5 @@
-"""LRW word-level dataset readers (port of ``syncvsr_tpu/data/lrw.py``,
-video only; the landmark reader comes with the landmark loader).
+"""LRW word-level dataset readers (port of ``syncvsr_tpu/data/lrw.py``):
+video pkls and mediapipe landmark ``.npy`` clips.
 
 Mirrors the reference's dataset contracts:
   * video pkls: torch-saved dicts with "video" = list of per-frame JPEG bytes
@@ -8,7 +8,11 @@ Mirrors the reference's dataset contracts:
   * audio tokens from released token pkls keyed "{codec}_tokens"
     (data.py:49-55) mapped by the same path convention;
   * word-boundary masks from durations.csv: a centered window of the word's
-    length inside the 29-frame clip (data.py:57-64).
+    length inside the 29-frame clip (data.py:57-64);
+  * landmark clips: float [T, 478, 3] ``.npy`` files (NaN = missing point)
+    through a host-side transform (``data/landmark_transforms.py``), then
+    flattened to [T, 1434] with NaN -> 0; tokens from a pkl that
+    path-mirrors the tree under ``audio_root``, or zeros.
 
 ``load_durations`` reads durations.csv with the ``csv`` module into a dict
 {id: length} (the JAX copy reads it with pandas); the datasets take that
@@ -23,7 +27,7 @@ import csv
 import glob
 import os
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -106,6 +110,50 @@ class LRWVideoDataset:
             "inputs": video.astype(np.uint8),
             "labels": np.int32(label),
             "audio_tokens": tokens.astype(np.int32),
+        }
+        if self.durations is not None:
+            name = "/".join(path.split(os.sep)[-2:])[:-4]
+            sample["word_mask"] = word_window(t, int(self.durations[name]))
+        return sample
+
+
+@dataclass
+class LRWLandmarkDataset:
+    """Index-based reader of landmark clips returning numpy sample dicts."""
+
+    filenames: List[str]
+    labels: List[str]
+    audio_root: Optional[str] = None
+    codec: str = "vq"
+    transform: Optional[Callable[[np.ndarray], np.ndarray]] = None
+    durations: Optional[Mapping[str, int]] = None
+    num_frames: int = 29
+
+    def __len__(self) -> int:
+        return len(self.filenames)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        path = self.filenames[index]
+        label = self.labels.index(path.split(os.sep)[-3])
+        landmarks = np.load(path).astype(np.float32)  # [T, 478, 3]
+        if self.transform is not None:
+            landmarks = self.transform(landmarks)
+        t = landmarks.shape[0]
+        feats = np.nan_to_num(landmarks, nan=0.0).reshape(t, -1)
+
+        tokens = None
+        if self.audio_root is not None:
+            rel_root = os.path.dirname(os.path.dirname(os.path.dirname(path)))
+            token_path = path.replace(rel_root, self.audio_root)[:-4] + ".pkl"
+            tokens = np.asarray(_torch_load(token_path)[f"{self.codec}_tokens"])
+            tokens = np.squeeze(tokens)
+            if tokens.ndim == 1:
+                tokens = tokens[:, None]
+        sample = {
+            "inputs": feats,
+            "labels": np.int32(label),
+            "audio_tokens": tokens.astype(np.int32) if tokens is not None
+            else np.zeros((t * 4, 2), np.int32),
         }
         if self.durations is not None:
             name = "/".join(path.split(os.sep)[-2:])[:-4]

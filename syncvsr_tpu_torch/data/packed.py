@@ -51,6 +51,19 @@ def check_packed_codec(idx, codec: Optional[str], split: str, hint: str):
                 "matching codec")
 
 
+def check_blob_size(path: str, expected, what: str):
+    """The index is the commit point of a pack (written atomically last); a
+    blob whose size disagrees is a half-written or stale re-pack — fail
+    loudly instead of slicing garbage offsets."""
+    if expected is None:
+        return
+    actual = os.path.getsize(path)
+    if actual != int(expected):
+        raise ValueError(
+            f"{what} is {actual} bytes but its index records {int(expected)}"
+            " — interrupted or mismatched pack; re-run the pack tool")
+
+
 def pack_lrw_split(root: str, split: str, out_dir: str, codec: str = "vq",
                    audio_root: Optional[str] = None,
                    durations: Optional[Mapping[str, int]] = None) -> str:

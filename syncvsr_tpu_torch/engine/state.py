@@ -8,6 +8,21 @@ not decayed), under a warmup-cosine schedule. Two generators carry the JAX
 package's separate RNG streams: ``mixup_gen`` (CPU; augmentation and
 CutMix sampling, seeded ``train.mixup_seed``) and ``dropout_gen`` (on the
 device; dropout masks, seeded ``train.dropout_seed``).
+
+The JAX package's two optax wrappers, in its order
+(``MultiSteps(apply_if_finite(inject_hyperparams(chain(clip, adamw)), 10),
+k)``):
+
+* ``optim.accum_steps = k > 1`` (``optax.MultiSteps``): each mini-step folds
+  its gradient into a running mean (Welford, ``acc += (g - acc) / (n + 1)``);
+  the k-th hands the mean to the inner update and resets the mean by
+  multiplying it by 0, so a non-finite entry stays non-finite, as in optax.
+  Params and the inner state do not move in between.
+* ``optim.skip_nonfinite`` (``optax.apply_if_finite``): an inner update
+  whose gradient holds a NaN or an infinity leaves params, Adam's moments
+  and the schedule's count as they were, unless more than 10 such updates
+  came in a row, when it is applied anyway. Telling which costs one host
+  read an inner update.
 """
 
 from __future__ import annotations
@@ -54,13 +69,24 @@ _INPUT_RANKS = {"conv3d_resnet": ("[B, T, H, W, 1]", (5,)),
                 "conv1d_resnet": ("[B, S] or [B, S, 1]", (2, 3))}
 
 
+# apply_if_finite's max_consecutive_errors in the JAX package's recipe
+MAX_CONSECUTIVE_ERRORS = 10
+
+
 @dataclass
 class TrainState:
-    """Everything a train step reads and updates. ``step`` counts applied
-    updates (optax's ``count``); ``mu``/``nu`` are Adam's moments, in the
-    order of ``names``; ``seeds`` the generators' (``train.mixup_seed``,
-    ``train.dropout_seed``), which a checkpoint restore re-seeds from where
-    the file holds no generator state."""
+    """Everything a train step reads and updates. ``step`` counts train
+    steps (flax's ``TrainState.step``: mini-steps under accumulation);
+    ``count`` the inner updates applied (optax's ``count``, which the
+    schedule reads) and ``lr`` the rate of the last one (``inject_hyperparams``'
+    ``hyperparams["lr"]``, the schedule's first rate before any); ``mu``/``nu``
+    are Adam's moments, in the order of ``names``; ``seeds`` the generators'
+    (``train.mixup_seed``, ``train.dropout_seed``), which a checkpoint restore
+    re-seeds from where the file holds no generator state. The wrappers'
+    states: ``acc`` (the running mean of the mini-steps' gradients, None
+    without accumulation), ``mini_step`` and ``gradient_step``
+    (``MultiStepsState``), ``notfinite_count``, ``last_finite`` and
+    ``total_notfinite`` (``ApplyIfFiniteState``)."""
 
     model: nn.Module
     optim: OptimConfig
@@ -73,7 +99,15 @@ class TrainState:
     mixup_gen: torch.Generator
     dropout_gen: torch.Generator
     seeds: Tuple[int, int]
+    lr: float
     step: int = 0
+    count: int = 0
+    acc: Optional[List[torch.Tensor]] = None
+    mini_step: int = 0
+    gradient_step: int = 0
+    notfinite_count: int = 0
+    last_finite: bool = True
+    total_notfinite: int = 0
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -82,37 +116,98 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.stack(norms).square().sum().sqrt()
 
 
+def all_finite(tensors: List[torch.Tensor]) -> bool:
+    """Whether every element is finite (one host read)."""
+    return bool(torch.stack([torch.isfinite(t).all() for t in tensors]).all())
+
+
 @torch.no_grad()
-def apply_gradients(state: TrainState, grads: List[torch.Tensor]) -> float:
+def _adamw(state: TrainState, grads: List[torch.Tensor], dry: bool = False) -> None:
     """clip_by_global_norm -> AdamW(masked decay) -> params += update, in
-    place (``grads`` are clipped in place too); returns the learning rate
-    this update used, ``schedule(step before the update)``."""
+    place, at ``schedule(count)``; ``grads`` are clipped in place unless
+    they are the running mean of accumulation (optax resets it from its
+    unclipped values). ``dry``: the update of a mini-step that does not
+    apply it, which optax ``MultiSteps`` still adds to the parameters times
+    0 (NaN where the update is not finite); nothing else moves."""
     cfg = state.optim
+    mu, nu = state.mu, state.nu
+    if dry:
+        mu, nu = [t.clone() for t in mu], [t.clone() for t in nu]
     if cfg.clip_norm > 0:
         norm = global_norm(grads)
         scale = cfg.clip_norm / torch.clamp(norm, min=cfg.clip_norm)
-        torch._foreach_mul_(grads, scale)
-    lr = state.schedule(state.step)
-    count = state.step + 1
-    torch._foreach_mul_(state.mu, cfg.b1)
-    torch._foreach_add_(state.mu, grads, alpha=1.0 - cfg.b1)
-    torch._foreach_mul_(state.nu, cfg.b2)
-    torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - cfg.b2)
+        if grads is state.acc:
+            grads = torch._foreach_mul(grads, scale)
+        else:
+            torch._foreach_mul_(grads, scale)
+    lr = state.schedule(state.count)
+    count = state.count + 1
+    torch._foreach_mul_(mu, cfg.b1)
+    torch._foreach_add_(mu, grads, alpha=1.0 - cfg.b1)
+    torch._foreach_mul_(nu, cfg.b2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1.0 - cfg.b2)
     bc1 = float(f32(1) - f32(cfg.b1) ** f32(count))
     bc2 = float(f32(1) - f32(cfg.b2) ** f32(count))
-    den = torch._foreach_div(state.nu, bc2)
+    den = torch._foreach_div(nu, bc2)
     torch._foreach_sqrt_(den)
     torch._foreach_add_(den, cfg.eps)
-    upd = torch._foreach_div(state.mu, bc1)
+    upd = torch._foreach_div(mu, bc1)
     torch._foreach_div_(upd, den)
     decayed = [i for i, d in enumerate(state.decay) if d]
     if cfg.weight_decay and decayed:
         torch._foreach_add_([upd[i] for i in decayed], [state.params[i] for i in decayed],
                             alpha=cfg.weight_decay)
-    torch._foreach_mul_(upd, -lr)
+    torch._foreach_mul_(upd, 0.0 if dry else -lr)
     torch._foreach_add_(state.params, upd)
-    state.step = count
-    return lr
+    if not dry:
+        state.count, state.lr = count, lr
+
+
+def _skipped(state: TrainState, finite: bool, commit: bool) -> bool:
+    """``apply_if_finite``'s decision on an inner update whose gradient is
+    ``finite``; ``commit`` moves its counters."""
+    bad = 0 if finite else state.notfinite_count + 1
+    if commit:
+        state.last_finite = finite
+        state.notfinite_count = bad
+        state.total_notfinite += not finite
+    return bad > 0 and bad <= MAX_CONSECUTIVE_ERRORS
+
+
+@torch.no_grad()
+def apply_gradients(state: TrainState, grads: List[torch.Tensor]) -> float:
+    """One train step's update of ``state`` by the mini-batch gradient
+    ``grads`` (which may be modified): through ``optax.MultiSteps`` when
+    ``optim.accum_steps > 1``, then ``apply_if_finite`` when
+    ``optim.skip_nonfinite``, then the clipped AdamW. Returns the learning
+    rate ``current_lr`` reports after it (the rate of the last inner update
+    applied).
+
+    optax computes the inner update on every mini-step and adds it to the
+    parameters times 0 where it does not apply it: a running mean that is
+    not finite (one host read a mini-step tells) makes the parameters NaN
+    there already, unless ``apply_if_finite`` would skip that update. The
+    port does the same, so accumulation costs a host read a mini-step."""
+    state.step += 1
+    skip = state.optim.skip_nonfinite
+    k = state.optim.accum_steps
+    if k <= 1:
+        if not (skip and _skipped(state, all_finite(grads), commit=True)):
+            _adamw(state, grads)
+        return state.lr
+    n = state.mini_step
+    torch._foreach_sub_(grads, state.acc)           # Welford: acc += (g - acc) / (n + 1)
+    torch._foreach_div_(grads, float(n + 1))
+    torch._foreach_add_(state.acc, grads)
+    state.mini_step = (n + 1) % k
+    if n == k - 1:
+        if not (skip and _skipped(state, all_finite(state.acc), commit=True)):
+            _adamw(state, state.acc)
+        state.gradient_step += 1
+        torch._foreach_mul_(state.acc, 0.0)
+    elif not all_finite(state.acc) and not (skip and _skipped(state, False, commit=False)):
+        _adamw(state, state.acc, dry=True)
+    return state.lr
 
 
 def create_train_state(config: Config, model: nn.Module, example_batch: Dict[str, Any],
@@ -123,9 +218,6 @@ def create_train_state(config: Config, model: nn.Module, example_batch: Dict[str
     ``inputs`` (video or landmarks), or sentence-level ``videos`` (video or
     waveform) with their ``lengths``."""
     dev = resolve_device(device)
-    if config.optim.accum_steps > 1 or config.optim.skip_nonfinite:
-        raise NotImplementedError("optim.accum_steps > 1 and optim.skip_nonfinite "
-                                  "are not ported to PyTorch yet")
     key = "videos" if config.model.task == "sentence" else "inputs"
     if key not in example_batch or (key == "videos" and "lengths" not in example_batch):
         raise ValueError(f"a {config.model.task}-level batch needs "
@@ -138,10 +230,11 @@ def create_train_state(config: Config, model: nn.Module, example_batch: Dict[str
         raise ValueError(f"expected {kind} {key} {expect}, got {shape}")
     model.to(dev)
     names, params = zip(*model.named_parameters())
+    schedule = make_schedule(config.optim)
     return TrainState(
         model=model,
         optim=config.optim,
-        schedule=make_schedule(config.optim),
+        schedule=schedule,
         names=list(names),
         params=list(params),
         decay=[flax_leaf(n, p.dim()) == "kernel" for n, p in zip(names, params)],
@@ -150,4 +243,7 @@ def create_train_state(config: Config, model: nn.Module, example_batch: Dict[str
         mixup_gen=torch.Generator().manual_seed(config.train.mixup_seed),
         dropout_gen=torch.Generator(device=dev).manual_seed(config.train.dropout_seed),
         seeds=(config.train.mixup_seed, config.train.dropout_seed),
+        lr=schedule(0),
+        acc=([torch.zeros_like(p) for p in params] if config.optim.accum_steps > 1
+             else None),
     )

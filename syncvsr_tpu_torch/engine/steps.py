@@ -5,9 +5,14 @@ train mode (BatchNorm running stats updated in place), backward, then the
 clipped AdamW update. The forward draws CutMix's span or the TCN path's
 batch-mixup weight from the same mixup generator (the state's, on the CPU),
 after the augmentation; every batch key reaches the model as a keyword
-(``word_mask``, ``attention_mask``, ``sample_weight``, ...). ``grad_norm`` is taken before clipping and
-``learning_rate`` is the rate the update used. PyTorch runs eagerly, so
-the state is updated in place and returned for the JAX calling shape.
+(``word_mask``, ``attention_mask``, ``sample_weight``, ...). The update goes
+through the configured wrappers (``optim.accum_steps``,
+``optim.skip_nonfinite``; ``state.apply_gradients``), while the BatchNorm
+running statistics move on every mini-step, as in the JAX package.
+``grad_norm`` is the mini-batch gradient's, taken before clipping, and
+``learning_rate`` the rate of the last inner update applied (``current_lr``).
+PyTorch runs eagerly, so the state is updated in place and returned for the
+JAX calling shape.
 """
 
 from __future__ import annotations

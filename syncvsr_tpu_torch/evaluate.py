@@ -93,7 +93,10 @@ def _valid_rows(batch: Dict[str, Any]):
     Scoring only these keeps WER invariant to eval_batch_size (each
     utterance counted exactly once, reference LRS/video/lightning.py:114-129)."""
     if "sample_weight" in batch:
-        return [int(i) for i in np.flatnonzero(np.asarray(batch["sample_weight"]) > 0)]
+        weight = batch["sample_weight"]
+        if isinstance(weight, torch.Tensor):
+            weight = weight.cpu().numpy()
+        return [int(i) for i in np.flatnonzero(np.asarray(weight) > 0)]
     return list(range(batch["videos"].shape[0]))
 
 

@@ -30,6 +30,7 @@ from syncvsr_tpu_torch.models.layers import (
     dropout,
     lecun_normal_,
     make_pad_bias,
+    remat,
 )
 from syncvsr_tpu_torch.models.transformer import HeadMerge, HeadProjection
 from syncvsr_tpu_torch.ops.cuda_bn import FastBatchNorm
@@ -182,13 +183,17 @@ class ConformerBlock(nn.Module):
 
 
 class ConformerEncoder(nn.Module):
-    """[B, T, D_in] (frontend features) -> [B, T, dim]."""
+    """[B, T, D_in] (frontend features) -> [B, T, dim]. With ``remat`` each
+    block's activations are recomputed in the backward (``layers.remat``,
+    as the JAX package's ``nn.remat`` of the block)."""
 
     def __init__(self, din: int, layers: int, dim: int, heads: int, hidden: int,
                  conv_kernel: int = 31, macaron: bool = True, dropout: float = 0.1,
-                 attn_dropout: float = 0.1, dtype: torch.dtype = torch.float32):
+                 attn_dropout: float = 0.1, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.layers = layers
+        self.remat = remat
         self.dim = dim
         self.rate = dropout
         self.dtype = dtype
@@ -207,5 +212,7 @@ class ConformerEncoder(nn.Module):
         pos_emb = dropout(pos_emb, self.rate, det, gen)   # one mask for the batch
         bias = None if pad_mask is None else make_pad_bias(pad_mask)
         for i in range(self.layers):
-            x = getattr(self, f"block_{i}")(x, pos_emb, bias, pad_mask, det, gen)
+            block = getattr(self, f"block_{i}")
+            x = (remat(gen, block, x, pos_emb, bias, pad_mask, det, gen) if self.remat
+                 else block(x, pos_emb, bias, pad_mask, det, gen))
         return self.after_norm(x)

@@ -29,7 +29,7 @@ from syncvsr_tpu_torch.config import ModelConfig
 from syncvsr_tpu_torch.models.conformer import ConformerEncoder
 from syncvsr_tpu_torch.models.decoder import TransformerDecoder
 from syncvsr_tpu_torch.models.frontend import build_frontend
-from syncvsr_tpu_torch.models.layers import Dense, dropout
+from syncvsr_tpu_torch.models.layers import Dense, dropout, remat
 from syncvsr_tpu_torch.models.word import SyncHead
 from syncvsr_tpu_torch.ops.ctc import ctc_loss
 from syncvsr_tpu_torch.ops.masking import (
@@ -53,7 +53,7 @@ class SentenceVSRModel(nn.Module):
         self.encoder = ConformerEncoder(
             self.frontend.out_dim, enc.layers, enc.dim, enc.heads,
             int(enc.hidden_ratio * enc.dim), enc.conv_kernel, enc.macaron,
-            enc.mlp_dropout, enc.msa_dropout, self.dtype)
+            enc.mlp_dropout, enc.msa_dropout, self.dtype, remat=cfg.remat)
         self.ctc_head = Dense(enc.dim, cfg.labels, torch.float32, lecun=True)
         self.decoder = TransformerDecoder(cfg.labels, dec.layers, dec.dim, dec.heads,
                                           dec.hidden, dec.dropout, self.dtype)
@@ -71,8 +71,14 @@ class SentenceVSRModel(nn.Module):
 
     def encode(self, videos: Tensor, lengths: Tensor, det: bool = True,
                gen: Optional[torch.Generator] = None) -> Tensor:
-        """Frontend + Conformer: [B, T, ...] -> [B, T, encoder dim]."""
-        feats = self.frontend(videos, train=not det)
+        """Frontend + Conformer: [B, T, ...] -> [B, T, encoder dim]. With
+        ``model.remat`` in training the frontend's activations are
+        recomputed in the backward too: at the 1800-frame bucket its
+        per-frame activations, not the Conformer's, take most memory."""
+        if self.cfg.remat and not det:
+            feats = remat(None, lambda v: self.frontend(v, train=True), videos)
+        else:
+            feats = self.frontend(videos, train=not det)
         pad_mask = length_mask(self.frame_lengths(videos, lengths), feats.shape[1])
         return self.encoder(feats, pad_mask, det, gen)
 

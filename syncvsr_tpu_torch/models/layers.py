@@ -3,18 +3,67 @@
 Parameters stay f32; each module casts to its compute ``dtype`` where the
 flax counterpart does (no autocast). Random draws (dropout, drop-path) take
 an explicit ``torch.Generator`` on the activations' device.
+
+``remat`` is flax ``nn.remat`` (``model.remat``): the region's activations
+are dropped after the forward and recomputed in the backward
+(``torch.utils.checkpoint``), with the same dropout masks and without a
+second update of the BatchNorm running statistics.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 Tensor = torch.Tensor
+
+# set while a ``remat`` region is recomputed, in the thread that runs the
+# backward (autograd's device thread for CUDA tensors)
+_remat = threading.local()
+
+
+def recomputing() -> bool:
+    """Whether a ``remat`` region is being recomputed in the backward: a
+    train-mode BatchNorm then leaves its running statistics alone (flax
+    drops the recompute's ``batch_stats`` mutation)."""
+    return getattr(_remat, "recomputing", False)
+
+
+def remat(gen: Optional[torch.Generator], fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward instead of
+    kept (non-reentrant ``torch.utils.checkpoint``). ``torch.utils.checkpoint``
+    replays only the global RNG; the recompute here starts ``gen`` (the
+    region's dropout generator, if any) from its state at the forward, so it
+    draws the same masks, and puts it back afterwards, so the draws after
+    the region do not move. Without autograd it is the plain call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    at_forward = gen.get_state() if gen is not None else None
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*a)
+        live = gen.get_state() if gen is not None else None
+        if gen is not None:
+            gen.set_state(at_forward)
+        _remat.recomputing = True
+        try:
+            return fn(*a)
+        finally:   # a recompute may stop early by raising
+            _remat.recomputing = False
+            if gen is not None:
+                gen.set_state(live)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
 
 
 def trunc_normal_(t: Tensor, std: float = 0.02) -> Tensor:
@@ -134,10 +183,11 @@ class FlaxBatchNorm(nn.Module):
             axes = tuple(range(x.dim() - 1))
             mean = x32.mean(axes)
             var = torch.clamp((x32 * x32).mean(axes) - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = BN_MOMENTUM
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            if not recomputing():
+                with torch.no_grad():
+                    m = BN_MOMENTUM
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         y = (x32 - mean) * (torch.rsqrt(var + BN_EPS) * self.weight) + self.bias

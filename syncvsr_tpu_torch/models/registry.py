@@ -24,8 +24,6 @@ def _check_ported(config: Config) -> None:
             missing.append(f"model.encoder.kind={m.encoder.kind!r} for task='sentence'")
     else:
         missing.append(f"model.task={m.task!r}")
-    if m.remat:
-        missing.append("model.remat=True")
     if missing:
         raise NotImplementedError(
             "not ported to PyTorch yet: " + ", ".join(missing))

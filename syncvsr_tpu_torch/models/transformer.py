@@ -25,6 +25,7 @@ from syncvsr_tpu_torch.models.layers import (
     dot_attention,
     drop_path,
     lecun_normal_,
+    remat,
     rope_angles,
     trunc_normal_,
 )
@@ -127,14 +128,18 @@ class TransformerBlock(nn.Module):
 class TransformerEncoder(nn.Module):
     """Stack of pre-norm rotary blocks over [B, T, stream], then a final
     norm over every position, under flax's auto-name: ``RMSNorm_0``, or
-    ``LayerNorm_0`` (whose own parameters sit in a further ``LayerNorm_0``)."""
+    ``LayerNorm_0`` (whose own parameters sit in a further ``LayerNorm_0``).
+    With ``remat`` each block's activations are recomputed in the backward
+    (``layers.remat``, as the JAX package's ``nn.remat`` of the block)."""
 
     def __init__(self, stream: int, layers: int, dim: int, heads: int, hidden: int,
                  use_rmsnorm: bool = True, use_glu: bool = True, rope: bool = True,
                  rope_dim: int = 0, msa_dropout: float = 0.0, mlp_dropout: float = 0.0,
-                 droppath: float = 0.0, dtype: torch.dtype = torch.float32):
+                 droppath: float = 0.0, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.layers = layers
+        self.remat = remat
         for i in range(layers):
             self.add_module(f"block_{i}", TransformerBlock(
                 stream, dim, heads, hidden, use_rmsnorm, use_glu, rope, rope_dim,
@@ -148,6 +153,8 @@ class TransformerEncoder(nn.Module):
                 gen: Optional[torch.Generator] = None) -> Tensor:
         positions = torch.arange(x.shape[1], device=x.device)
         for i in range(self.layers):
-            x = getattr(self, f"block_{i}")(x, positions, det, gen)
+            block = getattr(self, f"block_{i}")
+            x = (remat(gen, block, x, positions, det, gen) if self.remat
+                 else block(x, positions, det, gen))
         final = self.RMSNorm_0 if hasattr(self, "RMSNorm_0") else self.LayerNorm_0
         return final(x)

@@ -15,7 +15,8 @@ weight, so the sync head runs twice.
 
 In train mode (``det=False``) CutMix and mixup sample from the
 ``mixup_gen`` CPU generator and dropout draws from ``dropout_gen`` on the
-activations' device.
+activations' device. ``model.remat`` recomputes the transformer's blocks in
+the backward; the TCN path ignores it, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -98,7 +99,8 @@ class WordVSRModel(nn.Module):
         self.encoder = TransformerEncoder(
             stream, enc.layers, enc.dim, enc.heads,
             enc.hidden or int(enc.hidden_ratio * enc.dim), enc.use_rmsnorm, enc.use_glu,
-            enc.rope, enc.rope_dim, enc.msa_dropout, enc.mlp_dropout, enc.droppath, self.dtype)
+            enc.rope, enc.rope_dim, enc.msa_dropout, enc.mlp_dropout, enc.droppath, self.dtype,
+            remat=cfg.remat)
         self.category_classifier = Dense(stream, cfg.labels, torch.float32)
         self.audio_classifier = SyncHead(stream, codec.audio_alignment, codec.vq_groups,
                                          codec.audio_vocab_size)

@@ -15,7 +15,9 @@ Port of ``syncvsr_tpu/ops/pallas_bn.py`` (default math only):
   PyTorch, as it stays in XLA in the JAX package;
 * running stats ``ra = 0.9 * ra + 0.1 * batch`` with the biased variance
   (flax's convention; ``nn.BatchNorm``'s momentum and unbiased running
-  variance differ, so it is not used); eval mode is the plain affine.
+  variance differ, so it is not used), once a step: not again in a
+  ``model.remat`` recompute (``models/layers.py::remat``), where K3 runs a
+  second time; eval mode is the plain affine.
 
 Each statistics wrapper runs its kernel on a CUDA tensor and its plain
 PyTorch version on a CPU tensor; there is no other fallback. Both kernels
@@ -32,6 +34,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from syncvsr_tpu_torch.models.layers import recomputing
 from syncvsr_tpu_torch.utils import kernels
 
 Tensor = torch.Tensor
@@ -45,6 +48,9 @@ _FWD_STRIP_ELEMS = 131072
 _BWD_MAX_STRIPS = 2 * _SMS       # one wave at K4's register use
 _BWD_STRIP_ELEMS = 65536
 _GROUP = 16           # strips a group of the kernels' first fold holds
+# the kernels index rows and elements in 64 bits, but take the row count as
+# an int and round it up to whole strips (at most 16384) in int arithmetic
+MAX_ROWS = 2 ** 31 - 16384
 
 
 def _scratch_floats(strips: int, c: int) -> int:
@@ -87,7 +93,7 @@ def _launch(geometry, n: int, c: int, dtype: torch.dtype) -> Optional[Tuple[int,
     """(strips, scratch floats, is_bf16) of a kernel at [n, c] in ``dtype``,
     or None where the kernels do not take that dtype or C (``_check_2d``
     says why)."""
-    if dtype not in (torch.bfloat16, torch.float32):
+    if dtype not in (torch.bfloat16, torch.float32) or n > MAX_ROWS:
         return None
     size = 2 if dtype == torch.bfloat16 else 4
     if c % (16 // size) or c // (16 // size) > 256:
@@ -129,6 +135,9 @@ def _check_2d(name: str, *ts: Tensor) -> None:
         raise ValueError(f"{name}: expected an [N, C] view, got {tuple(ts[0].shape)}")
     n, c = ts[0].shape
     dtype = ts[0].dtype
+    if n > MAX_ROWS:
+        raise ValueError(f"{name}: [{n}, {c}] has more than {MAX_ROWS} rows, past the "
+                         "kernels' int row count")
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name}: bf16 or f32 inputs, got {dtype}")
     vec = 16 // ts[0].element_size()
@@ -297,6 +306,8 @@ class FastBatchNorm(nn.Module):
             b = (self.bias - self.running_mean * inv * self.weight).to(self.dtype)
             return x.to(self.dtype) * a + b
         y, mean, var = batch_norm_train(x, self.weight, self.bias, self.eps, self.dtype)
+        if recomputing():      # a remat recompute: the forward updated them
+            return y
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

@@ -1,12 +1,14 @@
 """Mask and sequence helpers (port of ``syncvsr_tpu/ops/masking.py``):
 padding masks, the teacher-forcing io pair, the label-smoothed KL of the
 attention decoder and its token accuracy. Token conventions: sos = eos =
-``labels - 1``, ignore = -1. The label-smoothed KL is the default logq form;
-the env-gated ``SYNCVSR_LSM_V2`` form is not ported."""
+``labels - 1``, ignore = -1. The label-smoothed KL takes the logq form, or,
+when the environment sets ``SYNCVSR_LSM_V2`` (as in the JAX package), the
+reassociated form that never materializes the [N, V] log-softmax."""
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -53,7 +55,9 @@ def label_smoothing_kl(logits: Tensor, targets: Tensor, vocab: int, smoothing: f
     (confidence 1 - smoothing on the target, smoothing / (V - 1) elsewhere),
     summed over the non-ignored tokens and divided by the batch size (by the
     token count with ``normalize_length``). ``sample_weight`` [B] excludes
-    padded rows from the average."""
+    padded rows from the average. With ``SYNCVSR_LSM_V2`` set, the token
+    terms come from the logsumexp, the row sum and the target logit of the
+    raw logits (logq.sum(-1) == logits.sum(-1) - V * lse)."""
     b = logits.shape[0]
     flat = logits.reshape(-1, vocab).float()
     flat_t = targets.reshape(-1)
@@ -63,9 +67,15 @@ def label_smoothing_kl(logits: Tensor, targets: Tensor, vocab: int, smoothing: f
     low = smoothing / (vocab - 1)
     logp_low = math.log(max(low, 1e-30)) if low > 0 else 0.0
     logp_conf = math.log(max(confidence, 1e-30))
-    logq = torch.log_softmax(flat, dim=-1)
-    q_t = torch.gather(logq, 1, safe_t[:, None])[:, 0]
-    kl = (low * (logp_low * vocab - logq.sum(-1))
+    if os.environ.get("SYNCVSR_LSM_V2"):
+        lse = torch.logsumexp(flat, dim=-1)
+        q_t = torch.gather(flat, 1, safe_t[:, None])[:, 0] - lse
+        logq_sum = flat.sum(-1) - vocab * lse
+    else:
+        logq = torch.log_softmax(flat, dim=-1)
+        q_t = torch.gather(logq, 1, safe_t[:, None])[:, 0]
+        logq_sum = logq.sum(-1)
+    kl = (low * (logp_low * vocab - logq_sum)
           + confidence * logp_conf - low * logp_low
           - (confidence - low) * q_t)
     kl = torch.where(ignore, torch.zeros_like(kl), kl)

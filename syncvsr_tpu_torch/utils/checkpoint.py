@@ -14,6 +14,12 @@ asynchronously (``AsyncCheckpointer``). A train-state checkpoint holds
   norm clipping's empty state (when ``optim.clip_norm > 0``) and AdamW's
   chain, whose first entry is Adam's ``count``/``mu``/``nu``, the moments
   in flax layout (the bridge transposes them as it does the parameters);
+  with ``optim.skip_nonfinite`` that state sits in ``ApplyIfFiniteState``'s
+  ``inner_state`` beside ``notfinite_count``, ``last_finite`` and
+  ``total_notfinite``, and with ``optim.accum_steps > 1`` the whole in
+  ``MultiStepsState``'s ``inner_opt_state`` beside ``mini_step``,
+  ``gradient_step``, ``acc_grads`` (in flax layout, as the moments) and an
+  empty ``skip_state``;
 * ``mixup_rng`` and ``dropout_rng``, the JAX package's PRNG keys, so that
   its ``restore_train_state`` takes a port checkpoint.
 
@@ -117,23 +123,38 @@ def model_variables(model: torch.nn.Module) -> Tuple[Dict[str, Any], Dict[str, A
     return to_flax(model.state_dict())
 
 
+def _opt_state(state) -> Dict[str, Any]:
+    """``flax.serialization.to_state_dict`` of the JAX package's optimizer
+    state (``syncvsr_tpu/engine/state.py::make_optimizer``)."""
+    count = np.asarray(state.count, np.int32)
+    adam = {"count": count, "mu": _moments(state, state.mu),
+            "nu": _moments(state, state.nu)}
+    adamw = {"0": adam, "1": {"inner_state": {}}, "2": {}}
+    opt = {"count": count, "hyperparams": {"lr": np.asarray(state.lr, np.float32)},
+           "hyperparams_states": {"lr": {"count": count}},
+           "inner_state": {"0": {}, "1": adamw} if state.optim.clip_norm > 0 else adamw}
+    if state.optim.skip_nonfinite:
+        opt = {"notfinite_count": np.asarray(state.notfinite_count, np.int32),
+               "last_finite": np.asarray(state.last_finite, np.bool_),
+               "total_notfinite": np.asarray(state.total_notfinite, np.int32),
+               "inner_state": opt}
+    if state.optim.accum_steps > 1:
+        opt = {"mini_step": np.asarray(state.mini_step, np.int32),
+               "gradient_step": np.asarray(state.gradient_step, np.int32),
+               "inner_opt_state": opt, "acc_grads": _moments(state, state.acc),
+               "skip_state": {}}
+    return opt
+
+
 def state_payload(state) -> Dict[str, Any]:
     """Host copy of the full train state, in the JAX package's layout. The
     copy is synchronous: the next train step updates the tensors in place."""
     params, batch_stats = model_variables(state.model)
-    step = np.asarray(state.step, np.int32)
-    adam = {"count": step, "mu": _moments(state, state.mu),
-            "nu": _moments(state, state.nu)}
-    adamw = {"0": adam, "1": {"inner_state": {}}, "2": {}}
-    inner = {"0": {}, "1": adamw} if state.optim.clip_norm > 0 else adamw
-    lr = np.asarray(state.schedule(max(state.step - 1, 0)), np.float32)
     seeds = state.seeds
     return {
-        "step": step,
+        "step": np.asarray(state.step, np.int32),
         "params": params,
-        "opt_state": {"count": step, "hyperparams": {"lr": lr},
-                      "hyperparams_states": {"lr": {"count": step}},
-                      "inner_state": inner},
+        "opt_state": _opt_state(state),
         "batch_stats": batch_stats,
         "mixup_rng": _prng_key(seeds[0]),
         "dropout_rng": _prng_key(seeds[1]),
@@ -199,6 +220,29 @@ class AsyncCheckpointer:
         self._pool.shutdown()
 
 
+def _unwrap(opt_state: Dict[str, Any], optim) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(the wrappers' fields, the ``inject_hyperparams`` state) of a saved
+    ``opt_state`` laid out for ``optim``'s wrappers."""
+    fields: Dict[str, Any] = {}
+    for on, inner, keys in (
+            (optim.accum_steps > 1, "inner_opt_state", ("mini_step", "gradient_step",
+                                                        "acc_grads")),
+            (optim.skip_nonfinite, "inner_state", ("notfinite_count", "last_finite",
+                                                   "total_notfinite"))):
+        if not on:
+            continue
+        if inner not in opt_state or any(k not in opt_state for k in keys):
+            raise KeyError(f"opt_state: the checkpoint's optimizer state has no "
+                           f"{keys[0]} ({sorted(opt_state)}); it was written without the "
+                           "configured optim.accum_steps / optim.skip_nonfinite")
+        fields.update((k, opt_state[k]) for k in keys)
+        opt_state = opt_state[inner]
+    if "hyperparams" not in opt_state:
+        raise KeyError(f"opt_state: {sorted(opt_state)} is wrapped, but the config asks "
+                       "for no optim.accum_steps / optim.skip_nonfinite")
+    return fields, opt_state
+
+
 def _adam_state(opt_state: Dict[str, Any], clipped: bool) -> Dict[str, Any]:
     inner = opt_state["inner_state"]
     return (inner["1"] if clipped else inner)["0"]
@@ -218,14 +262,23 @@ def _copy_into(tensors: List[torch.Tensor], names: List[str], flat: Dict[str, np
 def restore_train_state(path: str, state):
     """Load a train-state checkpoint of either package into ``state`` (in
     place; also returned): step, parameters, BatchNorm statistics, Adam's
-    moments, and the generators (re-seeded from the config where the file
-    has no torch generator states)."""
+    moments, the schedule's count and last rate, the wrappers' states, and
+    the generators (re-seeded from the config where the file has no torch
+    generator states)."""
     payload = load_msgpack(path)
     load_flax(state.model, payload["params"], payload.get("batch_stats", {}))
-    adam = _adam_state(payload["opt_state"], state.optim.clip_norm > 0)
+    wrapped, opt = _unwrap(payload["opt_state"], state.optim)
+    adam = _adam_state(opt, state.optim.clip_norm > 0)
     _copy_into(state.mu, state.names, from_flax(adam["mu"]), "Adam mu")
     _copy_into(state.nu, state.names, from_flax(adam["nu"]), "Adam nu")
     state.step = int(payload["step"])
+    state.count = int(opt["count"])
+    state.lr = float(np.float32(opt["hyperparams"]["lr"]))
+    if "acc_grads" in wrapped:
+        _copy_into(state.acc, state.names, from_flax(wrapped.pop("acc_grads")),
+                   "acc_grads")
+    for k, v in wrapped.items():
+        setattr(state, k, bool(v) if k == "last_finite" else int(v))
     for key, gen, seed in (("torch_mixup_gen", state.mixup_gen, state.seeds[0]),
                            ("torch_dropout_gen", state.dropout_gen, state.seeds[1])):
         if key in payload:

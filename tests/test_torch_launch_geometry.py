@@ -21,7 +21,8 @@ SMEM_PER_SM = 233472          # bytes of shared memory an SM holds (228 KB)
 SMEM_RESERVED = 1024          # the runtime's share per block
 
 BN_SHAPES = sorted({(n, c) for shapes in chip_smoke.bn_shapes().values()
-                    for n, c, _ in shapes} | {(n, c) for n, c, _ in chip_smoke.BN_EXTRA})
+                    for n, c, _ in shapes} | {(n, c) for n, c, _ in chip_smoke.BN_EXTRA}
+                   | {chip_smoke.BN_PAST_INT32})
 
 
 def _check_bn_geometry(geo, launch, n, c, elem_size, max_strips):
@@ -174,6 +175,22 @@ def test_k2_geometry_at_d1664():
     geo = cuda_sync.split_geometry(n, 8)
     assert geo["grid"] == (44, 8) and geo["blocks"] == 352
     assert -(-d // 64) == 26
+
+
+def test_bn_kernels_refuse_rows_past_their_int_count():
+    """K3 and K4 index rows and elements in 64 bits but take the row count
+    as an int: the lrs3 preset's own batch at the 1800-frame bucket (4.25e9
+    elements at the stem) launches; more than ``MAX_ROWS`` rows raise with
+    the shape."""
+    n, c = chip_smoke.BN_PAST_INT32
+    assert n * c > 2 ** 31 and n <= cuda_bn.MAX_ROWS
+    assert cuda_bn._fwd_launch(n, c, torch.bfloat16) and cuda_bn._bwd_launch(n, c, torch.bfloat16)
+    rows = cuda_bn.MAX_ROWS + 1
+    assert cuda_bn._fwd_launch(rows, c, torch.bfloat16) is None
+    assert cuda_bn._bwd_launch(rows, c, torch.float32) is None
+    big = torch.zeros(1, c, dtype=torch.bfloat16).expand(rows, c)
+    with pytest.raises(ValueError, match=f"\\[{rows}, {c}\\] has more than"):
+        cuda_bn._check_2d("bn_stats", big)
 
 
 def test_sync_kernels_refuse_what_they_do_not_take():

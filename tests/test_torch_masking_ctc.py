@@ -61,6 +61,40 @@ def test_label_smoothing_kl_matches_jax(weighted, normalize):
     close(got, want, 1e-6, 0.0, "kl")
 
 
+# the JAX package's own test of the form (tests/test_masking_ctc.py) holds
+# it to the logq form at rtol 1e-5, atol 1e-5 (value) and 1e-6 (gradient)
+@pytest.mark.parametrize("smoothing,weighted,normalize", [
+    (0.1, False, False), (0.0, False, False), (0.1, False, True), (0.1, True, False),
+    (0.1, True, True)])
+def test_label_smoothing_v2_matches_jax(smoothing, weighted, normalize, monkeypatch):
+    """SYNCVSR_LSM_V2's reassociated form (logsumexp, row sum and target
+    logit of the raw logits): value and logit gradient equal to the JAX
+    package's V2 form and to the port's logq form."""
+    rng = np.random.RandomState(7)
+    b, l, v = 3, 5, 37
+    logits = (rng.randn(b, l, v) * 4).astype(np.float32)
+    targets = rng.randint(-1, v, (b, l)).astype(np.int32)
+    w = np.array([1.0, 0.0, 1.0], np.float32) if weighted else None
+
+    def port():
+        x = tt(logits).requires_grad_()
+        loss = tm.label_smoothing_kl(x, tt(targets), v, smoothing, -1, normalize,
+                                     None if w is None else tt(w))
+        loss.backward()
+        return loss.detach(), x.grad
+
+    v1 = port()
+    monkeypatch.setenv("SYNCVSR_LSM_V2", "1")
+    v2 = port()
+    want = jax.value_and_grad(lambda lg: jm.label_smoothing_kl(
+        lg, jnp.asarray(targets), v, smoothing, -1, normalize,
+        None if w is None else jnp.asarray(w)))(jnp.asarray(logits))
+    close(v2[0], want[0], 1e-5, 1e-5, "value")
+    close(v2[1], want[1], 1e-5, 1e-6, "gradient")
+    close(v2[0], v1[0].numpy(), 1e-5, 1e-5, "value against the logq form")
+    close(v2[1], v1[1].numpy(), 1e-5, 1e-6, "gradient against the logq form")
+
+
 @pytest.mark.parametrize("weighted", [False, True])
 def test_decoder_accuracy_exact(weighted):
     rng = np.random.RandomState(4)

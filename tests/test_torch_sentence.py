@@ -143,5 +143,8 @@ def test_sentence_factory_and_batch_checks():
     with pytest.raises(ValueError, match="videos and lengths"):
         create_train_state(cfg, model, {k: v for k, v in batch.items() if k != "lengths"},
                            device="cpu")
+    # model.remat is ported: its blocks recompute (tests/test_torch_remat.py);
+    # a sentence model over another encoder is not
+    assert build_model(cfg.override(**{"model.remat": True}), device="cpu").encoder.remat
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(tcfg.lrs3_config().override(**{"model.remat": True}), device="cpu")
+        build_model(cfg.override(**{"model.encoder.kind": "transformer"}), device="cpu")
