@@ -35,9 +35,12 @@ non-zero before the last line is printed:
    mixup), ``lrw1000_dctcn`` (the same DC-TCN over ``lrw1000``'s data:
    K2 at 4 slots of 640) and ``lrs3_1800`` (``lrs3``'s small model with
    ``model.remat`` and ``optim.accum_steps=2`` at 320 frames: the sync
-   head's chunked backward, K3 twice a BatchNorm): the metrics and Adam's
-   first moment, less the ReLU units whose input f32 rounding put on the
-   other side of 0;
+   head's chunked backward, K3 twice a BatchNorm) and ``lrs3_instep``
+   (``lrs3``'s small model whose sync targets the in-step vq-wav2vec codec
+   makes from 16 frames of waveform, at its real 512-wide geometry with a
+   separated codebook: the same tokens on both sides): the metrics and
+   Adam's first moment, less the ReLU units whose input f32 rounding put
+   on the other side of 0;
 5. train, for each path: the full-width train step (``lrw_video``: batch
    96, 29 uint8 96x112 frames; ``lrs3``: batch 8, 160 uint8 128x128 frames,
    12-layer Conformer + 6-layer decoder; ``lrw_landmark``: batch 1024, 29
@@ -55,7 +58,14 @@ non-zero before the last line is printed:
    ``lrs3_1800`` (``train_1800``): the full-width ``lrs3`` model at batch 2
    x 1800 uint8 frames without and with ``model.remat`` (first-step losses
    equal, peak memory, 2 windows of 3 steps; K3 64 and K4 32 launches a
-   step with remat, 32 and 32 without);
+   step with remat, 32 and 32 without); ``lrs3_instep`` (``train_instep``):
+   ``lrs3``'s full-width step with ``audio`` [8, 102400] f32 quantized
+   inside the step by vq-wav2vec (8 convs 512 wide, G 2, V 320; seeded
+   fairseq checkpoints the script writes to a temporary directory and
+   loads through ``load_vq_codec``): step ms with the codec and with its
+   tokens made once before, the codec's own ms (CUDA events; its device ms
+   in phase 8), peak memory, K2/K3/K4 1/32/32 a step, card tokens against
+   the CPU's (TF32 on for the process, which the codec overrides);
 6. decode: the port's decoding entry points (``syncvsr_tpu_torch/decode``),
    which launch none of K1-K4 (checked): (a) a small f32 ``lrs3`` model
    (encoder and decoder 32 wide, 11 labels, 3 clips of 12, 9 and 6 frames),
@@ -83,7 +93,13 @@ non-zero before the last line is printed:
    buckets with remat, accumulation and the non-finite guard, and
    ``evaluate`` of its test split; ``lrs3_audio`` over that tree's pkls,
    ``vox2`` windowed by a length histogram, ``lrw_landmark`` from ``.npy``
-   clips; the kernels' launches a step are read
+   clips; then the codecs and reference checkpoints (``cli_codecs``):
+   ``lrs3`` with ``model.codec.in_step=true`` from the pkl tree,
+   ``tools.tokenize_audio`` on both routes, ``tools.import_checkpoint
+   lrs`` of a full-width espnet-layout checkpoint with a greedy
+   ``evaluate`` of it, and beam ``evaluate`` with an espnet ``.pth``
+   TransformerLM of 16 layers (against the same LM converted to msgpack);
+   the kernels' launches a step are read
    from the driver's ``metrics.jsonl``, and its ``step_ms_ema`` is printed
    beside phase 5's step time;
 8. profiler windows, after every timing above (a process that torch.profiler
@@ -284,7 +300,9 @@ def bn_shapes():
             "lrw_dctcn": trunk_bn_shapes(dctcn, dctcn.data.num_frames),
             "lrw1000_dctcn": trunk_bn_shapes(lrw1000_dctcn, lrw1000_dctcn.data.num_frames),
             "lrs3_1800": (trunk_bn_shapes(long, LRS3_1800_FRAMES)
-                          + [conformer(long, LRS3_1800_FRAMES)])}
+                          + [conformer(long, LRS3_1800_FRAMES)]),
+            # lrs3's model and batch; the codec launches none of K1-K4
+            "lrs3_instep": trunk_bn_shapes(lrs3, LRS3_FRAMES) + [conformer(lrs3, LRS3_FRAMES)]}
 
 
 def device_ms(torch, fn, names, iters=20):
@@ -380,6 +398,8 @@ SYNC_PATHS = {"sync_ce_fwd": {"lrw_video": MONO_CASES[0], "lrw_landmark": MONO_C
                                     "lrw_dctcn": SPLIT_CASES[2],
                                     "lrw1000_dctcn": SPLIT_CASES[3],
                                     "lrs3_1800": SPLIT_CASES[4]}}
+# paths whose sync head has another path's shape: the same row
+SYNC_SAME = {"lrs3_instep": "lrs3"}
 
 
 def check_sync(torch, dev, kind, later):
@@ -468,6 +488,9 @@ def check_sync(torch, dev, kind, later):
                 entry["device_ms"] = all_ms
 
         later.append(profiled)
+    for path, same in SYNC_SAME.items():
+        if same in paths:
+            paths[path] = paths[same]
     main = paths[next(iter(SYNC_PATHS[key]))]
     src, line = (("sync_ce.cu", 36) if kind == "mono" else ("sync_ce_split.cu", 66))
     entry = {"name": key, "route": "cuda", "source": f"syncvsr_tpu_torch/csrc/{src}",
@@ -848,7 +871,8 @@ PATH_KERNELS = {"lrw_video": {"sync_ce_fwd", "bn_stats_fwd", "bn_stats_bwd"},
                 "lrw1000": {"sync_ce_fwd", "bn_stats_fwd", "bn_stats_bwd"},
                 "lrw_dctcn": {"sync_ce_split_fwd", "bn_stats_fwd", "bn_stats_bwd"},
                 "lrw1000_dctcn": {"sync_ce_split_fwd", "bn_stats_fwd", "bn_stats_bwd"},
-                "lrs3_1800": {"sync_ce_split_fwd", "bn_stats_fwd", "bn_stats_bwd"}}
+                "lrs3_1800": {"sync_ce_split_fwd", "bn_stats_fwd", "bn_stats_bwd"},
+                "lrs3_instep": {"sync_ce_split_fwd", "bn_stats_fwd", "bn_stats_bwd"}}
 
 
 def f32_sentence_aug(torch, d):
@@ -953,6 +977,17 @@ def check_reference(torch, np, path):
             **common, **sentence, **{"model.remat": True, "optim.accum_steps": 2})
         batch = uint8_sentences(np, cfg, 320, 48, 40, seed=3)
         aug = f32_sentence_aug(torch, cfg.data)
+        keys = sentence_keys
+    elif path == "lrs3_instep":
+        # lrs3's reference (its batch, the infeasible row included) with the
+        # sync targets the separated codec (vq-wav2vec's geometry, 320 codes)
+        # makes inside the step from 16 frames of 640 samples a clip: the
+        # same tokens on both sides
+        cfg = config.lrs3_config().override(**common, **sentence, **{
+            "model.codec.in_step": True, "model.codec.ckpt": CODECS["separated"]})
+        batch = instep_batch(np, with_infeasible_row(uint8_sentences(np, cfg, 16, 4, 40,
+                                                                     seed=3)), seed=3)
+        aug = instep_aug(cfg, build_sentence_aug(cfg.data))
         keys = sentence_keys
     else:
         # 16 frames of 640 samples, clips of >= 8 frames, as lrs3's
@@ -1298,6 +1333,227 @@ def train_1800(torch, np, path, profile_dir=None):
                    peak_bytes=summary["remat"]["peak_bytes"],
                    launches_per_step=summary["remat"]["launches_per_step"])
     return total, summary, window
+
+
+# ---- the in-step codec (lrs3_instep): vq-wav2vec quantizes the batch's
+# waveforms inside the step (syncvsr_tpu_torch/ops/codec.py) ----------------
+
+# the fairseq checkpoints the codec loads, written by write_codecs into a
+# temporary directory: vq-wav2vec's geometry (8 convs 512 wide, G = 2, V =
+# 320), seeded; "separated" draws its codebook at 3x scale, so no argmin is
+# within f32 rounding of a tie (tests/test_codec_instep.py's rule)
+CODECS = {}
+INSTEP_SAMPLES = LRS3_FRAMES * 640          # 102400 samples a clip
+
+
+def write_codecs(tmp):
+    import os
+
+    from syncvsr_tpu_torch.data.synthetic_ckpt import write_fairseq_vq
+
+    for name, seed, separation in (("random", 0, 1.0), ("separated", 1, 3.0)):
+        CODECS[name] = os.path.join(tmp, f"vq_{name}.pt")
+        write_fairseq_vq(CODECS[name], seed=seed, separation=separation)
+
+
+def instep_batch(np, batch, seed):
+    """The sentence batch with waveforms (f32 [B, frames * 640], seeded) in
+    place of its offline audio tokens."""
+    b, t = batch["videos"].shape[:2]
+    out = {k: v for k, v in batch.items() if k != "audio_tokens"}
+    out["audio"] = (np.random.RandomState(seed + 7).randn(b, t * 640) * 0.1).astype(np.float32)
+    return out
+
+
+def instep_aug(cfg, base):
+    """``base`` after the in-step tokenizer of ``cfg`` on the batch's device
+    (``train.py``'s composition; the codec is built once a device)."""
+    from syncvsr_tpu_torch.train import instep_tokenizer
+
+    def aug(gen, batch):
+        return base(gen, instep_tokenizer(cfg, batch["audio"].device)(batch))
+
+    return aug
+
+
+def codec_flops(b, samples):
+    """(FLOPs of one codec call on [b, samples] waveforms, the feature
+    frames of each layer): the 8 VALID convs, the grouped projection and
+    the codebook product (vq-wav2vec's geometry)."""
+    from syncvsr_tpu_torch.ops.codec import VQ_CONV_LAYERS
+
+    flops, t, cin, frames = 0, samples, 1, []
+    for cout, k, stride in VQ_CONV_LAYERS:
+        t = (t - k) // stride + 1
+        frames.append(t)
+        flops += 2 * b * t * cout * cin * k
+        cin = cout
+    flops += 2 * b * t * cin * cin // 2          # grouped 1x1 projection, G = 2
+    flops += 2 * b * t * cin * 320               # G x [d, V] codebook products
+    return flops, frames
+
+
+def check_codec_tokens(torch, np, audio):
+    """Card tokens against the CPU's on the same waveforms (two clips of
+    ``audio`` with the hook's 0.5 s pad) and weights, both in f32 (TF32
+    allowed for the process, which the codec overrides): equal
+    on the separated codebook; at the random one, the agreement rate (an
+    argmin may flip where two codes are within rounding of a tie; at least
+    99% must agree). Returns the rates."""
+    from syncvsr_tpu_torch.ops.codec import SAMPLE_RATE, load_vq_codec, vq_tokens
+
+    wav = torch.nn.functional.pad(audio[:2].float(), (0, SAMPLE_RATE // 2))
+    rates = {}
+    for name in ("separated", "random"):
+        toks = {}
+        for dev in ("cuda", "cpu"):
+            params, geom = load_vq_codec(CODECS[name], dev)
+            # TF32 on for the process, as PyTorch has it for convolutions
+            # by default: the codec must turn it off for its own calls
+            conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                toks[dev] = vq_tokens(params, wav.to(dev), strides=geom["strides"],
+                                      **geom["features"]).cpu()
+            finally:
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
+        rate = float((toks["cuda"] == toks["cpu"]).float().mean())
+        rates[name] = rate
+        log(f"  codec tokens, card vs CPU, {name} codebook: {tuple(toks['cuda'].shape)}, "
+            f"{rate:.6f} equal, {len(torch.unique(toks['cuda']))} distinct codes")
+        if not (rate == 1.0 if name == "separated" else rate >= 0.99):
+            raise AssertionError(f"codec tokens card vs CPU ({name}): {rate} equal")
+    return rates
+
+
+def codec_kernels(torch, fn, n=5, top=8):
+    """The device kernels of ``n`` codec calls under torch.profiler, the
+    longest first, in ms a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    key = ("self_device_time_total" if avgs and hasattr(avgs[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    rows = sorted(((getattr(e, key) / 1e3 / n, e.count / n, e.key) for e in avgs
+                   if e.device_type == DeviceType.CUDA and getattr(e, key) > 0), reverse=True)
+    for ms, calls, name in rows[:top]:
+        log(f"    {ms:8.3f} ms  x{calls:<4g} {name[:110]}")
+
+
+def train_instep(torch, np, path, profile_dir=None):
+    """The full-width lrs3 step (bs 8 x 160 uint8 frames) whose sync targets
+    the codec makes inside the step from ``audio`` [8, 102400] f32 (the
+    random codec, through ``load_vq_codec`` and ``train.py``'s
+    ``instep_tokenizer``): warm-up and two timed windows with the kernels'
+    launches counted from 0 and the peak memory; then the same step on
+    the codec's tokens made once before (the step without the codec); the
+    codec alone (CUDA events); one eval step on a tokenized batch; card
+    tokens against the CPU's. Returns (launches in the timed steps with
+    the codec, summary, the window that fills the codec's device ms and,
+    with ``profile_dir``, profiles 3 steps)."""
+    from syncvsr_tpu_torch.engine import build_eval_step, build_train_step, create_train_state
+    from syncvsr_tpu_torch.models import build_model
+    from syncvsr_tpu_torch.ops import image
+    from syncvsr_tpu_torch.train import instep_tokenizer
+
+    cfg = lrs3_cfg().override(**{"model.codec.in_step": True,
+                                 "model.codec.ckpt": CODECS["random"]})
+    dev = torch.device("cuda")
+    held = torch.cuda.memory_allocated()
+    batch_np = instep_batch(np, uint8_sentences(np, cfg, LRS3_FRAMES, LRS3_LABEL_LEN,
+                                                LRS3_SOURCE, seed=0), seed=0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+    tokenize = instep_tokenizer(cfg, dev)
+    aug = image.build_sentence_aug(cfg.data)
+    b = cfg.data.batch_size
+    flops, frames = codec_flops(b, INSTEP_SAMPLES + 8000)
+    log(f"train: {path}, videos {tuple(batch['videos'].shape)} uint8, audio "
+        f"{tuple(batch['audio'].shape)} f32 through vq-wav2vec (8 convs 512 wide, G 2, V 320; "
+        f"frames a layer {frames}; {flops / 1e9:.1f} GFLOP a call, f32 bound "
+        f"{flops / PEAK_F32_FLOPS * 1e3:.3f} ms), conformer 12 layers, dim 768, decoder 6 "
+        "layers, dtype bfloat16")
+    model = build_model(cfg)
+    state = create_train_state(cfg, model, batch)
+    step = build_train_step(aug_fn=lambda gen, x: aug(gen, tokenize(x)))
+    first = None
+    for _ in range(WARMUP_STEPS):
+        state, m = step(state, batch)
+        first = first or {k: float(v) for k, v in m.items()}
+    torch.cuda.synchronize()
+    log(f"  first step {first}")
+    if not (all(math.isfinite(v) for v in first.values())
+            and abs(first["loss_audio"] - math.log(320)) < 1.0):
+        raise AssertionError(f"{path} first step: {first}")
+
+    def timed(step, batch):
+        nonlocal state
+        windows = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            for _ in range(TIMED_STEPS):
+                state, m = step(state, batch)
+            torch.cuda.synchronize()
+            windows.append((time.perf_counter() - t0) / TIMED_STEPS)
+        return sum(windows) / len(windows), windows, {k: float(v) for k, v in m.items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    dt, windows, last = timed(step, batch)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() - held
+    per_step = {"sync_ce_fwd": 0, "sync_ce_split_fwd": 1, "bn_stats_fwd": 32, "bn_stats_bwd": 32}
+    want = {k: n * TIMED_STEPS * 2 for k, n in per_step.items()}
+    log(f"  with the codec: {dt * 1e3:.2f} ms/step (windows of {TIMED_STEPS}: "
+        f"{', '.join(f'{w * 1e3:.2f}' for w in windows)}), {b * LRS3_FRAMES / dt:.1f} frames/s, "
+        f"peak memory {peak / 2**30:.2f} GiB (above {held / 2**30:.2f} GiB held); last step "
+        f"{last}; launches {launches} (expected {want})")
+    if not all(math.isfinite(v) for v in last.values()):
+        raise AssertionError(f"{path}: non-finite metrics {last}")
+    if launches != want:
+        raise AssertionError(f"{path}: launches {launches} != {want}")
+    # the step without the codec: the same batch with the tokens it makes
+    tokens = tokenize(batch)
+    plain_step = build_train_step(aug_fn=aug)
+    state, _ = plain_step(state, tokens)
+    torch.cuda.synchronize()
+    dt_plain, windows_plain, _ = timed(plain_step, tokens)
+    codec = cuda_ms(torch, lambda: tokenize(batch), iters=10)
+    log(f"  without the codec (its tokens made once before): {dt_plain * 1e3:.2f} ms/step "
+        f"(windows {', '.join(f'{w * 1e3:.2f}' for w in windows_plain)}); the codec alone "
+        f"{codec:.3f} ms a call (CUDA events, 10 calls), the step's difference "
+        f"{(dt - dt_plain) * 1e3:.2f} ms")
+    before = read_counts()
+    ev = build_eval_step()(state, image.build_sentence_eval_transform(cfg.data)(tokens))
+    ev = {k: float(v) for k, v in ev.items()}
+    got = {k: v - before[k] for k, v in read_counts().items()}
+    log(f"  eval step: {ev}; launches {got}")
+    if not (all(math.isfinite(v) for v in ev.values())
+            and got == {k: int(k == "sync_ce_split_fwd") for k in got}):
+        raise AssertionError(f"{path} eval step: {ev}, launches {got}")
+    rates = check_codec_tokens(torch, np, batch["audio"])
+    summary = {"step_ms": dt * 1e3, "frames_per_s": b * LRS3_FRAMES / dt, "peak_bytes": peak,
+               "launches_per_step": per_step, "step_without_codec_ms": dt_plain * 1e3,
+               "codec_ms": codec, "codec_device_ms": None, "codec_gflop": flops / 1e9,
+               "codec_bound_ms": flops / PEAK_F32_FLOPS * 1e3, "token_agreement": rates}
+
+    def window():
+        conv_ms, _, calls, src, all_ms = device_ms(torch, lambda: tokenize(batch), ("conv",),
+                                                   iters=10)
+        summary["codec_device_ms"] = all_ms
+        log(f"{path}: the codec's device time {all_ms:.3f} ms a call ({src}; {calls} device "
+            f"kernels a call, convolution kernels {conv_ms:.3f} ms), {codec:.3f} ms with the host")
+        codec_kernels(torch, lambda: tokenize(batch))
+        if profile_dir:
+            profile_steps(torch, state, step, batch, profile_dir, path, dt)
+
+    return launches, summary, window
 
 
 def time_stem_conv(torch, model, audio):
@@ -1828,7 +2084,172 @@ def cli_files(tmp):
     check_launches(rec, per_step, what)
     out["lrw_landmark_files"] = {"seconds": dt, "steps": len(rec),
                                  "launches_per_step": per_step, "train_loss": losses(rec, what)}
+    out.update(cli_codecs(tmp, root, packed, os.path.join(tmp, "files_lrs3", last)))
     return out
+
+
+def tree_shapes(path):
+    """{key: shape} of a checkpoint's params, batch_stats and opt_state."""
+    from syncvsr_tpu_torch.utils import checkpoint as ckpt
+
+    return {k: tuple(getattr(v, "shape", ())) for k, v in
+            ckpt.flatten(ckpt.load_msgpack(path)).items()
+            if k.startswith(("params.", "batch_stats.", "opt_state."))}
+
+
+def cli_codecs(tmp, root, packed, files_ckpt):
+    """The codec and reference-checkpoint entry points: (i) ``train
+    model.codec.in_step=true`` at full width from the LRS3 pkl tree (its
+    waveforms; the random codec) with (e)'s options (remat, accumulation,
+    the guard), 3 steps and the final eval (tokenized too), its checkpoint
+    tree equal to (e)'s (``files_ckpt``, the same run without the codec):
+    no codec leaf; (ii) ``tools.tokenize_audio`` on
+    both routes over a small tree of wavs and a pkl (the random codec; an
+    HF wav2vec2 directory at wav2vec2-large-xlsr-53's geometry the script
+    writes), each file's tokens against the CPU's; (iii)
+    ``tools.import_checkpoint lrs`` of a full-width synthetic ``Vox+LRS2+
+    LRS3.ckpt`` (espnet layout), then greedy ``evaluate`` of the test split
+    from the imported file (every leaf loaded); (iv) ``evaluate`` of the
+    val split (windowed to 160 frames) with the batched beam search and an
+    espnet TransformerLM
+    ``.pth`` at lrs3.yaml's 16 layers, converted on load, against the same
+    LM through ``import_checkpoint lm`` (equal hypotheses). Returns the
+    runs' summaries."""
+    import os
+
+    out = {}
+    # (i) the in-step codec through the train CLI
+    ck = os.path.join(tmp, "files_instep")
+    what = "(i) lrs3 train with model.codec.in_step from pkls"
+    _, dt = run_cli("train", ["preset=lrs3", "data.dataset=lrs3", f"data.root={root}",
+                              f"data.max_batch_frames={FILES_MBF}", "model.remat=true",
+                              "model.codec.in_step=true", f"model.codec.ckpt={CODECS['random']}",
+                              "optim.accum_steps=2", "optim.skip_nonfinite=true",
+                              "optim.total_steps=3", "train.log_every=1",
+                              "train.eval_every=1000", "train.ckpt_every=1000",
+                              f"train.ckpt_dir={ck}"], tmp, what)
+    rec = train_records(ck)
+    per_step = {"sync_ce_fwd": 0, "sync_ce_split_fwd": 1, "bn_stats_fwd": 64,
+                "bn_stats_bwd": 32}
+    check_launches(rec, per_step, what)
+    mine, theirs = tree_shapes(os.path.join(ck, "step_3.msgpack")), tree_shapes(files_ckpt)
+    if mine != theirs:
+        raise AssertionError(f"cli (i): the checkpoint's tree differs from (e)'s: "
+                             f"{sorted(set(mine) ^ set(theirs))[:8]}")
+    log(f"cli (i): the in-step run's checkpoint has (e)'s tree ({len(mine)} leaves)")
+    out["lrs3_instep_files"] = {"seconds": dt, "steps": len(rec), "launches_per_step": per_step,
+                                "train_loss": losses(rec, what)}
+    out["codec_tools"] = dict(cli_tokenize(tmp), **cli_import(tmp, packed))
+    return out
+
+
+def cli_tokenize(tmp):
+    """(ii) of ``cli_codecs``: ``tools.tokenize_audio`` on the card, both
+    routes, over three wavs and a pkl of int16 audio; each file's tokens
+    against ``tokenize_tree``'s on the CPU."""
+    import os
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from syncvsr_tpu_torch.data.synthetic_ckpt import write_hf_wav2vec2
+    from syncvsr_tpu_torch.tools.tokenize_audio import tokenize_tree
+
+    src = os.path.join(tmp, "tok_src")
+    os.makedirs(os.path.join(src, "spk0"))
+    rng = np.random.RandomState(11)
+    for i, sec in enumerate((1.0, 2.3, 3.7)):
+        wav = (np.sin(np.linspace(0, 900 * sec, int(16000 * sec))) * 6000
+               + rng.randn(int(16000 * sec)) * 2000).astype(np.int16)
+        wavfile.write(os.path.join(src, "spk0", f"clip{i}.wav"), 16000, wav)
+    torch.save({"video": [b""] * 40, "audio": (rng.randn(40 * 640) * 3000).astype(np.int16)},
+               os.path.join(src, "spk0", "clip3.pkl"))
+    w2v2 = os.path.join(tmp, "wav2vec2")
+    write_hf_wav2vec2(w2v2, seed=0)
+    tools = {}
+    for codec, model, align in (("vq", CODECS["random"], 4), ("wav2vec2", w2v2, 2)):
+        dst = os.path.join(tmp, f"tok_{codec}")
+        what = f"(ii) tokenize_audio --codec {codec}"
+        _, dt = run_cli("tools.tokenize_audio", ["--src", src, "--dst", dst, "--codec", codec,
+                                                 "--model", model], tmp, what)
+        cpu = os.path.join(tmp, f"tok_{codec}_cpu")
+        want = tokenize_tree(src, cpu, codec, model, device="cpu")
+        same, total = 0, 0
+        for w in want:
+            g = torch.load(os.path.join(dst, os.path.relpath(w, cpu)), weights_only=False)
+            g, w = g[f"{codec}_tokens"], torch.load(w, weights_only=False)[f"{codec}_tokens"]
+            if g.shape != w.shape or g.shape[1] != 2 or g.max() >= 320 or g.min() < -1:
+                raise AssertionError(f"cli {what}: tokens {g.shape}, range {g.min()}..{g.max()}")
+            same, total = same + int((g == w).sum()), total + g.size
+        frames = [int(round(sec * 25)) * align for sec in (1.0, 2.3, 3.7)] + [40 * align]
+        log(f"cli {what}: {len(want)} token pkls ({frames} rows), card vs CPU "
+            f"{same / total:.6f} equal")
+        if len(want) != 4 or same / total < 0.99:
+            raise AssertionError(f"cli {what}: {len(want)} files, {same / total} equal")
+        tools[f"tokenize_{codec}"] = {"seconds": dt, "files": len(want),
+                                      "card_vs_cpu_equal": same / total}
+    return tools
+
+
+def cli_import(tmp, packed):
+    """(iii) and (iv) of ``cli_codecs``: a full-width ``Vox+LRS2+LRS3.ckpt``
+    (espnet layout) through ``tools.import_checkpoint lrs`` and a greedy
+    ``evaluate`` of the packed tree's test split; beam ``evaluate`` of the
+    val split (160 frames) with an espnet TransformerLM ``.pth`` (16 layers) and with the
+    same LM through ``import_checkpoint lm``: equal hypotheses."""
+    import os
+    import re
+
+    import torch
+
+    from syncvsr_tpu_torch.config import lrs3_config
+    from syncvsr_tpu_torch.data.synthetic_ckpt import (
+        espnet_e2e_state_dict,
+        espnet_transformer_lm_state_dict,
+    )
+
+    tools = {}
+    # (iii) a full-width Vox+LRS2+LRS3.ckpt (espnet layout) imported, then evaluated
+    src_ckpt = os.path.join(tmp, "Vox+LRS2+LRS3.ckpt")
+    torch.save({"state_dict": espnet_e2e_state_dict(lrs3_config(), seed=7), "epoch": 0},
+               src_ckpt)
+    imported = os.path.join(tmp, "lrs3_imported.msgpack")
+    _, dt = run_cli("tools.import_checkpoint", ["lrs", src_ckpt, imported], tmp,
+                    "(iii) import_checkpoint lrs")
+    lrs3 = ["preset=lrs3", "data.dataset=lrs3", "data.packed=true", f"data.root={packed}",
+            f"ckpt={imported}"]
+    res_out, dt_eval = run_cli("evaluate", [*lrs3, "data.split=test", "decode=greedy"], tmp,
+                               "(iii) evaluate greedy of the imported checkpoint")
+    loaded = re.search(r"loaded (\d+)/(\d+) params", res_out)
+    res = last_json(res_out, "(iii)")
+    if not (loaded and loaded.group(1) == loaded.group(2)
+            and math.isfinite(res.get("test/wer", math.nan))):
+        raise AssertionError(f"cli (iii): {loaded and loaded.group(0)}, {res}")
+    tools["import_lrs"] = {"seconds": dt, "evaluate_seconds": dt_eval,
+                           "params_loaded": int(loaded.group(1)), "evaluate": res}
+    # (iv) an espnet TransformerLM .pth at lrs3.yaml's shape, fused in the beam search
+    lm = os.path.join(tmp, "lm.pth")
+    torch.save(espnet_transformer_lm_state_dict(5049, 16, 512, 2048, 128, seed=8), lm)
+    run_cli("tools.import_checkpoint", ["lm", lm, os.path.join(tmp, "lm.msgpack"),
+                                        "kind=transformer", "dim=512", "heads=8", "layers=16"],
+            tmp, "(iv) import_checkpoint lm")
+    hyps = {}
+    for name in ("lm.pth", "lm.msgpack"):
+        # the val clips (120 and 260 frames) windowed to the 160-frame bucket:
+        # one 160-step search
+        res_out, dt = run_cli("evaluate", [*lrs3, "data.split=val", "data.max_frames_val=160",
+                                           "decode=beam_batched", "decode_pad=bucket",
+                                           f"lm_ckpt={tmp}/{name}", "lm_weight=0.1"], tmp,
+                              f"(iv) evaluate beam {name}")
+        with open(os.path.join(tmp, "hypotheses.jsonl")) as f:
+            hyps[name] = [json.loads(line) for line in f]
+        tools[f"beam_{name}"] = dict(last_json(res_out, "(iv)"), seconds=dt)
+    if not (len(hyps["lm.pth"]) == 2 and hyps["lm.pth"] == hyps["lm.msgpack"]):
+        raise AssertionError("cli (iv): the .pth LM's hypotheses differ from the converted "
+                             f"LM's: {hyps}")
+    log("cli (iv): the .pth LM's hypotheses and scores equal the converted msgpack's")
+    return tools
 
 
 def decode_full_width(torch, np, card, profile_dir=None):
@@ -2020,6 +2441,9 @@ def profile_decode(torch, model, summary, out_dir, encode, runs, short_beam):
 
 def main():
     import argparse
+    import atexit
+    import shutil
+    import tempfile
 
     import numpy as np
     import torch
@@ -2043,6 +2467,11 @@ def main():
     log(f"build: {lib} in {time.perf_counter() - t0:.1f} s\n{build_log}")
     kernels.library()
 
+    # the fairseq checkpoints of the in-step codec, removed at exit
+    codec_dir = tempfile.mkdtemp(prefix="syncvsr_codec_")
+    atexit.register(shutil.rmtree, codec_dir, True)
+    write_codecs(codec_dir)
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -2062,7 +2491,7 @@ def main():
     summary, per_step, windows = {}, {}, []
     launches = {k: 0 for k in counters()}
     for path in PATH_KERNELS:
-        run = train_1800 if path == "lrs3_1800" else train_full_width
+        run = {"lrs3_1800": train_1800, "lrs3_instep": train_instep}.get(path, train_full_width)
         got, summary[path], window = run(torch, np, path, args.profile)
         launches = {k: launches[k] + got[k] for k in launches}
         per_step[path] = summary[path]["launches_per_step"]
@@ -2085,7 +2514,8 @@ def main():
         e["launches_per_step"] = {p: per_step[p][e["name"]] for p in per_step}
         # and a train step of each CLI run (the driver's metrics.jsonl)
         e["cli_launches_per_step"] = {p: c["launches_per_step"][e["name"]]
-                                      for p, c in summary["cli"].items()}
+                                      for p, c in summary["cli"].items()
+                                      if "launches_per_step" in c}
     log(f"decode: {json.dumps(summary['decode'])}")
     log(f"cli: {json.dumps(summary['cli'])}")
     log(f"summary: {json.dumps(summary)} on {card}")

@@ -15,9 +15,9 @@ Evaluates the **test** split by default (override with ``data.split=val``).
 ``ckpt=`` takes a checkpoint of either package (``best.msgpack`` or
 ``step_<N>.msgpack``). Optional LM shallow fusion mirrors the reference's
 config-built LM scorer (LRS/video/lightning.py:243-279,
-config/lrs3.yaml:64-71): ``lm_ckpt=<msgpack>`` (a flax LM tree; an espnet
-``.pth`` LM is not converted by the port yet and raises) and
-``lm_weight=0.1``.
+config/lrs3.yaml:64-71): ``lm_ckpt=`` a flax LM msgpack or an
+espnet-trained torch LM (``.pth``, converted on load by
+``utils/torch_convert.py::convert_lm``), and ``lm_weight=0.1``.
 
 Usage (on the GPU):
     python -m syncvsr_tpu_torch.evaluate preset=lrs3 data.root=/data \\
@@ -54,19 +54,12 @@ from syncvsr_tpu_torch.utils.text import WordErrorRate
 
 
 def load_lm(path: str, kind: str, vocab: int, shape: Dict[str, int], device: torch.device):
-    """The LM of ``kind`` ("transformer" or "rnn") at ``shape``, with the
-    weights of the flax msgpack at ``path`` merged onto a seeded init
+    """The LM of ``kind`` ("transformer" or "rnn") at ``shape``: an espnet
+    torch checkpoint at ``path`` is converted (``convert_lm``) and loaded
+    whole; a flax msgpack's weights are merged onto a seeded init
     (``partial_load``, so a checkpoint that predates a module still loads)."""
     from syncvsr_tpu_torch.models.lm import RNNLM, TransformerLM
 
-    with open(path, "rb") as f:
-        magic = f.read(2)
-    # torch saves are zip ("PK") or legacy pickle (0x80); flax msgpack
-    # payloads are msgpack maps (0x8N fixmap / 0xde / 0xdf)
-    if magic[:2] == b"PK" or (magic and magic[0] == 0x80):
-        raise NotImplementedError(
-            f"not ported to PyTorch yet: {path} is a torch checkpoint; convert the espnet "
-            "LM to a flax msgpack with the JAX package (utils/torch_convert.py::convert_lm)")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         if kind == "rnn":
@@ -74,6 +67,18 @@ def load_lm(path: str, kind: str, vocab: int, shape: Dict[str, int], device: tor
                        embed_dim=shape["embed_dim"])
         else:
             lm = TransformerLM(vocab, **shape)
+    with open(path, "rb") as f:
+        magic = f.read(2)
+    # torch saves are zip ("PK") or legacy pickle (0x80); flax msgpack
+    # payloads are msgpack maps (0x8N fixmap / 0xde / 0xdf)
+    if magic[:2] == b"PK" or (magic and magic[0] == 0x80):
+        from syncvsr_tpu_torch.utils.torch_convert import convert_lm
+
+        sd = torch.load(path, map_location="cpu", weights_only=False)
+        if isinstance(sd, dict) and "state_dict" in sd:
+            sd = sd["state_dict"]
+        load_flax(lm, convert_lm(sd, kind, shape["dim"], shape["heads"], shape["layers"]))
+        return lm.to(device).eval()
     payload = ckpt.load_msgpack(path)
     pre = payload.get("params", payload)
     if kind != "rnn" and not any("input_norm" in k for k in ckpt.flatten(pre)):

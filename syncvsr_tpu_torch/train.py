@@ -21,6 +21,12 @@ logged record; besides the JAX driver's keys, each train record has
 step over the steps since the last record (0 on the CPU, where the plain
 versions run).
 
+``model.codec.in_step=true model.codec.ckpt=<vq-wav2vec .pt>`` quantizes
+the loader's raw waveforms inside the step (``ops/codec.py``): the frozen
+codec's tensors live in the batch hook's closure, in no optimizer group and
+no checkpoint, and the hook runs before the augmentation, on the init
+example and on every eval batch that carries ``audio``.
+
 It runs on one GPU and raises without one (``train(config,
 device="cpu")`` runs the plain PyTorch path on the CPU, as the tests do).
 ``mesh.data > 1``, model or sequence axes, ``mesh.fsdp`` and
@@ -83,8 +89,8 @@ def check_single_device(config: Config) -> None:
     asked = [name for name, on in (
         (f"mesh.data={m.data}", m.data not in (-1, 1)),
         (f"mesh.model={m.model}", m.model != 1), (f"mesh.seq={m.seq}", m.seq != 1),
-        ("mesh.fsdp=true", m.fsdp), ("train.distributed=true", config.train.distributed),
-        ("model.codec.in_step=true", config.model.codec.in_step)) if on]
+        ("mesh.fsdp=true", m.fsdp), ("train.distributed=true", config.train.distributed))
+        if on]
     if asked:
         raise NotImplementedError("not ported to PyTorch yet: " + ", ".join(asked))
 
@@ -105,13 +111,34 @@ def transforms(config: Config):
             build_sentence_aug(config.data))
 
 
+def instep_tokenizer(config: Config, device: torch.device):
+    """The in-step vq-wav2vec batch hook of ``model.codec`` (frozen codec
+    tensors on ``device``), or None when ``in_step`` is off."""
+    if not config.model.codec.in_step:
+        return None
+    from syncvsr_tpu_torch.ops.codec import load_vq_codec, make_instep_tokenizer
+
+    params, geom = load_vq_codec(config.model.codec.ckpt, device)
+    return make_instep_tokenizer(params, alignment=config.model.codec.audio_alignment,
+                                 strides=geom["strides"], **geom["features"])
+
+
 def train(config: Config, device: Optional[Union[str, torch.device]] = None
           ) -> Dict[str, float]:
     dev = resolve_device(device)
     check_single_device(config)
     model = build_model(config, device=dev)
     train_loader, eval_loader = build_loaders(config)
-    eval_transform, aug_fn = transforms(config)
+    base_eval_transform, aug_fn = transforms(config)
+    tokenize = instep_tokenizer(config, dev)
+
+    def eval_transform(batch):
+        batch = base_eval_transform(batch)
+        return tokenize(batch) if tokenize is not None and "audio" in batch else batch
+
+    if tokenize is not None:
+        base_aug = aug_fn
+        aug_fn = lambda gen, b: base_aug(gen, tokenize(b))  # noqa: E731
 
     example = next(iter(train_loader))
     state = create_train_state(config, model, eval_transform(to_device(example, dev)),

@@ -194,24 +194,41 @@ def test_beam_batched_lm_fusion_matches_jax(sentence_ckpt, tmp_path, monkeypatch
 
 
 def test_lm_checkpoint_formats(tmp_path):
-    """A torch (espnet) LM checkpoint raises until its conversion is
-    ported; an RNN LM msgpack loads onto the seeded init by intersection."""
+    """A torch (espnet) LM checkpoint is converted on load and must hold
+    every leaf (a state dict without them raises); an RNN LM msgpack loads
+    onto the seeded init by intersection."""
     import torch
 
     from syncvsr_tpu.models.lm import RNNLM
+    from syncvsr_tpu.utils.torch_convert import convert_lm
 
     torch.save({"x": torch.zeros(1)}, tmp_path / "lm.pth")
     shape = {"layers": 1, "dim": 16, "heads": 1, "hidden": 16, "embed_dim": 16}
-    with pytest.raises(NotImplementedError, match="torch checkpoint"):
+    with pytest.raises(KeyError):
         tevaluate.load_lm(str(tmp_path / "lm.pth"), "rnn", 13, shape, torch.device("cpu"))
+    gen = torch.Generator().manual_seed(2)
+    rnn_sd = {"encoder.weight": torch.randn(13, 16, generator=gen),
+              "rnn.weight_ih_l0": torch.randn(64, 16, generator=gen),
+              "rnn.weight_hh_l0": torch.randn(64, 16, generator=gen),
+              "rnn.bias_ih_l0": torch.randn(64, generator=gen),
+              "rnn.bias_hh_l0": torch.randn(64, generator=gen),
+              "decoder.weight": torch.randn(13, 16, generator=gen),
+              "decoder.bias": torch.randn(13, generator=gen)}
+    torch.save({"state_dict": rnn_sd}, tmp_path / "rnn.pth")
+    lm = tevaluate.load_lm(str(tmp_path / "rnn.pth"), "rnn", 13, shape, torch.device("cpu"))
+    from syncvsr_tpu_torch.utils.bridge import to_flax
+
+    want = convert_lm(rnn_sd, "rnn", 16, 1, 1)
+    got = to_flax(lm.state_dict())[0]
+    for (path, w), g in zip(jax.tree_util.tree_leaves_with_path(want),
+                            jax.tree_util.tree_leaves(got)):
+        np.testing.assert_array_equal(g, w, err_msg=jax.tree_util.keystr(path))
     jlm = RNNLM(vocab=13, layers=1, dim=16, embed_dim=16)
     params = jax.device_get(jlm.init(jax.random.PRNGKey(1), jnp.zeros((1, 4), jnp.int32))
                             ["params"])
     jckpt.save_msgpack(str(tmp_path / "rnn.msgpack"), {"params": params})
     lm = tevaluate.load_lm(str(tmp_path / "rnn.msgpack"), "rnn", 13, shape,
                            torch.device("cpu"))
-    from syncvsr_tpu_torch.utils.bridge import to_flax
-
     got = to_flax(lm.state_dict())[0]
     for (path, w), g in zip(jax.tree_util.tree_leaves_with_path(params),
                             jax.tree_util.tree_leaves(got)):
