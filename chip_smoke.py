@@ -102,7 +102,24 @@ non-zero before the last line is printed:
    the kernels' launches a step are read
    from the driver's ``metrics.jsonl``, and its ``step_ms_ema`` is printed
    beside phase 5's step time;
-8. profiler windows, after every timing above (a process that torch.profiler
+8. parallel (``parallel_phase``): (a) ``python -m torch.distributed.run
+   --standalone --nproc-per-node 1 -m syncvsr_tpu_torch.train
+   preset=lrw_video`` (an NCCL group of one, 5 steps at full width): its
+   losses against the bare step's on the same batches, K1/K3/K4 1/20/20 a
+   step from ``metrics.jsonl``, its ``step_ms_ema`` beside phase 5's;
+   (b) two processes that share the card (gloo over CUDA tensors: NCCL
+   takes one rank a device): ``lrw_video`` at full width on a global
+   batch of 96 (48 clips a rank; augmentation and CutMix on, dropout 0)
+   against one process on the same 96 clips (bf16, ``BF16_TOL``), the same
+   with a 2-layer 64-wide f32 model (``F32_TOL``, ``tests/test_spmd.py``'s),
+   then 3 steps with the preset's dropout (the ranks' parameters and
+   statistics bitwise equal); (c) ``lrs3`` at full width on 8 x 160
+   frames (4 a rank) with FSDP against data parallel (metrics and
+   parameters, each rank's resident parameter and moment bytes: half of
+   the split leaves'), and FSDP's checkpoint loaded at one process, every
+   leaf equal; K1/K3/K4 and K2/K3/K4 counted in each rank; the two-rank
+   step times are labelled as correctness, not scaling;
+9. profiler windows, after every timing above (a process that torch.profiler
    has traced can pay more host time a launch from then on): each kernel's
    own device time (``device_ms``) over the calls phase 3 timed (K1's with
    its features' pad copy), each held to one kernel of its own a call (K3
@@ -114,8 +131,10 @@ non-zero before the last line is printed:
    (device launches a search step), greedy and align (launches, device
    time, idle share); with ``--profile DIR``, the full beam decode too and
    the tables in ``DIR/profile_decode_<name>.txt``;
-9. the ``decode`` and ``cli`` JSON lines, the ``kernels`` JSON line, the
-   card line and the ``ok`` line.
+10. the ``decode``, ``cli`` and ``parallel`` JSON lines, each phase's
+    seconds, the ``kernels`` JSON line (K1 and K2 also at a rank's half
+    batch, ``lrw_video_dp2`` and ``lrs3_fsdp2``, K3/K4 at those paths'
+    shapes), the card line and the ``ok`` line.
 """
 
 import json
@@ -288,6 +307,8 @@ def bn_shapes():
     lrw, lrs3, audio = lrw_video_cfg(), lrs3_cfg(), lrs3_audio_cfg()
     lrw1000, dctcn, lrw1000_dctcn = lrw1000_cfg(), lrw_dctcn_cfg(), lrw1000_dctcn_cfg()
     long = lrs3_1800_cfg()
+    half_lrw = lrw.override(**{"data.batch_size": lrw.data.batch_size // 2})
+    half_lrs3 = lrs3.override(**{"data.batch_size": lrs3.data.batch_size // 2})
 
     def conformer(cfg, frames):
         return (cfg.data.batch_size * frames, cfg.model.encoder.dim, cfg.model.encoder.layers)
@@ -302,7 +323,11 @@ def bn_shapes():
             "lrs3_1800": (trunk_bn_shapes(long, LRS3_1800_FRAMES)
                           + [conformer(long, LRS3_1800_FRAMES)]),
             # lrs3's model and batch; the codec launches none of K1-K4
-            "lrs3_instep": trunk_bn_shapes(lrs3, LRS3_FRAMES) + [conformer(lrs3, LRS3_FRAMES)]}
+            "lrs3_instep": trunk_bn_shapes(lrs3, LRS3_FRAMES) + [conformer(lrs3, LRS3_FRAMES)],
+            # a rank's half of lrw_video's and lrs3's batch at two processes
+            "lrw_video_dp2": trunk_bn_shapes(half_lrw, lrw.data.num_frames),
+            "lrs3_fsdp2": (trunk_bn_shapes(half_lrs3, LRS3_FRAMES)
+                           + [conformer(half_lrs3, LRS3_FRAMES)])}
 
 
 def device_ms(torch, fn, names, iters=20):
@@ -368,7 +393,8 @@ MONO_CASES = [(29 * 96, 513, 320, False, "bfloat16", 8),
               (1000, 512, 640, False, "float32", 4), (33, 512, 640, False, "float32", 4),
               (1, 512, 640, False, "float32", 4), (40 * 96, 513, 640, False, "bfloat16", 4),
               (40 * 96, 520, 640, False, "bfloat16", 4),
-              (1000, 512, 400, False, "bfloat16", 4), (40 * 96, 512, 640, True, "float32", 4)]
+              (1000, 512, 400, False, "bfloat16", 4), (40 * 96, 512, 640, True, "float32", 4),
+              (29 * 48, 513, 320, False, "bfloat16", 8)]
 # K2's cases: lrs3's, lrs3_audio's, lrw_dctcn's, lrw1000_dctcn's and
 # lrs3_1800's shapes first (timed; the audio and DC-TCN heads' features in
 # f32, as in their steps; lrw1000_dctcn's 4 slots of 640 in two column
@@ -389,15 +415,17 @@ SPLIT_CASES = [(8 * 160, 768, 320, False, "bfloat16", 8),
                (1000, 1664, 640, False, "float32", 4), (33, 1664, 640, False, "bfloat16", 4),
                (1, 1664, 640, False, "float32", 4), (40 * 96, 1672, 640, False, "float32", 4),
                (40 * 96, 1664, 400, False, "float32", 4),
-               (40 * 96, 1664, 640, True, "float32", 4)]
+               (40 * 96, 1664, 640, True, "float32", 4),
+               (4 * 160, 768, 320, False, "bfloat16", 8)]
 # the case of each path's sync head, timed: the entry's own numbers are its
 # first path's
 SYNC_PATHS = {"sync_ce_fwd": {"lrw_video": MONO_CASES[0], "lrw_landmark": MONO_CASES[1],
-                              "lrw1000": MONO_CASES[2]},
+                              "lrw1000": MONO_CASES[2], "lrw_video_dp2": MONO_CASES[-1]},
               "sync_ce_split_fwd": {"lrs3": SPLIT_CASES[0], "lrs3_audio": SPLIT_CASES[1],
                                     "lrw_dctcn": SPLIT_CASES[2],
                                     "lrw1000_dctcn": SPLIT_CASES[3],
-                                    "lrs3_1800": SPLIT_CASES[4]}}
+                                    "lrs3_1800": SPLIT_CASES[4],
+                                    "lrs3_fsdp2": SPLIT_CASES[-1]}}
 # paths whose sync head has another path's shape: the same row
 SYNC_SAME = {"lrs3_instep": "lrs3"}
 
@@ -2439,6 +2467,453 @@ def profile_decode(torch, model, summary, out_dir, encode, runs, short_beam):
                                    max_name_column_width=90))
 
 
+# the parallel phase: data-parallel and FSDP training over a process group
+PARALLEL_TIMEOUT = 420    # seconds the two processes of (b) and (c) may take
+# tolerances of the world-2 runs against world 1 on the same global batch:
+# bf16 (a 48-clip batch takes other cuDNN algorithms than a 96-clip one, and
+# bf16 rounds each op to 2^-9): first-step metrics 1e-2 relative, the grad
+# norm 2e-2, and each parameter within twice the summed learning rates of
+# the rate (Adam's update of a gradient that rounding flips in sign) plus
+# 1e-3 of its leaf's scale; f32 (TF32 off, deterministic cuDNN):
+# tests/test_spmd.py's, metrics rtol 1e-5 and params (and the BatchNorm
+# statistics) rtol 1e-4 / atol 1e-6
+BF16_TOL = {"metric": 1e-2, "grad_norm": 2e-2, "param_scale": 1e-3}
+F32_TOL = {"metric": 1e-5, "param_rtol": 1e-4, "param_atol": 1e-6}
+
+
+def parallel_world1(torch, np, summary):
+    """(a): ``python -m torch.distributed.run --standalone --nproc-per-node 1
+    -m syncvsr_tpu_torch.train preset=lrw_video`` on synthetic data, 5
+    steps at full width in an NCCL group of one: its first 3 losses
+    against the bare step's on the same batches in this process (no group;
+    the same seeds), K1/K3/K4 at 1/20/20 a step from ``metrics.jsonl``,
+    and the driver's ``step_ms_ema`` (steps 3 and 4: it skips 2 and reads
+    one step late) beside the bare step's time (phase 5)."""
+    import os
+    import shutil
+    import tempfile
+
+    from syncvsr_tpu_torch.data.synthetic import word_batch
+    from syncvsr_tpu_torch.engine import build_train_step, create_train_state
+    from syncvsr_tpu_torch.models import build_model
+    from syncvsr_tpu_torch.ops import image
+
+    tmp = tempfile.mkdtemp(prefix="syncvsr_parallel_")
+    try:
+        ck = os.path.join(tmp, "ck")
+        env = dict(os.environ)
+        root = os.path.dirname(os.path.abspath(__file__))
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "1", "-m", "syncvsr_tpu_torch.train", "preset=lrw_video",
+               "data.dataset=synthetic", "optim.total_steps=5", "train.log_every=1",
+               "train.eval_every=1000", "train.ckpt_every=1000", f"train.ckpt_dir={ck}"]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True,
+                             timeout=CLI_TIMEOUT)
+        dt = time.perf_counter() - t0
+        tail = "\n".join((out.stdout + out.stderr).strip().splitlines()[-10:])
+        log(f"parallel (a): {' '.join(cmd[1:])} -> exit {out.returncode} in {dt:.1f} s\n{tail}")
+        if out.returncode != 0:
+            raise AssertionError(f"parallel (a) failed (exit {out.returncode})")
+        if "processes: 1 (nccl)" not in out.stdout:
+            raise AssertionError("parallel (a): the driver did not join an NCCL group of one")
+        with open(os.path.join(ck, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = [r for r in records if "train/launches/sync_ce_fwd" in r]
+    per_step = {"sync_ce_fwd": 1, "sync_ce_split_fwd": 0, "bn_stats_fwd": 20,
+                "bn_stats_bwd": 20}
+    check_launches(steps, per_step, "parallel (a)")
+    # the train losses lag one record: step 1's is in step 2's record
+    got = [r["train/loss"] for r in records if "train/loss" in r][:3]
+    cfg = lrw_video_cfg()
+    dev = torch.device("cuda")
+    model = build_model(cfg, device=dev)
+    eval_t, aug = image.build_eval_transform(cfg.data), image.build_word_aug(cfg.data)
+
+    def batch(i):
+        return {k: torch.from_numpy(v).to(dev) for k, v in word_batch(cfg, seed=i).items()}
+
+    state = create_train_state(cfg, model, eval_t(batch(0)), device=dev)
+    step = build_train_step(aug_fn=aug)
+    want = []
+    for i in range(3):
+        state, m = step(state, batch(i))
+        want.append(float(m["loss"]))
+    del state, model, step
+    torch.cuda.empty_cache()
+    worst = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    log(f"parallel (a): losses {got} against the bare step's {want}: worst {worst:.3e} "
+        f"relative (tol {BF16_TOL['metric']}); step_ms_ema {steps[-1]['train/step_ms_ema']:.2f} "
+        f"ms against {summary['lrw_video']['step_ms']:.2f} ms a bare step (phase 5)")
+    if not (len(got) == 3 and worst <= BF16_TOL["metric"]):
+        raise AssertionError("parallel (a): the driver's losses are not the bare step's")
+    return {"seconds": dt, "losses": got, "bare_losses": want, "worst_rel": worst,
+            "step_ms_ema": steps[-1]["train/step_ms_ema"],
+            "bare_step_ms": summary["lrw_video"]["step_ms"],
+            "launches_per_step": per_step}
+
+
+def _flat(torch, state):
+    """Every parameter, Adam moment and BatchNorm statistic of a state, as
+    CPU f32 copies by name (whole tensors: gathered under FSDP, a
+    collective)."""
+    from syncvsr_tpu_torch.utils import checkpoint as ckpt
+
+    whole = ckpt.gather_for_save(state)
+    out = {}
+    for what, ts in (("param", whole.params), ("mu", whole.mu), ("nu", whole.nu)):
+        out.update((f"{what}:{n}", t.detach().float().cpu().clone())
+                   for n, t in zip(whole.names, ts))
+    out.update((f"stat:{n}", b.detach().float().cpu().clone())
+               for n, b in state.model.named_buffers())
+    return out
+
+
+def _steps(torch, state, step, batch, n):
+    """``n`` train steps, the kernels' counts set to 0 just before and read
+    just after; (metrics of each, launches a step, ms a step after the
+    first)."""
+    def sync():
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+
+    reset_counts()
+    metrics = []
+    for i in range(n):
+        if i == 1:
+            sync()
+            t0 = time.perf_counter()
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3 / (n - 1)
+    counts = read_counts()
+    return metrics, {k: v / n for k, v in counts.items()}, ms
+
+
+def _compare_flat(got, want, tol, lr_sum=0.0):
+    """(worst excess over the tolerance, its leaf) of two ``_flat`` dicts'
+    parameters and BatchNorm statistics: f32 ``tol`` (rtol, atol)
+    elementwise, or bf16 each parameter within twice ``lr_sum`` plus
+    ``param_scale`` of its leaf's largest; <= 0 passes."""
+    worst, where = -math.inf, None
+    for k, w in want.items():
+        if not (k.startswith("param:") or ("param_rtol" in tol and k.startswith("stat:"))):
+            continue
+        g = got[k]
+        if "param_rtol" in tol:
+            allowed = tol["param_atol"] + tol["param_rtol"] * w.abs()
+        else:
+            allowed = 2 * lr_sum + tol["param_scale"] * float(w.abs().max()) + 1e-12
+        excess = float(((g - w).abs() - allowed).max())
+        if excess > worst:
+            worst, where = excess, k
+    return worst, where
+
+
+def _metrics_close(got, want, keys, rtol, norm_rtol=None):
+    bad = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in keys:
+            tol = norm_rtol if (k == "grad_norm" and norm_rtol) else rtol
+            if not abs(g[k] - w[k]) <= tol * abs(w[k]) + 1e-7:
+                bad.append((i + 1, k, g[k], w[k]))
+    return bad
+
+
+def parallel_worker(rank, world, port, out_path, ckpt_path, device="cuda"):
+    """One of the two processes of (b) and (c), both on cuda:0 in a gloo
+    group (NCCL takes one rank a device); rank 0 also runs the world-1
+    references (no group) on the global batches. Writes its results to
+    ``out_path.<rank>``. (``device="cpu"`` rehearses it without a card.)"""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from syncvsr_tpu_torch.data.synthetic import sentence_batch
+    from syncvsr_tpu_torch.engine import build_train_step, create_train_state
+    from syncvsr_tpu_torch.models import build_model
+    from syncvsr_tpu_torch.ops import image
+    from syncvsr_tpu_torch.parallel import create_mesh, resident_bytes, shard_batch, shard_state
+    from syncvsr_tpu_torch.parallel.mesh import seed_dropout
+    from syncvsr_tpu_torch.utils import checkpoint as ckpt
+    from syncvsr_tpu_torch.utils import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        kernels.library()                       # built by the parent
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    mesh = create_mesh(device=dev)
+    res, mark = {"seconds": {}}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        res["seconds"][name] = round(now - mark[0], 1)
+        mark[0] = now
+
+    def on_dev(b):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in b.items()}
+
+    def make(cfg, batch, meshed, fsdp=False):
+        model = build_model(cfg, device=dev)
+        state = create_train_state(cfg, model, batch, device=dev)
+        if meshed:
+            seed_dropout(state, mesh)
+            if fsdp:
+                state = shard_state(mesh, state, fsdp=True,
+                                    fsdp_min_size=cfg.mesh.fsdp_min_size)
+        return state
+
+    def word_run(cfg, n, name, tol):
+        """world 2 on each rank's rows, then (rank 0) world 1 on the whole."""
+        whole = uint8_clips(np, cfg, seed=0)
+        aug = image.build_word_aug(cfg.data)
+        batch = shard_batch(mesh, whole)
+        state = make(cfg, batch, True)
+        got, launches, ms = _steps(torch, state, build_train_step(aug, mesh), batch, n)
+        flat = _flat(torch, state)
+        del state
+        out = {"metrics": got, "launches_per_step": launches, "step_ms_two_ranks_one_card": ms}
+        if rank == 0:
+            state = make(cfg, on_dev(whole), False)
+            want, _, ms1 = _steps(torch, state, build_train_step(aug), on_dev(whole), n)
+            ref = _flat(torch, state)
+            del state
+            lr_sum = sum(m["learning_rate"] for m in want)
+            keys = ("loss", "loss_word", "loss_audio", "acc1", "grad_norm")
+            if "param_rtol" in tol:
+                bad = _metrics_close(got, want, keys, tol["metric"])
+            else:   # bf16: the first step (same params) at the stated tolerance
+                bad = _metrics_close(got[:1], want[:1], keys, tol["metric"], tol["grad_norm"])
+            excess, leaf = _compare_flat(flat, ref, tol, lr_sum)
+            out.update(world1_metrics=want, world1_step_ms=ms1, bad_metrics=bad,
+                       param_excess=excess, param_worst_leaf=leaf)
+        torch.cuda.empty_cache()
+        dist.barrier()
+        res[name] = out
+
+    # (b) lrw_video at full width, dropout 0, augmentation and CutMix on
+    no_dropout = {"model.encoder.emb_dropout": 0.0, "model.encoder.msa_dropout": 0.0,
+                  "model.encoder.mlp_dropout": 0.0, "model.encoder.droppath": 0.0}
+    full = lrw_video_cfg()
+    word_run(full.override(**no_dropout), 2, "lrw_video_bf16", BF16_TOL)
+    lap("lrw_video_bf16")
+    # the same at f32, 2 layers 64 wide, 3 steps
+    small = full.override(**no_dropout, **{
+        "model.encoder.layers": 2, "model.encoder.dim": 64, "model.encoder.heads": 2,
+        "model.frontend.resnet_width": 16, "model.dtype": "float32", "data.batch_size": 8})
+    # deterministic cuDNN: the C_in = 1 stem's f32 weight gradient otherwise
+    # sums in another order from run to run, past test_spmd's atol
+    torch.backends.cudnn.deterministic = True
+    word_run(small, 3, "lrw_video_f32", F32_TOL)
+    torch.backends.cudnn.deterministic = False
+    lap("lrw_video_f32")
+    # the preset's dropout: each rank its own masks, the state bitwise alike
+    whole = uint8_clips(np, full, seed=1)
+    batch = shard_batch(mesh, whole)
+    state = make(full, batch, True)
+    probe = state.dropout_gen.get_state()
+    draw = torch.rand(4, generator=state.dropout_gen, device=dev)
+    state.dropout_gen.set_state(probe)
+    _steps(torch, state, build_train_step(image.build_word_aug(full.data), mesh), batch, 3)
+    mine = torch.cat([t.reshape(-1) for t in _flat(torch, state).values()] + [draw.cpu()])
+    both = torch.empty(world * mine.numel(), dtype=mine.dtype)
+    dist.all_gather_into_tensor(both, mine)
+    both = both.view(world, -1)
+    res["lrw_video_dropout"] = {
+        "state_bitwise_equal": bool(torch.equal(both[0, :-4], both[1, :-4])),
+        "dropout_draws_differ": not torch.equal(both[0, -4:], both[1, -4:]),
+        "elements": int(mine.numel() - 4)}
+    del state, batch, mine, both
+    torch.cuda.empty_cache()
+    lap("lrw_video_dropout")
+
+    # (c) lrs3 at full width, FSDP against data parallel, 2 steps each
+    cfg = lrs3_cfg().override(**{"model.encoder.mlp_dropout": 0.0,
+                                 "model.encoder.msa_dropout": 0.0,
+                                 "model.decoder.dropout": 0.0})
+    whole = uint8_sentences(np, cfg, LRS3_FRAMES, LRS3_LABEL_LEN, LRS3_SOURCE, seed=0)
+    batch = shard_batch(mesh, whole)
+    aug = image.build_sentence_aug(cfg.data)
+    runs = {}
+    for kind in ("fsdp", "dp"):
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        state = make(cfg, batch, True, fsdp=kind == "fsdp")
+        before = resident_bytes(state)
+        got, launches, ms = _steps(torch, state, build_train_step(aug, mesh), batch, 2)
+        runs[kind] = {"metrics": got, "launches_per_step": launches,
+                      "step_ms_two_ranks_one_card": ms, "resident_bytes": before,
+                      "peak_bytes": (torch.cuda.max_memory_allocated()
+                                     if dev.type == "cuda" else None)}
+        if kind == "fsdp":
+            layout = state.fsdp          # the split leaves' whole shapes
+            runs[kind]["eligible_bytes"] = 4 * sum(
+                int(np.prod(layout.full_shapes[i])) for i in layout.split)
+            gathered = ckpt.gather_for_save(state)
+            if rank == 0:
+                ckpt.save_train_state(ckpt_path, gathered, state.step)
+            del gathered
+        runs[kind]["flat"] = _flat(torch, state)
+        del state
+        torch.cuda.empty_cache()
+        lap(f"lrs3_{kind}")
+    if rank == 0:
+        keys = ("loss", "loss_ctc", "loss_att", "loss_audio", "grad_norm")
+        runs["bad_metrics"] = _metrics_close(runs["fsdp"]["metrics"], runs["dp"]["metrics"],
+                                             keys, F32_TOL["metric"])
+        excess, leaf = _compare_flat(runs["fsdp"]["flat"], runs["dp"]["flat"], F32_TOL)
+        runs.update(param_excess=excess, param_worst_leaf=leaf)
+        # the FSDP checkpoint at one process: every leaf equal
+        model = build_model(cfg, device=dev)
+        state = create_train_state(cfg, model, on_dev(whole), device=dev)
+        ckpt.restore_train_state(ckpt.latest_checkpoint(ckpt_path), state)
+        loaded = _flat(torch, state)
+        saved = runs["fsdp"]["flat"]
+        runs["checkpoint_leaves"] = len(saved)
+        runs["checkpoint_unequal"] = [k for k, v in saved.items() if not torch.equal(v, loaded[k])]
+        del state, model
+        lap("lrs3_checkpoint_load")
+    for kind in ("fsdp", "dp"):
+        del runs[kind]["flat"]
+    res["lrs3_fsdp"] = runs
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(f"{out_path}.{rank}", "w") as f:
+        json.dump(res, f)
+
+
+def parallel_phase(torch, np, summary):
+    """The ``parallel`` phase: (a) the train driver in an NCCL group of one
+    (``parallel_world1``); (b) and (c) in two processes that share the card
+    (gloo over CUDA tensors): ``lrw_video`` at full width on a global batch
+    of 96 (48 clips a rank) against world 1 (bf16), the same at f32 on a
+    2-layer 64-wide model against world 1 (f32 tolerances), 3 steps with
+    the preset's dropout (the ranks' states bitwise equal, their dropout
+    draws not); ``lrs3`` at full width on 8 x 160 frames (4 a rank) with
+    FSDP against data parallel: metrics and parameters, each rank's
+    resident bytes, and FSDP's checkpoint at one process. Two ranks on one
+    card check correctness and per-rank memory; their step times are not
+    scaling. Returns the phase's summary."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    out = {"a_nccl_world1": parallel_world1(torch, np, summary)}
+    tmp = tempfile.mkdtemp(prefix="syncvsr_parallel_")
+    try:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        res_path, ck = os.path.join(tmp, "res"), os.path.join(tmp, "ck")
+        t0 = time.perf_counter()
+        ctx = mp.spawn(parallel_worker, args=(2, port, res_path, ck), nprocs=2, join=False)
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > PARALLEL_TIMEOUT:
+                    raise AssertionError(f"parallel: the two processes ran past "
+                                         f"{PARALLEL_TIMEOUT} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        out["bc_seconds"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(f"{res_path}.{r}") as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out.update(check_parallel(*ranks))
+    return out
+
+
+def check_parallel(r0, r1):
+    """The checks of (b) and (c) on the two ranks' results; the summary
+    of both, with the launches of their counted steps."""
+    out = {}
+    word_steps = {"sync_ce_fwd": 1, "sync_ce_split_fwd": 0, "bn_stats_fwd": 20,
+                  "bn_stats_bwd": 20}
+    # the small f32 model's trunk (width 16 after the stem's 64 channels)
+    # has a downsample BatchNorm in layer1 too: 21
+    small_steps = dict(word_steps, bn_stats_fwd=21, bn_stats_bwd=21)
+    for name, want_steps in (("lrw_video_bf16", word_steps), ("lrw_video_f32", small_steps)):
+        got = r0[name]
+        log(f"parallel (b) {name}: two ranks {got['metrics']} against world 1 "
+            f"{got['world1_metrics']}; worst parameter excess over the tolerance "
+            f"{got['param_excess']:.3e} ({got['param_worst_leaf']}); launches a step "
+            f"{got['launches_per_step']}; {got['step_ms_two_ranks_one_card']:.2f} ms a step "
+            f"(two ranks sharing one card, gloo: correctness, not scaling), world 1 "
+            f"{got['world1_step_ms']:.2f} ms")
+        if got["bad_metrics"] or got["param_excess"] > 0:
+            raise AssertionError(f"parallel (b) {name}: world 2 is not world 1: "
+                                 f"{got['bad_metrics']}, {got['param_worst_leaf']}")
+        for r in (r0, r1):
+            if r[name]["launches_per_step"] != {k: float(v) for k, v in want_steps.items()}:
+                raise AssertionError(f"parallel (b) {name}: launches a step "
+                                     f"{r[name]['launches_per_step']}")
+        if r0[name]["metrics"] != r1[name]["metrics"]:
+            raise AssertionError(f"parallel (b) {name}: the ranks' metrics differ")
+    drop = r0["lrw_video_dropout"]
+    log(f"parallel (b) dropout: {drop}")
+    if not (drop["state_bitwise_equal"] and drop["dropout_draws_differ"]):
+        raise AssertionError(f"parallel (b): under dropout {drop}")
+    c = r0["lrs3_fsdp"]
+    sent_steps = {"sync_ce_fwd": 0.0, "sync_ce_split_fwd": 1.0, "bn_stats_fwd": 32.0,
+                  "bn_stats_bwd": 32.0}
+    for r in (r0, r1):
+        for kind in ("fsdp", "dp"):
+            if r["lrs3_fsdp"][kind]["launches_per_step"] != sent_steps:
+                raise AssertionError(f"parallel (c) {kind}: launches a step "
+                                     f"{r['lrs3_fsdp'][kind]['launches_per_step']}")
+    fs, dp = c["fsdp"], c["dp"]
+    held = {k: fs["resident_bytes"][k] / dp["resident_bytes"][k] for k in dp["resident_bytes"]}
+    saved = dp["resident_bytes"]["params"] - fs["resident_bytes"]["params"]
+    log(f"parallel (c) lrs3 FSDP: resident bytes a rank {fs['resident_bytes']} against data "
+        f"parallel's {dp['resident_bytes']} (x{held['params']:.3f} params, "
+        f"x{held['moments']:.3f} moments); the split leaves hold {fs['eligible_bytes']} bytes, "
+        f"of which a rank keeps {fs['eligible_bytes'] - saved}; metrics {fs['metrics']} "
+        f"against {dp['metrics']}; worst parameter excess {c['param_excess']:.3e} "
+        f"({c['param_worst_leaf']}); checkpoint {c['checkpoint_leaves']} leaves, unequal "
+        f"{c['checkpoint_unequal']}; peak device memory a rank {fs['peak_bytes']} FSDP, "
+        f"{dp['peak_bytes']} data parallel; {fs['step_ms_two_ranks_one_card']:.2f} ms a step FSDP, "
+        f"{dp['step_ms_two_ranks_one_card']:.2f} data parallel (two ranks sharing one card, "
+        f"gloo: correctness, not scaling)")
+    if c["bad_metrics"] or c["param_excess"] > 0:
+        raise AssertionError(f"parallel (c): FSDP is not data parallel: {c['bad_metrics']}")
+    moments = dp["resident_bytes"]["moments"] - fs["resident_bytes"]["moments"]
+    if not (saved * 2 == fs["eligible_bytes"] and moments == fs["eligible_bytes"]):
+        raise AssertionError("parallel (c): a rank does not hold half of the split leaves "
+                             "and of their moments")
+    if c["checkpoint_unequal"] or not c["checkpoint_leaves"]:
+        raise AssertionError("parallel (c): the FSDP checkpoint does not load whole")
+    log(f"parallel (b), (c): seconds {r0['seconds']}")
+    out.update(b=r0, c_rank1_resident=r1["lrs3_fsdp"]["fsdp"]["resident_bytes"])
+    # the kernels' launches in the two processes' counted steps
+    runs = {"lrw_video_dp2": (("lrw_video_bf16", 2), ("lrw_video_f32", 3)),
+            "lrs3_fsdp2": (("fsdp", 2), ("dp", 2))}
+    out["per_step"] = {"lrw_video_dp2": r0["lrw_video_bf16"]["launches_per_step"],
+                       "lrs3_fsdp2": c["fsdp"]["launches_per_step"]}
+    out["launches"] = {k: 0 for k in word_steps}
+    for r in (r0, r1):
+        for path, parts in runs.items():
+            for name, n in parts:
+                got = r[name] if path == "lrw_video_dp2" else r["lrs3_fsdp"][name]
+                for k, v in got["launches_per_step"].items():
+                    out["launches"][k] += int(round(v * n))
+    return out
+
+
 def main():
     import argparse
     import atexit
@@ -2462,10 +2937,18 @@ def main():
     log(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; {card}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    t0 = time.perf_counter()
+    # each phase's seconds, for the time limit
+    seconds, mark = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        seconds[name] = round(now - mark[0], 1)
+        mark[0] = now
+
     lib, build_log = kernels.build(force=True)
-    log(f"build: {lib} in {time.perf_counter() - t0:.1f} s\n{build_log}")
+    log(f"build: {lib} in {time.perf_counter() - mark[0]:.1f} s\n{build_log}")
     kernels.library()
+    lap("build")
 
     # the fairseq checkpoints of the in-step codec, removed at exit
     codec_dir = tempfile.mkdtemp(prefix="syncvsr_codec_")
@@ -2484,9 +2967,11 @@ def main():
     for e, kind in zip(bn_entries, ("fwd", "bwd")):
         e["past_int32"] = {"n": past["n"], "c": past["c"], **past[kind]}
     entries += bn_entries
+    lap("kernels")
     for path in PATH_KERNELS:
         check_reference(torch, np, path)
     decode_ref = check_decode_reference(torch, np)
+    lap("references")
     torch.backends.cudnn.benchmark = True     # the warm-up steps absorb the autotuning
     summary, per_step, windows = {}, {}, []
     launches = {k: 0 for k in counters()}
@@ -2497,15 +2982,25 @@ def main():
         per_step[path] = summary[path]["launches_per_step"]
         if window:
             windows.append(window)
+    lap("train")
     summary["decode"], decode_window = decode_full_width(torch, np, card, args.profile)
     summary["decode"]["reference"] = decode_ref
     per_step["decode"] = {k: 0 for k in counters()}
+    lap("decode")
     torch.cuda.empty_cache()      # room for the CLI processes on the card
     summary["cli"] = cli_phase(summary)
+    lap("cli")
+    summary["parallel"] = parallel_phase(torch, np, summary)
+    lap("parallel")
+    launches = {k: launches[k] + summary["parallel"]["launches"][k] for k in launches}
+    per_step.update(summary["parallel"]["per_step"])
     # the kernels' windows first: after the steps' windows, torch.profiler
     # traced no kernel of theirs (run on an H100, PyTorch 2.11)
     for job in later + windows + [decode_window]:
         job()
+    lap("profiler windows")
+    summary["phase_seconds"] = seconds
+    log(f"phase seconds: {seconds}")
     log(f"K4 at the Conformer's BatchNorm shape: {retime_k4():.5f} ms a call after the "
         f"profiler windows, {entries[-1]['paths']['lrs3']['shapes'][-1]['ms']:.5f} before them")
     for e in entries:
@@ -2518,6 +3013,7 @@ def main():
                                       if "launches_per_step" in c}
     log(f"decode: {json.dumps(summary['decode'])}")
     log(f"cli: {json.dumps(summary['cli'])}")
+    log(f"parallel: {json.dumps(summary['parallel'])}")
     log(f"summary: {json.dumps(summary)} on {card}")
     log(json.dumps({"kernels": entries}))
     log(card)

@@ -255,7 +255,7 @@ class TrainConfig:
     donate: bool = True
     profile_steps: str = ""     # "start:stop" step range to profile with torch.profiler
     profile_dir: str = "trace"  # where the trace is written
-    distributed: bool = False   # multi-process training (the port raises: not ported yet)
+    distributed: bool = False   # join the process group (implied under torchrun)
     tabulate: bool = False      # print the model's module tree at init
     # XLA scoped-VMEM ceiling (KiB) read by the JAX package only; kept so
     # both packages serialize the same config tree

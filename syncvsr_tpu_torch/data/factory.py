@@ -38,12 +38,20 @@ from syncvsr_tpu_torch.data.lrw import (
 
 
 class SyntheticLoader:
-    """Deterministic random batches — smoke tests and benchmarking."""
+    """Deterministic random batches — smoke tests and benchmarking. Each of
+    ``process_count`` processes yields its strided rows i, i + n, ... of
+    every ``data.batch_size`` batch, as the file loaders split the global
+    batch (the JAX package's gives every process the whole batch)."""
 
-    def __init__(self, config: Config, train: bool, n_batches: int = 16):
+    def __init__(self, config: Config, train: bool, n_batches: int = 16,
+                 process_index: int = 0, process_count: int = 1):
         self.config = config
         self.n = n_batches
         self.train = train
+        self.pi, self.pc = process_index, process_count
+        if config.data.batch_size % process_count:
+            raise ValueError(f"batch size {config.data.batch_size} does not divide over "
+                             f"{process_count} processes")
 
     def __len__(self):
         return self.n
@@ -52,11 +60,14 @@ class SyntheticLoader:
         for i in range(self.n):
             seed = i if self.train else 10_000 + i
             if self.config.model.task == "word":
-                yield synthetic.word_batch(self.config, seed=seed)
+                batch = synthetic.word_batch(self.config, seed=seed)
             else:
-                yield synthetic.sentence_batch(
+                batch = synthetic.sentence_batch(
                     self.config, num_frames=min(32, self.config.data.max_frames),
                     seed=seed)
+            if self.pc > 1:
+                batch = {k: v[self.pi::self.pc] for k, v in batch.items()}
+            yield batch
 
 
 def build_loaders(config: Config, eval_split: str = "", process_index: int = 0,
@@ -70,7 +81,8 @@ def build_loaders(config: Config, eval_split: str = "", process_index: int = 0,
     name = config.data.dataset
     procs = (process_index, process_count)
     if name == "synthetic":
-        return SyntheticLoader(config, True), SyntheticLoader(config, False, 4)
+        return (SyntheticLoader(config, True, 16, *procs),
+                SyntheticLoader(config, False, 4, *procs))
     if name in ("lrw", "lrw1000"):
         return _lrw_video_loaders(config, split, *procs)
     if name == "lrw_landmark":

@@ -36,6 +36,7 @@ import torch
 from torch import nn
 
 from syncvsr_tpu_torch.config import Config, OptimConfig
+from syncvsr_tpu_torch.parallel.mesh import all_reduce_flat
 from syncvsr_tpu_torch.utils.bridge import flax_leaf
 from syncvsr_tpu_torch.utils.device import resolve_device
 
@@ -86,7 +87,10 @@ class TrainState:
     states: ``acc`` (the running mean of the mini-steps' gradients, None
     without accumulation), ``mini_step`` and ``gradient_step``
     (``MultiStepsState``), ``notfinite_count``, ``last_finite`` and
-    ``total_notfinite`` (``ApplyIfFiniteState``)."""
+    ``total_notfinite`` (``ApplyIfFiniteState``). ``fsdp``: the
+    ``parallel.mesh.ShardedParams`` of a state split over a mesh
+    (``parallel.shard_state``), whose split parameters, moments and
+    accumulated gradient hold this rank's shard; None when it is whole."""
 
     model: nn.Module
     optim: OptimConfig
@@ -108,6 +112,7 @@ class TrainState:
     notfinite_count: int = 0
     last_finite: bool = True
     total_notfinite: int = 0
+    fsdp: Optional[Any] = None
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -116,9 +121,28 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.stack(norms).square().sum().sqrt()
 
 
-def all_finite(tensors: List[torch.Tensor]) -> bool:
-    """Whether every element is finite (one host read)."""
-    return bool(torch.stack([torch.isfinite(t).all() for t in tensors]).all())
+def grad_norm(state: TrainState, grads: List[torch.Tensor]) -> torch.Tensor:
+    """The global norm of a gradient laid out as the state's parameters:
+    ``global_norm``, or under FSDP the split leaves' sum of squares summed
+    over the mesh (one all-reduce) plus the replicated leaves' once."""
+    layout = state.fsdp
+    if layout is None:
+        return global_norm(grads)
+    sq = [torch.stack([g.float().square().sum() for i, g in enumerate(grads)
+                       if layout.sharded(i) == split] or [grads[0].new_zeros(())])
+          .sum() for split in (True, False)]
+    (total,) = all_reduce_flat([sq[0]], layout.mesh)
+    return (total + sq[1]).sqrt()
+
+
+def all_finite(tensors: List[torch.Tensor], state: Optional[TrainState] = None) -> bool:
+    """Whether every element is finite (one host read); under FSDP, on
+    every rank's shards (one all-reduce), so the ranks decide alike."""
+    ok = torch.stack([torch.isfinite(t).all() for t in tensors]).all()
+    if state is not None and state.fsdp is not None:
+        (bad,) = all_reduce_flat([(~ok).float()], state.fsdp.mesh)
+        return not bool(bad)
+    return bool(ok)
 
 
 @torch.no_grad()
@@ -134,7 +158,7 @@ def _adamw(state: TrainState, grads: List[torch.Tensor], dry: bool = False) -> N
     if dry:
         mu, nu = [t.clone() for t in mu], [t.clone() for t in nu]
     if cfg.clip_norm > 0:
-        norm = global_norm(grads)
+        norm = grad_norm(state, grads)
         scale = cfg.clip_norm / torch.clamp(norm, min=cfg.clip_norm)
         if grads is state.acc:
             grads = torch._foreach_mul(grads, scale)
@@ -192,7 +216,7 @@ def apply_gradients(state: TrainState, grads: List[torch.Tensor]) -> float:
     skip = state.optim.skip_nonfinite
     k = state.optim.accum_steps
     if k <= 1:
-        if not (skip and _skipped(state, all_finite(grads), commit=True)):
+        if not (skip and _skipped(state, all_finite(grads, state), commit=True)):
             _adamw(state, grads)
         return state.lr
     n = state.mini_step
@@ -201,11 +225,12 @@ def apply_gradients(state: TrainState, grads: List[torch.Tensor]) -> float:
     torch._foreach_add_(state.acc, grads)
     state.mini_step = (n + 1) % k
     if n == k - 1:
-        if not (skip and _skipped(state, all_finite(state.acc), commit=True)):
+        if not (skip and _skipped(state, all_finite(state.acc, state), commit=True)):
             _adamw(state, state.acc)
         state.gradient_step += 1
         torch._foreach_mul_(state.acc, 0.0)
-    elif not all_finite(state.acc) and not (skip and _skipped(state, False, commit=False)):
+    elif (not all_finite(state.acc, state)
+          and not (skip and _skipped(state, False, commit=False))):
         _adamw(state, state.acc, dry=True)
     return state.lr
 

@@ -21,45 +21,78 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from syncvsr_tpu_torch.engine.state import TrainState, apply_gradients, global_norm
+from syncvsr_tpu_torch.engine.state import TrainState, apply_gradients, grad_norm
+from syncvsr_tpu_torch.parallel import collectives
+from syncvsr_tpu_torch.parallel.mesh import Mesh, all_reduce_flat
 
 
-def build_train_step(aug_fn: Optional[Callable] = None) -> Callable:
+def build_train_step(aug_fn: Optional[Callable] = None,
+                     mesh: Optional[Mesh] = None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``;
     ``aug_fn(gen, batch) -> batch`` runs first, drawing from the state's
-    mixup generator (``ops.image.build_word_aug``)."""
+    mixup generator (``ops.image.build_word_aug``). ``batch`` holds this
+    process's rows of the global batch of a ``mesh`` of several processes,
+    which the step treats as the JAX package's global ``jit`` treats the
+    batch sharded on ``data``: the forward and backward run with the mesh
+    active (global BatchNorm statistics and loss means, global CutMix and
+    mixup partners; ``parallel/collectives.py``), then the gradients are
+    summed over the mesh (one all-reduce of one flat bucket; under FSDP,
+    ``state.fsdp``, a reduce-scatter of the split leaves after their
+    parameters were gathered for the forward), and every rank applies the
+    same update. The metrics are the global batch's on every rank."""
+    distributed = mesh is not None and mesh.size > 1
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
-        if aug_fn is not None:
-            batch = aug_fn(state.mixup_gen, batch)
-        for p in state.params:
-            p.grad = None
-        out = state.model(**batch, det=False, mixup_gen=state.mixup_gen,
-                          dropout_gen=state.dropout_gen)
-        out["loss"].backward()
+        layout = state.fsdp
+        with collectives.data_parallel(mesh):
+            if layout is not None:
+                layout.gather()
+            if aug_fn is not None:
+                batch = aug_fn(state.mixup_gen, batch)
+            for p in state.params:
+                p.grad = None
+            out = state.model(**batch, det=False, mixup_gen=state.mixup_gen,
+                              dropout_gen=state.dropout_gen)
+            out["loss"].backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in state.params]
-        grad_norm = global_norm(grads)
-        lr = apply_gradients(state, grads)
         for p in state.params:
             p.grad = None
+        if layout is not None:
+            grads = layout.reduce_gradients(grads)
+            layout.release()
+        elif distributed:
+            grads = all_reduce_flat(grads, mesh)
+        norm = grad_norm(state, grads)
+        lr = apply_gradients(state, grads)
         metrics = {k: v.detach() for k, v in out.items()}
         metrics["learning_rate"] = torch.tensor(lr, dtype=torch.float32)
-        metrics["grad_norm"] = grad_norm
+        metrics["grad_norm"] = norm
         return state, metrics
 
     return train_step
 
 
-def build_eval_step() -> Callable:
+def build_eval_step(mesh: Optional[Mesh] = None) -> Callable:
     """Returns ``eval_step(state, batch) -> metrics``: the forward with
-    BatchNorm on its running statistics."""
+    BatchNorm on its running statistics. Over a ``mesh`` of several
+    processes the metrics, and ``_weight`` (the real rows' count), are the
+    global batch's, as the JAX package's step returns them."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, Any]):
-        metrics = state.model(**batch, det=True)
-        if batch.get("sample_weight") is not None:
-            metrics = dict(metrics, _weight=batch["sample_weight"].float().sum())
+        layout = state.fsdp
+        with collectives.data_parallel(mesh):
+            if layout is not None:
+                layout.gather()
+            try:
+                metrics = state.model(**batch, det=True)
+                if batch.get("sample_weight") is not None:
+                    metrics = dict(metrics, _weight=collectives.global_sum(
+                        batch["sample_weight"].float().sum()))
+            finally:
+                if layout is not None:
+                    layout.release()
         return metrics
 
     return eval_step

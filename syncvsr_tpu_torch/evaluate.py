@@ -19,20 +19,31 @@ config/lrs3.yaml:64-71): ``lm_ckpt=`` a flax LM msgpack or an
 espnet-trained torch LM (``.pth``, converted on load by
 ``utils/torch_convert.py::convert_lm``), and ``lm_weight=0.1``.
 
+Under ``torchrun`` (or ``train.distributed=true``) each process reads its
+rows of every eval batch, as the train driver's ranks do: the word-level
+step returns the global batch's metrics on every rank (``_weight`` the
+global real-row count), and the decoders run on each rank's rows, whose
+hypotheses rank 0 gathers in the loader's order, scores and writes. The
+WER, the accuracy and the hypotheses equal one process's. A mesh config
+that does not fit the process group (``mesh.data`` another size) decodes
+unsharded, every rank the whole split, with the JAX driver's message.
+
 Usage (on the GPU):
     python -m syncvsr_tpu_torch.evaluate preset=lrs3 data.root=/data \\
         ckpt=best.msgpack decode=beam beam_size=40 \\
         [lm_ckpt=lm.msgpack lm_weight=0.1] [data.split=val]
+    torchrun --nproc-per-node 8 -m syncvsr_tpu_torch.evaluate preset=lrs3 ...
 """
 
 from __future__ import annotations
 
 import json
 import sys
-from typing import Any, Dict, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from syncvsr_tpu_torch.config import PRESETS, Config, parse_cli_overrides
 from syncvsr_tpu_torch.data.factory import build_loaders
@@ -45,10 +56,11 @@ from syncvsr_tpu_torch.decode.api import (
 )
 from syncvsr_tpu_torch.engine import build_eval_step, create_train_state
 from syncvsr_tpu_torch.models import build_model
-from syncvsr_tpu_torch.train import host_metrics, to_device, transforms
+from syncvsr_tpu_torch.parallel import Mesh, create_mesh
+from syncvsr_tpu_torch.parallel.mesh import world
+from syncvsr_tpu_torch.train import host_metrics, init_distributed, to_device, transforms
 from syncvsr_tpu_torch.utils import checkpoint as ckpt
 from syncvsr_tpu_torch.utils.bridge import load_flax, to_flax
-from syncvsr_tpu_torch.utils.device import resolve_device
 from syncvsr_tpu_torch.utils.metrics import AverageMeter, split_eval_weights
 from syncvsr_tpu_torch.utils.text import WordErrorRate
 
@@ -105,6 +117,35 @@ def _valid_rows(batch: Dict[str, Any]):
     return list(range(batch["videos"].shape[0]))
 
 
+def eval_mesh(config: Config, device: torch.device) -> Mesh:
+    """The mesh of the process group, or, where the mesh config does not
+    fit it (``mesh.data`` another size), this process alone, decoding the
+    whole split unsharded (the JAX driver's ``_eval_mesh``)."""
+    try:
+        return create_mesh(config.mesh.data, config.mesh.model, config.mesh.seq,
+                           device=device)
+    except ValueError as e:
+        print(f"eval: mesh config unusable here ({e}); decoding unsharded",
+              file=sys.stderr)
+        return Mesh(size=1, rank=world()[0], device=device)
+
+
+def gather_records(records: List[Tuple[Tuple[int, int], Dict[str, Any]]], mesh: Mesh
+                   ) -> List[Dict[str, Any]]:
+    """Every rank's (batch, row) keyed records, on rank 0 in the loaders'
+    order: rank r's row i of batch k is row (k, i, r) of the split, which
+    is one process's order (the loaders give rank r the strided rows r, r +
+    W, ...). Other ranks get an empty list."""
+    if mesh.size == 1:
+        return [rec for _, rec in records]
+    gathered = [None] * mesh.size
+    dist.all_gather_object(gathered, records)
+    if mesh.rank:
+        return []
+    keyed = [(key + (r,), rec) for r, recs in enumerate(gathered) for key, rec in recs]
+    return [rec for _, rec in sorted(keyed, key=lambda kr: kr[0])]
+
+
 def _segments(frames):
     """[token, start, end) runs of the non-blank frames of an alignment."""
     segments = []
@@ -151,10 +192,25 @@ def main(argv: Optional[Sequence[str]] = None,
     minlenratio = float(overrides.pop("minlenratio", 0.0))
     config = (PRESETS[preset]() if preset else Config()).override(**overrides)
     split = config.data.split or "test"
-    dev = resolve_device(device)
+    dev, started = init_distributed(config, device)
+    try:
+        return _evaluate(config, split, dev, ckpt_path, decode_mode, beam_size, penalty,
+                         decode_pad, lm_ckpt, lm_weight, lm_kind, lm_shape, maxlenratio,
+                         minlenratio)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
+
+def _evaluate(config: Config, split: str, dev: torch.device, ckpt_path, decode_mode,
+              beam_size, penalty, decode_pad, lm_ckpt, lm_weight, lm_kind, lm_shape,
+              maxlenratio, minlenratio) -> Dict[str, Any]:
+    mesh = eval_mesh(config, dev)
+    lead = mesh.rank == 0
     model = build_model(config, device=dev)
-    _, eval_loader = build_loaders(config, eval_split=split)
+    _, eval_loader = build_loaders(config, eval_split=split,
+                                   process_index=mesh.rank if mesh.size > 1 else 0,
+                                   process_count=mesh.size)
     eval_transform, _ = transforms(config)
     example = eval_transform(to_device(next(iter(eval_loader)), dev))
     state = create_train_state(config, model, example, device=dev)
@@ -164,18 +220,20 @@ def main(argv: Optional[Sequence[str]] = None,
                          payload.get("batch_stats"))
 
     if config.model.task == "word":
-        eval_step = build_eval_step()
+        eval_step = build_eval_step(mesh)
         meter = AverageMeter()
         for batch in eval_loader:
             # exact accuracy over every test clip: the loader repeat-pads the
             # tail batch and marks real rows in sample_weight; the model
             # computes weighted means, the step returns the real count and
-            # the slot denominators for cross-batch aggregation
+            # the slot denominators for cross-batch aggregation, all of the
+            # global batch (the same on every rank)
             m = host_metrics(eval_step(state, eval_transform(to_device(batch, dev))))
             m, w = split_eval_weights(m)
             meter.update(m, weight=w)
         summary = meter.summary(f"{split}/")
-        print(json.dumps(summary))
+        if lead:
+            print(json.dumps(summary))
         return summary
 
     # sentence-level: WER
@@ -183,13 +241,11 @@ def main(argv: Optional[Sequence[str]] = None,
 
     model.eval()
     tt = build_text_transform(config.data.spm_vocab)
-    wer = WordErrorRate()
-    hyp_records = []
+    records = []   # ((batch, row), record) of this rank's rows
 
-    def record(ref, hyp, score=None):
-        wer.update(ref, hyp)
-        hyp_records.append({"ref": ref, "hyp": hyp,
-                            **({"score": score} if score is not None else {})})
+    def record(key, ref, hyp, score=None):
+        records.append((key, {"ref": ref, "hyp": hyp,
+                              **({"score": score} if score is not None else {})}))
 
     lm = None
     if lm_ckpt and lm_weight != 0.0:
@@ -200,19 +256,19 @@ def main(argv: Optional[Sequence[str]] = None,
 
     if decode_mode == "beam":
         decode = make_beam_decoder(model, bs_config, lm=lm)
-        for batch in eval_loader:
+        for k, batch in enumerate(eval_loader):
             batch = eval_transform(to_device(batch, dev))
             for i in _valid_rows(batch):
                 toks, n, score = decode(batch["videos"][i:i + 1], batch["lengths"][i])
                 hyp = tt.post_process(toks[: int(n)].cpu().numpy())
                 ref = tt.post_process(batch["labels"][i].cpu().numpy())
-                record(ref, hyp, float(score))
+                record((k, i), ref, hyp, float(score))
     elif decode_mode == "beam_batched":
         from syncvsr_tpu_torch.data.lrs import bucket_for_length
 
         t_max = bucket_for_length(config.data.max_frames_val, config.data.length_buckets)
         decoders = {}
-        for batch in eval_loader:
+        for k, batch in enumerate(eval_loader):
             batch = eval_transform(to_device(batch, dev))
             v = batch["videos"]
             audio_mode = v.dim() == 2  # waveform [B, S]: 640 samples/frame
@@ -231,36 +287,43 @@ def main(argv: Optional[Sequence[str]] = None,
             for i in _valid_rows(batch):
                 hyp = tt.post_process(toks[i][: int(ns[i])])
                 ref = tt.post_process(batch["labels"][i].cpu().numpy())
-                record(ref, hyp, float(scores[i]))
+                record((k, i), ref, hyp, float(scores[i]))
     elif decode_mode == "align":
         # CTC forced alignment of the ground-truth transcripts (the
         # reference CTC class's forced_align, espnet ctc.py:181-245): per
         # utterance, the frame-level token ids and [token, start, end)
         # segments
         align = make_forced_aligner(model)
-        for batch in eval_loader:
+        for k, batch in enumerate(eval_loader):
             batch = eval_transform(to_device(batch, dev))
             al = align(batch["videos"], batch["lengths"], batch["labels"]).cpu().numpy()
             for i in _valid_rows(batch):
                 frames = al[i][al[i] >= 0]
-                hyp_records.append({
+                records.append(((k, i), {
                     "ref": tt.post_process(batch["labels"][i].cpu().numpy()),
                     "alignment": frames.tolist(),
                     "segments": [[tt.post_process(np.asarray([tok])), a, b]
-                                 for tok, a, b in _segments(frames.tolist())]})
+                                 for tok, a, b in _segments(frames.tolist())]}))
     elif decode_mode == "greedy":
         decode = make_greedy_ctc_decoder(model)
-        for batch in eval_loader:
+        for k, batch in enumerate(eval_loader):
             batch = eval_transform(to_device(batch, dev))
             toks, lens = decode(batch["videos"], batch["lengths"])
             toks, lens = toks.cpu().numpy(), lens.cpu().numpy()
             for i in _valid_rows(batch):
                 hyp = tt.post_process(toks[i][: int(lens[i])])
                 ref = tt.post_process(batch["labels"][i].cpu().numpy())
-                record(ref, hyp)
+                record((k, i), ref, hyp)
     else:
         raise ValueError(f"decode={decode_mode!r}: expected beam, beam_batched, greedy "
                          "or align")
+    hyp_records = gather_records(records, mesh)
+    if not lead:
+        return {}
+    wer = WordErrorRate()
+    if decode_mode != "align":
+        for r in hyp_records:
+            wer.update(r["ref"], r["hyp"])
     # per-utterance hypothesis dump (asr_utils.add_results_to_json role)
     with open("hypotheses.jsonl", "w") as f:
         for r in hyp_records:

@@ -38,6 +38,7 @@ from syncvsr_tpu_torch.ops.masking import (
     label_smoothing_kl,
     length_mask,
 )
+from syncvsr_tpu_torch.parallel import collectives
 
 Tensor = torch.Tensor
 
@@ -127,8 +128,8 @@ class SentenceVSRModel(nn.Module):
             valid_out = ys_out != -1
             if sample_weight is not None:
                 valid_out = valid_out & (sample_weight[:, None] > 0)
-            out["_tokens"] = valid_out.sum().float()
-            out["_slots"] = (masked_tokens >= 0).sum().float()
+            out["_tokens"] = collectives.global_sum(valid_out.sum().float())
+            out["_slots"] = collectives.global_sum((masked_tokens >= 0).sum().float())
         return out
 
     # ---- decoding hooks (used by syncvsr_tpu_torch.decode) ------------------

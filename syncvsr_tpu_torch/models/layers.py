@@ -21,6 +21,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from syncvsr_tpu_torch.parallel import collectives
+
 Tensor = torch.Tensor
 
 # set while a ``remat`` region is recomputed, in the thread that runs the
@@ -164,8 +166,10 @@ class FlaxBatchNorm(nn.Module):
     package runs them without a kernel). Train mode: f32 statistics over
     every other axis with flax's fast variance, E[x^2] - E[x]^2 clipped at
     0 (biased), and the running update ``ra = 0.9 ra + 0.1 batch`` in
-    place; eval mode: the running statistics. ``y = (x - mean) * (rsqrt(var
-    + eps) * scale) + bias`` in f32, emitted in ``dtype``. Parameters
+    place; in a data-parallel step the sums are the global batch's (an
+    all-reduce whose backward sums the cotangent too); eval mode: the
+    running statistics. ``y = (x - mean) * (rsqrt(var + eps) * scale) +
+    bias`` in f32, emitted in ``dtype``. Parameters
     ``weight`` (flax ``scale``) and ``bias``, buffers ``running_mean`` and
     ``running_var`` (flax ``batch_stats`` ``mean`` and ``var``)."""
 
@@ -181,8 +185,16 @@ class FlaxBatchNorm(nn.Module):
         x32 = x.float()
         if train:
             axes = tuple(range(x.dim() - 1))
-            mean = x32.mean(axes)
-            var = torch.clamp((x32 * x32).mean(axes) - mean * mean, min=0.0)
+            if collectives.active() is None:
+                mean = x32.mean(axes)
+                var = torch.clamp((x32 * x32).mean(axes) - mean * mean, min=0.0)
+            else:   # the global batch's sums (the batch splits evenly)
+                c = x.shape[-1]
+                n = x32.numel() // c * collectives.shard()[1]
+                sums = collectives.all_reduce_grad(
+                    torch.cat((x32.sum(axes), (x32 * x32).sum(axes))))
+                mean = sums[:c] / n
+                var = torch.clamp(sums[c:] / n - mean * mean, min=0.0)
             if not recomputing():
                 with torch.no_grad():
                     m = BN_MOMENTUM

@@ -41,6 +41,7 @@ from syncvsr_tpu_torch.ops.cutmix import (
 )
 from syncvsr_tpu_torch.ops.masking import weighted_mean
 from syncvsr_tpu_torch.ops.sync_loss import sync_cross_entropy
+from syncvsr_tpu_torch.parallel import collectives
 
 Tensor = torch.Tensor
 
@@ -197,7 +198,7 @@ class WordVSRModel(nn.Module):
                "acc1": acc1, "acc5": acc5}
         if det:
             # loss_audio is a sync-slot mean: eval aggregation needs its denominator
-            out["_slots"] = (audio_tokens >= 0).sum().float()
+            out["_slots"] = collectives.global_sum((audio_tokens >= 0).sum().float())
         return out
 
     def _tcn_forward(self, inputs, onehot, audio_tokens, word_mask, attention_mask,
@@ -229,9 +230,10 @@ class WordVSRModel(nn.Module):
 
         sync = self.audio_classifier
         if mixing:
-            loss_word = (1.0 - lam) * ce(onehot) + lam * ce(torch.roll(onehot, 1, 0))
+            roll = collectives.global_roll
+            loss_word = (1.0 - lam) * ce(onehot) + lam * ce(roll(onehot))
             loss_audio = ((1.0 - lam) * sync(feats, audio_tokens)
-                          + lam * sync(feats, torch.roll(audio_tokens, 1, 0)))
+                          + lam * sync(feats, roll(audio_tokens)))
         else:
             loss_word = ce(onehot)
             loss_audio = sync(feats, audio_tokens)

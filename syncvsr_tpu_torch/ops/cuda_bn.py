@@ -13,6 +13,11 @@ Port of ``syncvsr_tpu/ops/pallas_bn.py`` (default math only):
   (sum g, sum g * xhat) from kernel K4 (``bn_stats_bwd``, replacing
   ``_bwd_kernel``; one launch); the dx elementwise pass stays in
   PyTorch, as it stays in XLA in the JAX package;
+* in a data-parallel step (``parallel/collectives.py``) the forward's
+  sums are all-reduced between K3 and the division, and the
+  backward's between K4 and dx, so the statistics, dx and the running
+  statistics are the global batch's on every rank; the scale's and bias's
+  gradients stay this rank's terms, which the step sums;
 * running stats ``ra = 0.9 * ra + 0.1 * batch`` with the biased variance
   (flax's convention; ``nn.BatchNorm``'s momentum and unbiased running
   variance differ, so it is not used), once a step: not again in a
@@ -35,6 +40,7 @@ import torch
 from torch import nn
 
 from syncvsr_tpu_torch.models.layers import recomputing
+from syncvsr_tpu_torch.parallel import collectives
 from syncvsr_tpu_torch.utils import kernels
 
 Tensor = torch.Tensor
@@ -248,6 +254,12 @@ class _BatchNormTrain(torch.autograd.Function):
         x2d = x.view(-1, c)
         m = x2d.shape[0]
         s, s2 = bn_stats(x2d)
+        if collectives.active() is not None:
+            # the global batch's sums, between K3 and the division (the batch
+            # splits evenly over the mesh)
+            s, s2 = collectives.reduce_sums(s, s2)
+            m *= collectives.shard()[1]
+        ctx.rows = m
         mean = s / m
         var = torch.clamp(s2 / m - mean * mean, min=0.0)
         inv = torch.rsqrt(var + eps)
@@ -268,9 +280,13 @@ class _BatchNormTrain(torch.autograd.Function):
         gy = gy.contiguous()
         n = x.numel() // c
         s1, s2 = bn_bwd_stats(gy.view(n, c), x.view(n, c), mean, inv)
+        # the scale's and bias's gradients are this rank's terms (the step
+        # sums them over the mesh); dx needs the global batch's sums
+        g1, g2 = collectives.reduce_sums(s1, s2)
+        n = ctx.rows
         k = (inv * scale).to(dtype)
-        c1 = (inv * scale * s1 / n).to(dtype)
-        c2 = (inv * inv * scale * s2 / n).to(dtype)
+        c1 = (inv * scale * g1 / n).to(dtype)
+        c2 = (inv * inv * scale * g2 / n).to(dtype)
         xc = x.to(dtype) - mean.to(dtype)
         dx = gy.to(dtype) * k - (c1 + xc * c2)
         return dx, s2, s1, None, None

@@ -28,7 +28,8 @@ per-device result arena (``utils/kernels``): no allocation a call.
 (``_pallas_forward``): K2 when the padded bf16 weight exceeds 4 MiB. The
 backward is the chunked recompute of ``ops/sync_loss.py`` in plain
 PyTorch, as the JAX package runs ``_chunked_bwd`` in XLA, over the original
-f32 features.
+f32 features. In a data-parallel step the kernels run on this rank's rows
+and their (sum, count) is all-reduced before the division.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from syncvsr_tpu_torch.ops.sync_loss import (
     make_chunk_residuals,
     regroup_tokens,
 )
+from syncvsr_tpu_torch.parallel import collectives
 from syncvsr_tpu_torch.utils import kernels
 
 Tensor = torch.Tensor
@@ -237,6 +239,11 @@ class _FusedSyncCE(torch.autograd.Function):
         ce_sum, count = sync_ce_partials(features.reshape(b * t, d), kernel, bias,
                                          tok.reshape(b * t, slots))
         feats, tok_p, cnt = make_chunk_residuals(features, tokens, alignment, groups, chunk)
+        if collectives.active() is not None:
+            # K1/K2's (ce_sum, count) summed over the global batch before the
+            # division; the backward scales by the global count
+            ce_sum, count = collectives.reduce_sums(ce_sum, count)
+            cnt = torch.clamp(count, min=1.0)
         ctx.save_for_backward(feats, kernel, bias, tok_p, cnt)
         ctx.meta = (t, alignment, groups, vocab, chunk)
         return ce_sum / torch.clamp(count, min=1.0)

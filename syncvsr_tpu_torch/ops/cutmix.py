@@ -12,6 +12,12 @@ copied over.
 Batch mixup (the DC-TCN recipe) lerps every clip toward the batch rolled by
 one with a folded beta weight lambda in [0, 0.5]; the caller lerps the two
 losses (own and rolled targets) by the same lambda.
+
+In a data-parallel step the partner is the global batch's
+(``parallel/collectives.global_flip``/``global_roll``: rank r's flip
+partner lives on rank W-1-r, and its first row's roll partner on rank r-1),
+and the samplers' draws are the same on every rank (one generator, seeded
+alike).
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from syncvsr_tpu_torch.parallel import collectives
 
 Tensor = torch.Tensor
 
@@ -49,9 +57,7 @@ def temporal_cutmix_apply(inputs: Tensor, labels: Tensor, audio_tokens: Tensor,
     lam = keep.float().mean()
     audio_keep = keep.repeat_interleave(audio_tokens.shape[1] // t)
 
-    def flip(x):
-        return torch.flip(x, dims=(0,))
-
+    flip = collectives.global_flip
     kshape = (1, t) + (1,) * (inputs.dim() - 2)
     inputs = torch.where(keep.reshape(kshape), inputs, flip(inputs))
     labels = lam * labels + (1.0 - lam) * flip(labels)
@@ -74,4 +80,4 @@ def batch_mixup_apply(videos: Tensor, lam: Tensor) -> Tensor:
     """videos [B, ...] + lambda (videos rolled by one along the batch -
     videos), in the videos' dtype."""
     lam = lam.to(device=videos.device, dtype=videos.dtype)
-    return videos + lam * (torch.roll(videos, 1, dims=0) - videos)
+    return videos + lam * (collectives.global_roll(videos) - videos)

@@ -9,6 +9,10 @@ coordinates as a mirrored ramp, the clip-mean fill and the normalisation.
 
 Eval: ``to_float`` -> ``center_crop_resize`` -> ``normalize``.
 
+In a data-parallel step (``parallel/collectives.py``) the draws are made
+for the global batch on every rank, from the same-seeded generator, and
+each rank keeps its own rows.
+
 The word-level pipeline (``build_word_aug``, ``build_eval_transform``)
 reads ``inputs``; the sentence-level one (``build_sentence_aug``,
 ``build_sentence_eval_transform``) reads ``videos`` and bounds each clip's
@@ -21,6 +25,8 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from syncvsr_tpu_torch.parallel import collectives
 
 Tensor = torch.Tensor
 
@@ -79,14 +85,20 @@ def sample_train_aug(gen: torch.Generator, b: int, t: int, h: int, w: int,
                      scale: Tuple[float, float] = (0.6, 1.0),
                      ratio: Tuple[float, float] = (3 / 4, 4 / 3),
                      hflip_prob: float = 0.5, time_mask_span: int = 15,
-                     time_mask_n: int = 1, lengths: Optional[Tensor] = None
-                     ) -> Dict[str, Tensor]:
+                     time_mask_n: int = 1, lengths: Optional[Tensor] = None,
+                     shard: Tuple[int, int] = (0, 1)) -> Dict[str, Tensor]:
     """Per-clip crop box (ch, cw, y0, x0), flip [B] bool and time-mask hits
     [B, T] bool, as CPU tensors. A mask's start is drawn below
     ``max(limit - span, 1)``, the limit being each clip's length where
-    ``lengths`` [B] is given, else T."""
+    ``lengths`` [B] is given, else T. With ``shard`` = (rank, world) the
+    values are drawn for a global batch of world * B clips and rank's rows
+    [rank * B, (rank + 1) * B) are kept (``lengths`` are those rows'), so a
+    clip gets the same draws at any world size."""
+    rank, world = shard
+    rows = slice(rank * b, (rank + 1) * b)
+
     def u():
-        return torch.rand((b,), generator=gen, dtype=torch.float32)
+        return torch.rand((world * b,), generator=gen, dtype=torch.float32)[rows]
 
     area = (scale[0] + (scale[1] - scale[0]) * u()) * (h * w)
     lo, hi = math.log(ratio[0]), math.log(ratio[1])
@@ -101,7 +113,7 @@ def sample_train_aug(gen: torch.Generator, b: int, t: int, h: int, w: int,
     limit = (torch.full((b,), t, dtype=torch.float32) if lengths is None
              else lengths.detach().cpu().float())
     for _ in range(time_mask_n):
-        span = torch.randint(0, time_mask_span + 1, (b,), generator=gen)
+        span = torch.randint(0, time_mask_span + 1, (world * b,), generator=gen)[rows]
         start = (u() * torch.clamp(limit - span, min=1.0)).long()
         hit |= (frames >= start[:, None]) & (frames < (start + span)[:, None])
     return {"ch": ch, "cw": cw, "y0": y0, "x0": x0, "flip": flip, "hit": hit}
@@ -138,7 +150,7 @@ def fused_train_aug(gen: torch.Generator, videos: Tensor, out_size: int,
                     dtype: torch.dtype = torch.bfloat16) -> Tensor:
     b, t, h, w, _ = videos.shape
     p = sample_train_aug(gen, b, t, h, w, scale, ratio, hflip_prob, time_mask_span,
-                         time_mask_n, lengths)
+                         time_mask_n, lengths, collectives.shard())
     return fused_train_aug_apply(videos, p, out_size, mean, std, dtype)
 
 

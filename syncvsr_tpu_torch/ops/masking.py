@@ -3,7 +3,9 @@ padding masks, the teacher-forcing io pair, the label-smoothed KL of the
 attention decoder and its token accuracy. Token conventions: sos = eos =
 ``labels - 1``, ignore = -1. The label-smoothed KL takes the logq form, or,
 when the environment sets ``SYNCVSR_LSM_V2`` (as in the JAX package), the
-reassociated form that never materializes the [N, V] log-softmax."""
+reassociated form that never materializes the [N, V] log-softmax. In a
+data-parallel step every mean is the global batch's
+(``parallel/collectives.global_mean``)."""
 
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ import os
 from typing import Optional, Tuple
 
 import torch
+
+from syncvsr_tpu_torch.parallel import collectives
 
 Tensor = torch.Tensor
 
@@ -25,9 +29,11 @@ def weighted_mean(per_sample: Tensor, weight: Optional[Tensor]) -> Tensor:
     """Mean over the batch, or a sample-weighted mean when ``weight`` [B] is
     given (padded tail batches in exact eval)."""
     if weight is None:
-        return per_sample.mean()
+        if collectives.active() is None:
+            return per_sample.mean()
+        return collectives.global_mean(per_sample.sum(), per_sample.numel())
     w = weight.float()
-    return (per_sample * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return collectives.global_mean((per_sample * w).sum(), w.sum(), floor=1.0)
 
 
 def add_sos_eos(labels: Tensor, sos: int, eos: int, ignore_id: int = -1
@@ -84,11 +90,11 @@ def label_smoothing_kl(logits: Tensor, targets: Tensor, vocab: int, smoothing: f
         per_sample = kl.reshape(b, -1).sum(1)
         if normalize_length:
             tokens = (~ignore).reshape(b, -1).sum(1) * w
-            return (per_sample * w).sum() / torch.clamp(tokens.sum(), min=1)
+            return collectives.global_mean((per_sample * w).sum(), tokens.sum(), floor=1)
         return weighted_mean(per_sample, sample_weight)
     if normalize_length:
-        return kl.sum() / torch.clamp((~ignore).sum(), min=1)
-    return kl.sum() / b
+        return collectives.global_mean(kl.sum(), (~ignore).sum(), floor=1)
+    return collectives.global_mean(kl.sum(), b)
 
 
 def decoder_accuracy(logits: Tensor, targets: Tensor, ignore_id: int = -1,
@@ -100,4 +106,4 @@ def decoder_accuracy(logits: Tensor, targets: Tensor, ignore_id: int = -1,
     if sample_weight is not None:
         valid = valid & (sample_weight[:, None] > 0)
     correct = (pred == targets) & valid
-    return correct.sum().float() / torch.clamp(valid.sum(), min=1).float()
+    return collectives.global_mean(correct.sum().float(), valid.sum(), floor=1)

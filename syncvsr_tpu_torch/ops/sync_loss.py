@@ -10,6 +10,10 @@ arrive ``[B, >= T*A, G]``, are truncated to ``T*A`` rows and regrouped to
 ``sync_cross_entropy`` with a ``chunk`` shorter than T runs a time-chunked
 autograd function whose backward recomputes each chunk's softmax, so the
 [B, T, A*G, V] logits are never held for the backward.
+
+In a data-parallel step (``parallel/collectives.py``) the sum and the valid
+count are the global batch's, all-reduced before the division; the
+backward scales by the global count.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from syncvsr_tpu_torch.parallel import collectives
 
 Tensor = torch.Tensor
 
@@ -118,6 +124,9 @@ class _ChunkedSyncCE(torch.autograd.Function):
                                  alignment, groups, vocab)
             s, _ = _masked_ce(logits, tok[:, c0:c0 + chunk])
             total = total + s
+        if collectives.active() is not None:   # the global sum and slot count
+            total, count = collectives.reduce_sums(total, (tok >= 0).sum())
+            count = torch.clamp(count, min=1.0)
         ctx.save_for_backward(feats, kernel, bias, tok, count)
         ctx.meta = (t, alignment, groups, vocab, chunk)
         return total / count.float()
@@ -144,6 +153,6 @@ def sync_cross_entropy(features: Tensor, kernel: Tensor, bias: Tensor, tokens: T
         tok = regroup_tokens(tokens, b, t, alignment, groups)
         logits = sync_logits(features, kernel, bias, alignment, groups, vocab)
         total, count = _masked_ce(logits, tok)
-        return total / torch.clamp(count, min=1).float()
+        return collectives.global_mean(total, count, floor=1)
     return _ChunkedSyncCE.apply(features, kernel, bias, tokens, alignment, groups,
                                 vocab, chunk)

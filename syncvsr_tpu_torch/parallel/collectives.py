@@ -1,0 +1,173 @@
+"""Collectives that give a data-parallel step the JAX package's global-batch
+semantics.
+
+Under the JAX package's one global ``jit`` every reduction in the step runs
+over the whole batch sharded on ``data``. Here each process holds its rows
+of that batch (rank r: global rows [r*b, (r+1)*b)), and the helpers below
+stand in for the cross-shard reductions XLA inserts:
+
+* ``global_mean(num, den)``: the mean over the global batch from a local
+  numerator and denominator. One all-reduce of the pair; the value is
+  ``sum num / sum den`` on every rank, the gradient that of
+  ``num_local / sum den``, so summing the ranks' gradients (not averaging
+  them, as DDP does) gives the gradient of the global mean.
+  ``global_sum`` is the same without the division.
+* ``reduce_sums``: an all-reduce of small per-channel sums without a
+  gradient (K3's and K4's (sum x, sum x^2) and (sum g, sum g*xhat)) and
+  ``all_reduce_grad``, an all-reduce whose backward all-reduces the
+  cotangent (the plain ``FlaxBatchNorm``'s sums).
+* ``global_flip`` and ``global_roll``: the batch reversed, and rolled by one
+  row, over the global batch (CutMix's and mixup's partners), with
+  ``all_to_all_single`` and ``all_gather_into_tensor``.
+
+The step makes its mesh the active one (``data_parallel``) for its forward
+and backward; the ops ask ``active()``. The mark is process-wide, not
+per-thread: the autograd engine runs a CUDA backward, and a ``model.remat``
+recompute inside it, on a thread of its own. With no active mesh (one
+process) every helper is the identity and issues no collective, so the
+one-process step runs exactly the code it ran before.
+
+Only collectives that gloo runs on CUDA tensors are used (all_reduce,
+all_gather_into_tensor, reduce_scatter_tensor, all_to_all_single), so two
+processes that share one card can check the path; gloo's point-to-point
+send/recv hands the device pointer to the socket and fails there.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator, List, Optional, Tuple, Union
+
+import torch
+import torch.distributed as dist
+
+Tensor = torch.Tensor
+
+_ACTIVE = None   # the Mesh whose step is running, or None
+
+
+def active():
+    """The mesh whose data-parallel step is running, or None."""
+    return _ACTIVE
+
+
+@contextlib.contextmanager
+def data_parallel(mesh) -> Iterator[None]:
+    """Make ``mesh`` the active one for a step's forward and backward (a
+    mesh of one process is never made active)."""
+    global _ACTIVE
+    prev, _ACTIVE = _ACTIVE, (mesh if mesh is not None and mesh.size > 1 else None)
+    try:
+        yield
+    finally:
+        _ACTIVE = prev
+
+
+def shard() -> Tuple[int, int]:
+    """(rank, world size) of the active mesh; (0, 1) with none."""
+    mesh = _ACTIVE
+    return (0, 1) if mesh is None else (mesh.rank, mesh.size)
+
+
+def _all_reduce(t: Tensor, mesh) -> Tensor:
+    dist.all_reduce(t, group=mesh.group)
+    return t
+
+
+def reduce_sums(*ts: Tensor) -> List[Tensor]:
+    """Each tensor summed over the active mesh, in one all-reduce of their
+    f32 concatenation (no gradient); the tensors themselves with none."""
+    mesh = _ACTIVE
+    if mesh is None:
+        return list(ts)
+    flat = _all_reduce(torch.cat([t.detach().float().reshape(-1) for t in ts]), mesh)
+    out, i = [], 0
+    for t in ts:
+        out.append(flat[i:i + t.numel()].view(t.shape))
+        i += t.numel()
+    return out
+
+
+def global_sum(t: Tensor) -> Tensor:
+    """The sum of ``t`` over the active mesh: its value on every rank, with
+    the gradient of the local term."""
+    if _ACTIVE is None:
+        return t
+    (tot,) = reduce_sums(t)
+    return tot + (t - t.detach()) if t.requires_grad else tot
+
+
+def global_mean(num: Tensor, den: Union[Tensor, float],
+                floor: Optional[float] = None) -> Tensor:
+    """``num / max(den, floor)`` with both summed over the active mesh (one
+    all-reduce): the global mean on every rank, whose gradient is that of
+    ``num_local / den_global``. With no active mesh, the local division."""
+    if _ACTIVE is None:
+        return num / (den if floor is None else torch.clamp(den, min=floor))
+    if not isinstance(den, Tensor):
+        den = torch.tensor(float(den), device=num.device)
+    tot_num, tot_den = reduce_sums(num, den)
+    if floor is not None:
+        tot_den = torch.clamp(tot_den, min=floor)
+    if num.requires_grad:
+        tot_num = tot_num + (num - num.detach())
+    return tot_num / tot_den
+
+
+class _AllReduceGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _all_reduce(x.clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous().clone(), ctx.mesh), None
+
+
+def all_reduce_grad(x: Tensor) -> Tensor:
+    """``x`` summed over the active mesh; its backward sums the cotangent
+    over the mesh too (the gradient of a shared statistic)."""
+    if _ACTIVE is None:
+        return x
+    return _AllReduceGrad.apply(x, _ACTIVE)
+
+
+def _bytes(x: Tensor) -> Tensor:
+    """A contiguous tensor as [rows, bytes] uint8 (gloo and NCCL move bytes
+    of any dtype alike)."""
+    return x.contiguous().reshape(x.shape[0], -1).view(torch.uint8)
+
+
+def _from_bytes(b: Tensor, like: Tensor) -> Tensor:
+    return b.view(like.dtype).reshape((b.shape[0],) + tuple(like.shape[1:]))
+
+
+def global_flip(x: Tensor) -> Tensor:
+    """``x`` flipped along the global batch: rank r's rows are rank
+    (W-1-r)'s, reversed. One ``all_to_all_single`` that sends the whole
+    local batch to the partner (the middle rank of an odd mesh is its own)."""
+    mesh = _ACTIVE
+    if mesh is None:
+        return torch.flip(x, dims=(0,))
+    partner = mesh.size - 1 - mesh.rank
+    src = _bytes(x)
+    out = torch.empty_like(src)
+    splits = [src.shape[0] if r == partner else 0 for r in range(mesh.size)]
+    dist.all_to_all_single(out, src, output_split_sizes=splits, input_split_sizes=splits,
+                           group=mesh.group)
+    return torch.flip(_from_bytes(out, x), dims=(0,))
+
+
+def global_roll(x: Tensor) -> Tensor:
+    """``x`` rolled by one row along the global batch (``roll(x, 1, 0)`` of
+    the whole): rank r's first row is rank (r-1)'s last. One all-gather of
+    every rank's last row."""
+    mesh = _ACTIVE
+    if mesh is None:
+        return torch.roll(x, 1, dims=0)
+    last = _bytes(x[-1:])
+    rows = torch.empty((mesh.size, last.shape[1]), dtype=torch.uint8, device=x.device)
+    dist.all_gather_into_tensor(rows, last, group=mesh.group)
+    prev = _from_bytes(rows[(mesh.rank - 1) % mesh.size][None], x)
+    return torch.cat((prev, x[:-1]), dim=0)

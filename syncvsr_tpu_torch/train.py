@@ -27,12 +27,24 @@ codec's tensors live in the batch hook's closure, in no optimizer group and
 no checkpoint, and the hook runs before the augmentation, on the init
 example and on every eval batch that carries ``audio``.
 
-It runs on one GPU and raises without one (``train(config,
+It runs on the GPU and raises without one (``train(config,
 device="cpu")`` runs the plain PyTorch path on the CPU, as the tests do).
-``mesh.data > 1``, model or sequence axes, ``mesh.fsdp`` and
-``train.distributed`` raise until the multi-GPU layer is ported;
-``train.scoped_vmem_kib`` and ``train.donate`` are the JAX package's
-compiler settings and are ignored.
+Under ``torchrun`` (``WORLD_SIZE`` in the environment) or with
+``train.distributed=true`` it joins the process group (NCCL, each rank on
+``cuda:LOCAL_RANK``; gloo for ``device="cpu"``) and trains data-parallel
+over it, as the JAX driver over its mesh: each rank loads its rows of
+every global batch of ``data.batch_size``, the step reduces over the
+global batch (``engine/steps.py``), ``mesh.fsdp=true`` splits the
+parameters and Adam moments over the ranks (``parallel/mesh.py``), each
+rank draws dropout from its own stream (``train.dropout_seed`` and the
+rank), and rank 0 alone prints, logs ``metrics.jsonl`` and writes
+checkpoints (every rank joins the gather before a write). ``mesh.data``
+must be -1 or the world size; ``mesh.model`` and ``mesh.seq`` above 1
+raise ``NotImplementedError``. ``train.scoped_vmem_kib`` and
+``train.donate`` are the JAX package's compiler settings and are ignored.
+
+    torchrun --nproc-per-node 8 -m syncvsr_tpu_torch.train preset=lrs3 \\
+        data.dataset=lrs3 data.root=/data mesh.fsdp=true
 """
 
 from __future__ import annotations
@@ -41,10 +53,11 @@ import json
 import os
 import sys
 import time
-from typing import Any, Dict, Optional, Sequence, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from syncvsr_tpu_torch.config import PRESETS, Config, parse_cli_overrides
 from syncvsr_tpu_torch.data.factory import build_loaders
@@ -57,6 +70,8 @@ from syncvsr_tpu_torch.ops.image import (
     build_sentence_eval_transform,
     build_word_aug,
 )
+from syncvsr_tpu_torch.parallel import create_mesh, shard_state
+from syncvsr_tpu_torch.parallel.mesh import seed_dropout
 from syncvsr_tpu_torch.utils import checkpoint as ckpt
 from syncvsr_tpu_torch.utils.device import resolve_device
 from syncvsr_tpu_torch.utils.metrics import AverageMeter, MetricLogger, split_eval_weights
@@ -83,16 +98,26 @@ def monitored_metric(config: Config) -> str:
     return "acc1" if config.model.task == "word" else "decoder_acc"
 
 
-def check_single_device(config: Config) -> None:
-    """Raise for the multi-device options the port does not have yet."""
-    m = config.mesh
-    asked = [name for name, on in (
-        (f"mesh.data={m.data}", m.data not in (-1, 1)),
-        (f"mesh.model={m.model}", m.model != 1), (f"mesh.seq={m.seq}", m.seq != 1),
-        ("mesh.fsdp=true", m.fsdp), ("train.distributed=true", config.train.distributed))
-        if on]
-    if asked:
-        raise NotImplementedError("not ported to PyTorch yet: " + ", ".join(asked))
+def init_distributed(config: Config, device: Optional[Union[str, torch.device]] = None
+                     ) -> Tuple[torch.device, bool]:
+    """This process's device, and whether this call started the process
+    group. Under ``torchrun`` (``WORLD_SIZE`` set) or ``train.distributed``
+    it joins the group from the environment (``MASTER_ADDR``, ``RANK``,
+    ...): NCCL on ``cuda:LOCAL_RANK``, gloo for a CPU device. A group that
+    exists already is used as it is."""
+    dev = resolve_device(device)
+    if not (config.train.distributed or "WORLD_SIZE" in os.environ):
+        return dev, False
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    if dist.is_initialized():
+        return dev, False
+    if dev.type == "cuda":
+        dist.init_process_group("nccl", device_id=dev)
+    else:
+        dist.init_process_group("gloo")
+    return dev, True
 
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -125,10 +150,20 @@ def instep_tokenizer(config: Config, device: torch.device):
 
 def train(config: Config, device: Optional[Union[str, torch.device]] = None
           ) -> Dict[str, float]:
-    dev = resolve_device(device)
-    check_single_device(config)
+    dev, started = init_distributed(config, device)
+    try:
+        return _train(config, dev)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(config: Config, dev: torch.device) -> Dict[str, float]:
+    mesh = create_mesh(config.mesh.data, config.mesh.model, config.mesh.seq, device=dev)
+    lead = mesh.rank == 0
     model = build_model(config, device=dev)
-    train_loader, eval_loader = build_loaders(config)
+    train_loader, eval_loader = build_loaders(config, process_index=mesh.rank,
+                                              process_count=mesh.size)
     base_eval_transform, aug_fn = transforms(config)
     tokenize = instep_tokenizer(config, dev)
 
@@ -144,10 +179,13 @@ def train(config: Config, device: Optional[Union[str, torch.device]] = None
     state = create_train_state(config, model, eval_transform(to_device(example, dev)),
                                device=dev)
     n_params = sum(p.numel() for p in state.params)
-    print(f"[train] params: {n_params / 1e6:.2f}M, device: {dev}"
-          + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else ""))
-    if config.train.tabulate:
-        print(model)
+    if lead:
+        print(f"[train] params: {n_params / 1e6:.2f}M, device: {dev}"
+              + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else "")
+              + f", processes: {mesh.size}"
+              + (f" ({dist.get_backend()})" if dist.is_initialized() else ""))
+        if config.train.tabulate:
+            print(model)
 
     if config.train.pretrained:
         pre = ckpt.load_msgpack(config.train.pretrained)
@@ -158,14 +196,21 @@ def train(config: Config, device: Optional[Union[str, torch.device]] = None
     if latest and os.path.exists(latest):
         ckpt.restore_train_state(latest, state)
         start_step = state.step
-        print(f"[train] resumed from {latest} @ step {start_step}")
+        if lead:
+            print(f"[train] resumed from {latest} @ step {start_step}")
+    seed_dropout(state, mesh)
+    if config.mesh.fsdp:
+        # split the parameters and Adam moments after the restore and the
+        # warm start, which every rank reads whole
+        state = shard_state(mesh, state, fsdp=True, fsdp_min_size=config.mesh.fsdp_min_size)
 
-    train_step = build_train_step(aug_fn=aug_fn)
-    eval_step = build_eval_step()
+    train_step = build_train_step(aug_fn=aug_fn, mesh=mesh)
+    eval_step = build_eval_step(mesh)
 
     os.makedirs(config.train.ckpt_dir, exist_ok=True)
-    logger = MetricLogger(path=os.path.join(config.train.ckpt_dir, "metrics.jsonl"),
-                          use_wandb=config.train.wandb, name=config.name,
+    logger = MetricLogger(path=os.path.join(config.train.ckpt_dir, "metrics.jsonl")
+                          if lead else None,
+                          use_wandb=config.train.wandb and lead, name=config.name,
                           config=config.to_dict())
     meter = AverageMeter()
     monitor = monitored_metric(config)
@@ -177,7 +222,7 @@ def train(config: Config, device: Optional[Union[str, torch.device]] = None
     timer = StepTimer(device=dev)
     # optional torch.profiler window over a step range ("start:stop")
     prof_range, prof = None, None
-    if config.train.profile_steps:
+    if config.train.profile_steps and lead:   # one trace, rank 0's
         a, b = config.train.profile_steps.split(":")
         prof_range, prof = (int(a), int(b)), Trace(config.train.profile_dir)
 
@@ -190,13 +235,22 @@ def train(config: Config, device: Optional[Union[str, torch.device]] = None
         return em.summary("val/")
 
     def save_best(val: Dict[str, float]) -> None:
+        # every rank takes the same branch (the metrics are the global
+        # batch's): the gather is a collective under FSDP
         nonlocal best
         if val.get(f"val/{monitor}", -np.inf) > best:
             best = val[f"val/{monitor}"]
-            params, batch_stats = ckpt.model_variables(state.model)
-            saver.save_msgpack(os.path.join(config.train.ckpt_dir, "best.msgpack"),
-                               {"params": params, "batch_stats": batch_stats,
-                                "step": step, monitor: best})
+            whole = ckpt.gather_for_save(state)
+            if lead:
+                params, batch_stats = ckpt.state_variables(whole)
+                saver.save_msgpack(os.path.join(config.train.ckpt_dir, "best.msgpack"),
+                                   {"params": params, "batch_stats": batch_stats,
+                                    "step": step, monitor: best})
+
+    def save(at: int) -> None:
+        to_save = ckpt.gather_for_save(state)
+        if lead:
+            saver.save(config.train.ckpt_dir, to_save, at)
 
     # metrics accounting lags one step: reading step N's metrics waits for
     # the device, so it happens after step N+1 is enqueued
@@ -231,16 +285,18 @@ def train(config: Config, device: Optional[Union[str, torch.device]] = None
                     launched, window_steps = dict.fromkeys(launched, 0), 0
                     t_start = time.time()
                     logger.log(summary, step)
-                    print(f"[step {step}] " + " ".join(
-                        f"{k.split('/')[-1]}={v:.4f}" for k, v in summary.items()))
+                    if lead:
+                        print(f"[step {step}] " + " ".join(
+                            f"{k.split('/')[-1]}={v:.4f}" for k, v in summary.items()))
                 if step % config.train.eval_every == 0:
                     val = run_eval()
                     logger.log(val, step)
-                    print(f"[eval {step}] " + " ".join(
-                        f"{k.split('/')[-1]}={v:.4f}" for k, v in val.items()))
+                    if lead:
+                        print(f"[eval {step}] " + " ".join(
+                            f"{k.split('/')[-1]}={v:.4f}" for k, v in val.items()))
                     save_best(val)
                 if step % config.train.ckpt_every == 0:
-                    saver.save(config.train.ckpt_dir, ckpt.gather_for_save(state), step)
+                    save(step)
                 if config.optim.total_steps and step >= config.optim.total_steps:
                     break
             else:
@@ -254,7 +310,7 @@ def train(config: Config, device: Optional[Union[str, torch.device]] = None
                 logger.log(tail, step)
         final = run_eval()
         logger.log(final, step)
-        saver.save(config.train.ckpt_dir, ckpt.gather_for_save(state), step)
+        save(step)
         saver.wait()
     finally:
         saver.close()

@@ -101,6 +101,18 @@ def _kernel_to_flax(key: str, a: np.ndarray) -> np.ndarray:
     return a.transpose(_TO_FLAX[a.ndim])
 
 
+def flax_perm(key: str, ndim: int) -> Tuple[int, ...]:
+    """The permutation that lays torch entry ``key`` (``ndim`` dims) out as
+    its flax leaf: ``flax = torch.permute(perm)``, so flax dim i is torch
+    dim ``perm[i]`` (the identity for leaves whose layout is the same)."""
+    leaf = key.rsplit(".", 1)[-1]
+    if leaf == "stem_conv_kernel" or (leaf == "weight" and ndim >= 2):
+        if ndim == 3:
+            return _perm_3d(key.rsplit(".", 2)[-2], False)
+        return tuple(int(i) for i in _TO_FLAX[ndim])
+    return tuple(range(ndim))
+
+
 def from_flax(params: Dict[str, Any], batch_stats: Dict[str, Any] | None = None
               ) -> Dict[str, np.ndarray]:
     """flax (params, batch_stats) nested dicts -> flat torch state dict."""

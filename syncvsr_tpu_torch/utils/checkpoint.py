@@ -33,12 +33,14 @@ JAX package wrote) re-seeds the generators from ``train.mixup_seed`` and
 
 Partial warm starts (``partial_load``, with key-prefix ``rename``) and the
 SSL-pretrained landmark encoder (``load_ssl_pretrained``) work on flax
-trees too. ``gather_for_save`` is the identity: the port runs in one
-process.
+trees too. ``gather_for_save`` gathers a state split over a mesh
+(``mesh.fsdp``); restore a checkpoint before splitting the state
+(``parallel.shard_state``): every rank reads the whole file.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
@@ -123,6 +125,15 @@ def model_variables(model: torch.nn.Module) -> Tuple[Dict[str, Any], Dict[str, A
     return to_flax(model.state_dict())
 
 
+def state_variables(state) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The state's (params, batch_stats) as flax numpy trees: its model's
+    BatchNorm statistics with ``state.params`` (whole tensors: take them
+    from ``gather_for_save`` under FSDP)."""
+    sd = state.model.state_dict()
+    sd.update(zip(state.names, state.params))
+    return to_flax(sd)
+
+
 def _opt_state(state) -> Dict[str, Any]:
     """``flax.serialization.to_state_dict`` of the JAX package's optimizer
     state (``syncvsr_tpu/engine/state.py::make_optimizer``)."""
@@ -149,7 +160,7 @@ def _opt_state(state) -> Dict[str, Any]:
 def state_payload(state) -> Dict[str, Any]:
     """Host copy of the full train state, in the JAX package's layout. The
     copy is synchronous: the next train step updates the tensors in place."""
-    params, batch_stats = model_variables(state.model)
+    params, batch_stats = state_variables(state)
     seeds = state.seeds
     return {
         "step": np.asarray(state.step, np.int32),
@@ -164,8 +175,18 @@ def state_payload(state) -> Dict[str, Any]:
 
 
 def gather_for_save(state):
-    """The state, host-complete: the identity in one process."""
-    return state
+    """The state with whole tensors, ready for ``state_payload``. Under FSDP
+    (``state.fsdp``) a collective that every rank of the mesh joins: it
+    gathers the split parameters, Adam moments and accumulated gradient
+    (the model keeps its shards); rank 0 then writes. Otherwise the state
+    itself (each rank of a data-parallel mesh holds the whole state)."""
+    layout = state.fsdp
+    if layout is None:
+        return state
+    return dataclasses.replace(
+        state, params=layout.full([p.data for p in state.params]),
+        mu=layout.full(state.mu), nu=layout.full(state.nu),
+        acc=None if state.acc is None else layout.full(state.acc), fsdp=None)
 
 
 def save_train_state(ckpt_dir: str, state, step: int, keep: int = 5) -> str:

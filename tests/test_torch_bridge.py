@@ -15,11 +15,11 @@ import torch
 from syncvsr_tpu import config as jcfg
 from syncvsr_tpu.data.synthetic import word_batch as jax_word_batch
 from syncvsr_tpu_torch import config as tcfg
-from syncvsr_tpu_torch.data.synthetic import word_batch
+from syncvsr_tpu_torch.data.synthetic import sentence_batch, word_batch
 from syncvsr_tpu_torch.engine import create_train_state
 from syncvsr_tpu_torch.models import build_model
 from syncvsr_tpu_torch.utils.bridge import flax_leaf, from_flax, to_flax
-from torch_parity import configs, jax_model_and_vars, torch_model
+from torch_parity import configs, jax_model_and_vars, sentence_configs, torch_model
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -135,11 +135,42 @@ def test_entry_points_need_a_card_or_cpu():
     # model.remat is ported (the transformer's blocks recompute); the TCN
     # path ignores it, as the JAX package's does
     assert build_model(cfg.override(**{"model.remat": True}), device="cpu").encoder.remat
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(cfg.override(**{"model.encoder.kind": "conformer"}), device="cpu")
+    # as in the JAX package, a word model over any non-TCN kind is a
+    # transformer (tests/test_torch_bridge.py::test_other_encoder_kinds_build_jax_trees)
+    other = build_model(cfg.override(**{"model.encoder.kind": "conformer"}), device="cpu")
+    assert type(other.encoder).__name__ == "TransformerEncoder"
+    with pytest.raises(ValueError, match="unknown task"):
+        build_model(cfg.override(**{"model.task": "phoneme"}), device="cpu")
     # the split kernel (K2) at 640 tokens a slot is ported: a DC-TCN head
     # (1664 wide) with the wav2vec2 codec builds
     head = build_model(tcfg.lrw_dctcn_config().override(**{
         "model.codec.audio_alignment": 2, "model.codec.vq_groups": 2,
         "model.codec.audio_vocab_size": 640}), device="cpu").audio_classifier
     assert head.vocab == 640 and head.weight.shape == (4 * 640, 1664)
+
+
+@pytest.mark.parametrize("task,kind", [("word", "conformer"), ("sentence", "transformer")])
+def test_other_encoder_kinds_build_jax_trees(task, kind):
+    """The JAX package reads no ``encoder.kind`` outside the TCN family: a
+    word model of another kind is a transformer and a sentence model of any
+    kind a Conformer. The port builds the same trees: every flax leaf maps
+    onto the port model (a strict load) with its shape, and back bitwise."""
+    if task == "word":
+        cfg_j, cfg_t = configs(**{"model.encoder.kind": kind})
+        batch = word_batch(cfg_t)
+    else:
+        cfg_j, cfg_t = sentence_configs(**{"model.encoder.kind": kind})
+        batch = sentence_batch(cfg_t, num_frames=4, label_len=2)
+    _, params, stats = jax_model_and_vars(cfg_j, batch)
+    model = torch_model(cfg_t, params, stats)
+    sd = model.state_dict()
+    ref = from_flax(params, stats)
+    assert set(sd) == set(ref)
+    for k, v in ref.items():
+        assert tuple(sd[k].shape) == v.shape, k
+    p2, s2 = to_flax(sd)
+    for tree, back in ((params, p2), (stats, s2)):
+        a, b = dict(_leaves(tree)), dict(_leaves(back))
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg="/".join(k))

@@ -92,12 +92,21 @@ def test_train_pretrained_and_profile_window(tmp_path, capsys):
     assert (trace / "trace.json").stat().st_size > 0 and (trace / "ops.txt").exists()
 
 
-def test_train_raises_for_what_is_not_ported(tmp_path):
+def test_train_raises_for_what_is_not_ported(tmp_path, monkeypatch):
+    """The tensor- and sequence-parallel axes are not ported; a data axis
+    that is not the process group's, and ``train.distributed`` without a
+    launcher's environment, are errors (the multi-process driver is
+    tests/test_torch_parallel.py's)."""
     cfg = ttrain.load_config(WORD_ARGS + [f"train.ckpt_dir={json.dumps(str(tmp_path))}"])
-    for over in ({"mesh.data": 2}, {"mesh.fsdp": True}, {"train.distributed": True},
-                 {"mesh.model": 2}):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    for over, name in (({"mesh.model": 2}, "mesh.model=2"), ({"mesh.seq": 2}, "mesh.seq=2")):
+        with pytest.raises(NotImplementedError, match=f"{name} .* not ported"):
             ttrain.train(cfg.override(**over), device="cpu")
+    with pytest.raises(ValueError, match="mesh 2x1x1 != 1 processes"):
+        ttrain.train(cfg.override(**{"mesh.data": 2}), device="cpu")
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="MASTER_ADDR|RANK|WORLD_SIZE"):
+        ttrain.train(cfg.override(**{"train.distributed": True}), device="cpu")
     assert ttrain.monitored_metric(cfg) == "acc1"
     assert ttrain.monitored_metric(ttrain.load_config(["preset=lrs3"])) == "decoder_acc"
 

@@ -144,7 +144,7 @@ def test_sentence_factory_and_batch_checks():
         create_train_state(cfg, model, {k: v for k, v in batch.items() if k != "lengths"},
                            device="cpu")
     # model.remat is ported: its blocks recompute (tests/test_torch_remat.py);
-    # a sentence model over another encoder is not
+    # as in the JAX package, a sentence model of any encoder kind is a Conformer
     assert build_model(cfg.override(**{"model.remat": True}), device="cpu").encoder.remat
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(cfg.override(**{"model.encoder.kind": "transformer"}), device="cpu")
+    other = build_model(cfg.override(**{"model.encoder.kind": "transformer"}), device="cpu")
+    assert type(other.encoder).__name__ == "ConformerEncoder"

@@ -1,0 +1,167 @@
+"""Two-process runs of the port for the data-parallel and FSDP parity tests
+(tests/test_torch_parallel.py, tests/test_torch_fsdp.py).
+
+``spawn(job, world, tmp)`` starts ``world`` processes (``spawn`` start
+method, one CPU thread each: the suite runs under ``-n 6``) that join a
+gloo group on a free port, each run ``JOBS[job["kind"]]`` on its rows of
+the job's global batch, and each save what it returns; the parent reads
+the results back. ``train_steps`` is also what the tests call in the
+parent for the one-process reference (``mesh=None``). This module imports
+no JAX: the workers import the port only.
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+import time
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from syncvsr_tpu_torch.config import Config
+from syncvsr_tpu_torch.engine import build_eval_step, build_train_step, create_train_state
+from syncvsr_tpu_torch.models import build_model, word
+from syncvsr_tpu_torch.ops.image import fused_train_aug_apply
+from syncvsr_tpu_torch.parallel import create_mesh, resident_bytes, shard_batch, shard_state
+from syncvsr_tpu_torch.parallel.mesh import seed_dropout
+from syncvsr_tpu_torch.utils import checkpoint as ckpt
+from syncvsr_tpu_torch.utils.bridge import load_flax, to_flax
+
+TIMEOUT = 240   # seconds for a whole spawn
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rows(mesh, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The whole batch (one process) or this rank's rows, as CPU tensors."""
+    if mesh is None:
+        return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+    return shard_batch(mesh, batch)
+
+
+def train_steps(job: Dict[str, Any], mesh=None) -> Dict[str, Any]:
+    """``job["steps"]`` train steps of the model of ``job["config"]`` (a
+    port config dict) from the flax ``params``/``batch_stats``, on this
+    rank's rows of the global ``batch``. Optional injected draws, global
+    and sliced here: ``aug`` (the augmentation's sampled values, applied by
+    ``fused_train_aug_apply``), ``cutmix`` ((ratio, start)) and ``lam``
+    (the mixup weight); ``aug_dtype`` the augmented clips' dtype (bf16);
+    ``no_dropout`` zeroes every dropout rate of the model (the DenseTCN's is
+    fixed). ``fsdp`` (min size) splits the state. Returns the
+    metrics of every step, the params, batch_stats and moments as flax
+    trees (gathered under FSDP) after the first step (``first``) and the
+    last, the rank's resident bytes and its first dropout draws."""
+    torch.manual_seed(0)
+    cfg = Config.from_dict(job["config"])
+    model = build_model(cfg, device="cpu")
+    load_flax(model, job["params"], job["batch_stats"])
+    batch = _rows(mesh, job["batch"])
+    if job.get("no_dropout"):   # the DenseTCN's fixed dropout
+        for m in model.modules():
+            if hasattr(m, "rate"):
+                m.rate = 0.0
+    state = create_train_state(cfg, model, batch, device="cpu")
+    if mesh is not None:
+        seed_dropout(state, mesh)
+        if job.get("fsdp"):
+            state = shard_state(mesh, state, fsdp=True, fsdp_min_size=job["fsdp"])
+    aug_fn = None
+    if job.get("aug") is not None:
+        drawn = _rows(mesh, job["aug"])
+        d = cfg.data
+        key = "inputs" if cfg.model.task == "word" else "videos"
+        dtype = getattr(torch, job.get("aug_dtype", "bfloat16"))
+
+        def aug_fn(gen, bt):
+            return dict(bt, **{key: fused_train_aug_apply(bt[key], drawn, d.crop_size,
+                                                         d.mean, d.std, dtype)})
+    if job.get("cutmix") is not None:
+        ratio, start = (torch.tensor(np.float32(v)) for v in job["cutmix"])
+        word.sample_cutmix = lambda gen, alpha: (ratio, start)
+    if job.get("lam") is not None:
+        word.sample_mixup = lambda gen, alpha: torch.tensor(np.float32(job["lam"]))
+    step = build_train_step(aug_fn=aug_fn, mesh=mesh)
+    at = state.dropout_gen.get_state()
+    dropout_draw = torch.rand(4, generator=state.dropout_gen).tolist()
+    state.dropout_gen.set_state(at)
+    metrics: List[Dict[str, float]] = []
+    out = {"dropout_draw": dropout_draw}
+    for i in range(job["steps"]):
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            out["first"] = _snapshot(state)
+    out.update(_snapshot(state), metrics=metrics, resident=resident_bytes(state))
+    whole = ckpt.gather_for_save(state)
+    if job.get("eval"):
+        ev = build_eval_step(mesh)(state, _rows(mesh, job["eval"]))
+        out["eval"] = {k: float(v) for k, v in ev.items()}
+    if job.get("save") and (mesh is None or mesh.rank == 0):
+        ckpt.save_train_state(job["save"], whole, state.step)
+    return out
+
+
+def _snapshot(state) -> Dict[str, Any]:
+    """Params, batch_stats and Adam's moments as flax trees (gathered under
+    FSDP: a collective)."""
+    whole = ckpt.gather_for_save(state)
+    params, stats = ckpt.state_variables(whole)
+    return {"params": params, "batch_stats": stats,
+            "mu": to_flax(dict(zip(whole.names, whole.mu)))[0],
+            "nu": to_flax(dict(zip(whole.names, whole.nu)))[0]}
+
+
+def cli(job: Dict[str, Any], mesh=None) -> Dict[str, Any]:
+    """``syncvsr_tpu_torch.<job["module"]>.main(job["args"], device="cpu")``
+    in ``job["cwd"]`` (the process group already joined); its summary."""
+    import importlib
+
+    os.chdir(job["cwd"])
+    main = importlib.import_module(f"syncvsr_tpu_torch.{job['module']}").main
+    return main(job["args"], device="cpu")
+
+
+JOBS = {"train": train_steps, "cli": cli}
+
+
+def _worker(rank: int, world: int, port: int, path: str) -> None:
+    torch.set_num_threads(1)
+    jobs = torch.load(path, weights_only=False)   # written by the parent test
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = create_mesh(device="cpu")
+        torch.save([JOBS[job["kind"]](job, mesh) for job in jobs], f"{path}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(job, world: int, tmp, timeout: float = TIMEOUT):
+    """Run ``job`` in ``world`` gloo processes; every rank's result. A list
+    of jobs runs in one group, one after the other: a list, per job, of
+    every rank's result."""
+    jobs = job if isinstance(job, list) else [job]
+    path = os.path.join(str(tmp), f"job_{jobs[0]['kind']}_{time.monotonic_ns()}.pt")
+    torch.save(jobs, path)
+    ctx = mp.spawn(_worker, args=(world, free_port(), path), nprocs=world, join=False)
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{jobs[0]['kind']} on {world} processes: over "
+                                   f"{timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [torch.load(f"{path}.{r}", weights_only=False) for r in range(world)]
+    per_job = [[ranks[r][i] for r in range(world)] for i in range(len(jobs))]
+    return per_job if isinstance(job, list) else per_job[0]
