@@ -84,12 +84,16 @@ non-zero before the last line is printed:
 7. cli: the entry points a user runs, ``python -m syncvsr_tpu_torch.train``
    and ``.evaluate``, each in its own process, on synthetic data, into a
    temporary directory removed at the end (``cli_phase``): ``lrw_video`` at
-   full width trains 6 steps with an eval and a save at step 4, resumes to
+   full width and 2 of its 12 encoder layers (the steps above run all of
+   them) trains 6 steps with an eval and a save at step 4, resumes to
    step 8, and ``evaluate`` reads its ``best.msgpack``; ``lrw1000`` with the
    DC-TCN at full width trains 4 steps (K2 at V = 640); ``lrs3`` cut to 2 +
    1 layers trains 4 steps, then decodes its ``best.msgpack`` greedily and
-   with the batched beam search; then datasets from files (``cli_files``):
-   ``lrs3`` at full width from a packed synthetic LRS3 tree over all five
+   with the batched beam search; beside it, in concurrent chains (each
+   process's seconds are then not comparable with the step phase's),
+   datasets from files (``cli_files``):
+   ``lrs3`` at full width (2 encoder and 1 decoder layer, ``FILES_DEPTH``)
+   from a packed synthetic LRS3 tree over all five
    buckets with remat, accumulation and the non-finite guard, and
    ``evaluate`` of its test split; ``lrs3_audio`` over that tree's pkls,
    ``vox2`` windowed by a length histogram, ``lrw_landmark`` from ``.npy``
@@ -119,7 +123,22 @@ non-zero before the last line is printed:
    the split leaves'), and FSDP's checkpoint loaded at one process, every
    leaf equal; K1/K3/K4 and K2/K3/K4 counted in each rank; the two-rank
    step times are labelled as correctness, not scaling;
-9. profiler windows, after every timing above (a process that torch.profiler
+9. tensor (``tensor_phase``): tensor parallel, ``mesh.model=2``, with the
+   processes sharing the card over gloo: (a) ``lrs3`` at full width (8 x
+   160 frames, bf16) and (b) ``lrw_video`` at full width (96 clips) on
+   (data=1, model=2) against world 1 on the same batch (``TP_TOL``), each
+   rank's resident parameter and moment bytes against ``TP_HELD`` and the
+   specs' prediction, K1 on each rank's 4 of 8 slots (``lrs3``'s local
+   head takes K1, not K2) and K3/K4 on the gathered channels, counted in
+   each rank; (c) ``python -m torch.distributed.run --nproc-per-node 2 -m
+   syncvsr_tpu_torch.train preset=lrs3 mesh.model=2 mesh.fsdp=true`` at
+   full width and 2 + 1 layers, 2 steps, a rank's bytes as the specs
+   predict, and its checkpoint loaded at one process, every leaf equal; (d)
+   four processes as (data=2, model=2) with FSDP on a 2-layer 64-wide f32
+   model (the rule at min_dim 16: a leaf on both axes) against world 1
+   (``F32_TOL``); the ranks' step times are labelled as correctness, not
+   scaling;
+10. profiler windows, after every timing above (a process that torch.profiler
    has traced can pay more host time a launch from then on): each kernel's
    own device time (``device_ms``) over the calls phase 3 timed (K1's with
    its features' pad copy), each held to one kernel of its own a call (K3
@@ -131,9 +150,10 @@ non-zero before the last line is printed:
    (device launches a search step), greedy and align (launches, device
    time, idle share); with ``--profile DIR``, the full beam decode too and
    the tables in ``DIR/profile_decode_<name>.txt``;
-10. the ``decode``, ``cli`` and ``parallel`` JSON lines, each phase's
-    seconds, the ``kernels`` JSON line (K1 and K2 also at a rank's half
-    batch, ``lrw_video_dp2`` and ``lrs3_fsdp2``, K3/K4 at those paths'
+11. the ``decode``, ``cli``, ``parallel`` and ``tensor`` JSON lines, each
+    phase's seconds, the ``kernels`` JSON line (K1 and K2 also at a rank's
+    half batch, ``lrw_video_dp2`` and ``lrs3_fsdp2``, K1 at a model rank's
+    4 slots, ``lrs3_tp2`` and ``lrw_video_tp2``, K3/K4 at those paths'
     shapes), the card line and the ``ok`` line.
 """
 
@@ -327,7 +347,11 @@ def bn_shapes():
             # a rank's half of lrw_video's and lrs3's batch at two processes
             "lrw_video_dp2": trunk_bn_shapes(half_lrw, lrw.data.num_frames),
             "lrs3_fsdp2": (trunk_bn_shapes(half_lrs3, LRS3_FRAMES)
-                           + [conformer(half_lrs3, LRS3_FRAMES)])}
+                           + [conformer(half_lrs3, LRS3_FRAMES)]),
+            # mesh.model=2: each rank's BatchNorms run on the gathered
+            # channels of the whole batch, world 1's shapes
+            "lrw_video_tp2": trunk_bn_shapes(lrw, lrw.data.num_frames),
+            "lrs3_tp2": trunk_bn_shapes(lrs3, LRS3_FRAMES) + [conformer(lrs3, LRS3_FRAMES)]}
 
 
 def device_ms(torch, fn, names, iters=20):
@@ -394,7 +418,11 @@ MONO_CASES = [(29 * 96, 513, 320, False, "bfloat16", 8),
               (1, 512, 640, False, "float32", 4), (40 * 96, 513, 640, False, "bfloat16", 4),
               (40 * 96, 520, 640, False, "bfloat16", 4),
               (1000, 512, 400, False, "bfloat16", 4), (40 * 96, 512, 640, True, "float32", 4),
-              (29 * 48, 513, 320, False, "bfloat16", 8)]
+              (29 * 48, 513, 320, False, "bfloat16", 8),
+              # a model rank's 4 of 8 slots (mesh.model=2): lrs3's head at D = 768
+              # (2.36 MiB, K1 by the 4 MiB rule) and lrw_video's
+              (8 * 160, 768, 320, False, "bfloat16", 4),
+              (29 * 96, 513, 320, False, "bfloat16", 4)]
 # K2's cases: lrs3's, lrs3_audio's, lrw_dctcn's, lrw1000_dctcn's and
 # lrs3_1800's shapes first (timed; the audio and DC-TCN heads' features in
 # f32, as in their steps; lrw1000_dctcn's 4 slots of 640 in two column
@@ -420,7 +448,8 @@ SPLIT_CASES = [(8 * 160, 768, 320, False, "bfloat16", 8),
 # the case of each path's sync head, timed: the entry's own numbers are its
 # first path's
 SYNC_PATHS = {"sync_ce_fwd": {"lrw_video": MONO_CASES[0], "lrw_landmark": MONO_CASES[1],
-                              "lrw1000": MONO_CASES[2], "lrw_video_dp2": MONO_CASES[-1]},
+                              "lrw1000": MONO_CASES[2], "lrw_video_dp2": MONO_CASES[-3],
+                              "lrs3_tp2": MONO_CASES[-2], "lrw_video_tp2": MONO_CASES[-1]},
               "sync_ce_split_fwd": {"lrs3": SPLIT_CASES[0], "lrs3_audio": SPLIT_CASES[1],
                                     "lrw_dctcn": SPLIT_CASES[2],
                                     "lrw1000_dctcn": SPLIT_CASES[3],
@@ -1878,16 +1907,19 @@ def last_json(stdout, what):
 def cli_phase(steps):
     """The train and evaluate CLIs (``python -m syncvsr_tpu_torch.train`` /
     ``.evaluate``) on synthetic data, into a temporary directory removed at
-    the end: (a) ``lrw_video`` at full width, 6 steps with an eval and a
+    the end: (a) ``lrw_video`` at full width and 2 encoder layers, 6 steps
+    with an eval and a
     ``ckpt_every`` save at step 4, then ``resume=auto`` to step 8; (b)
     ``evaluate`` of its ``best.msgpack``; (c) ``lrw1000`` with the DC-TCN
     at full width, 4 steps (K2 at V = 640); (d) ``lrs3`` cut to 2 encoder
     layers and 1 decoder layer, 4 steps with an eval at step 2, then
     ``evaluate`` of its ``best.msgpack`` with ``decode=greedy`` and with
-    ``decode=beam_batched decode_pad=bucket``. The kernels' launches a step
-    come from the driver's ``metrics.jsonl``; ``steps`` (the step phase's
-    summaries) gives the bare step's ms beside the driver's
-    ``step_ms_ema``. Returns the phase's summary."""
+    ``decode=beam_batched decode_pad=bucket`` (``cli_sentence``), beside the
+    runs from files (``cli_files``), in concurrent chains. The kernels'
+    launches a step come from the driver's ``metrics.jsonl``; ``steps``
+    (the step phase's summaries) gives the bare step's ms beside the
+    driver's ``step_ms_ema`` of (a) and (c), which run alone. Returns the
+    phase's summary."""
     import os
     import shutil
     import tempfile
@@ -1895,10 +1927,12 @@ def cli_phase(steps):
     tmp = tempfile.mkdtemp(prefix="syncvsr_cli_")
     summary = {}
     try:
-        # (a) lrw_video: train, eval at 4, save at 4, end at 6; resume to 8
+        # (a) lrw_video at full width, 2 of its 12 encoder layers (the step
+        # phase runs all 12): train, eval at 4, save at 4, end at 6; resume to 8
         video = os.path.join(tmp, "lrw_video")
+        lrw = ["preset=lrw_video", "model.encoder.layers=2"]
         common = ["data.dataset=synthetic", "train.log_every=1", f"train.ckpt_dir={video}"]
-        out, dt = run_cli("train", ["preset=lrw_video", *common, "optim.total_steps=6",
+        out, dt = run_cli("train", [*lrw, *common, "optim.total_steps=6",
                                     "train.eval_every=4", "train.ckpt_every=4"], tmp,
                           "(a) lrw_video train")
         first = train_records(video)
@@ -1910,7 +1944,7 @@ def cli_phase(steps):
                 raise AssertionError(f"cli (a): {f} missing from {names}")
         if [r["step"] for r in first] != list(range(1, 7)):
             raise AssertionError(f"cli (a): train records at steps {[r['step'] for r in first]}")
-        out, dt2 = run_cli("train", ["preset=lrw_video", *common, "optim.total_steps=8",
+        out, dt2 = run_cli("train", [*lrw, *common, "optim.total_steps=8",
                                      "train.eval_every=4", "train.ckpt_every=4",
                                      "train.resume=auto"], tmp, "(a) lrw_video resume")
         if f"resumed from {os.path.join(video, 'step_6.msgpack')} @ step 6" not in out:
@@ -1928,7 +1962,7 @@ def cli_phase(steps):
                                 "step_phase_ms": steps["lrw_video"]["step_ms"],
                                 "launches_per_step": per_step}
         # (b) evaluate the best checkpoint
-        out, dt = run_cli("evaluate", ["preset=lrw_video", "data.dataset=synthetic",
+        out, dt = run_cli("evaluate", [*lrw, "data.dataset=synthetic",
                                        f"ckpt={os.path.join(video, 'best.msgpack')}"],
                           tmp, "(b) lrw_video evaluate")
         res = last_json(out, "(b)")
@@ -1949,31 +1983,8 @@ def cli_phase(steps):
                                     "step_phase_ms": steps["lrw1000_dctcn"]["step_ms"],
                                     "launches_per_step": per_step,
                                     "train_loss": losses(rec, "(c)")}
-        # (d) lrs3 at 2 + 1 layers: the sentence branch, then greedy and beam
-        sent = os.path.join(tmp, "lrs3")
-        cut = ["preset=lrs3", "model.encoder.layers=2", "model.decoder.layers=1",
-               "data.dataset=synthetic"]
-        run_cli("train", [*cut, "optim.total_steps=4", "train.log_every=1",
-                          "train.eval_every=2", "train.ckpt_every=100",
-                          f"train.ckpt_dir={sent}"], tmp, "(d) lrs3 train")
-        rec = train_records(sent)
-        per_step = {"sync_ce_fwd": 0, "sync_ce_split_fwd": 1, "bn_stats_fwd": 22,
-                    "bn_stats_bwd": 22}
-        check_launches(rec, per_step, "(d)")
-        losses(rec, "(d)")
-        if "best.msgpack" not in os.listdir(sent):
-            raise AssertionError("cli (d): no best.msgpack")
-        summary["lrs3"] = {"step_ms_ema": rec[-1]["train/step_ms_ema"],
-                           "launches_per_step": per_step}
-        for mode in (["decode=greedy"], ["decode=beam_batched", "decode_pad=bucket"]):
-            out, dt = run_cli("evaluate", [*cut, f"ckpt={os.path.join(sent, 'best.msgpack')}",
-                                           *mode], tmp, f"(d) lrs3 evaluate {mode[0]}")
-            res = last_json(out, "(d)")
-            hyps = open(os.path.join(tmp, "hypotheses.jsonl")).read().splitlines()
-            if not (math.isfinite(res.get("test/wer", math.nan)) and len(hyps) == 4 * 16):
-                raise AssertionError(f"cli (d) {mode[0]}: {res}, {len(hyps)} hypotheses")
-            summary["lrs3"][mode[0].split("=")[1]] = dict(res, seconds=dt)
-        summary.update(cli_files(tmp))
+        # (d) onwards run in concurrent chains (cli_files)
+        summary.update(cli_files(tmp, cli_sentence))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for path in ("lrw_video", "lrw1000_dctcn"):
@@ -1993,6 +2004,8 @@ FILES_TRAIN = ([100 + 3 * i for i in range(16)] + [200 + 10 * i for i in range(1
                + [1300, 1700, 1500] + [2100])
 FILES_VAL, FILES_TEST = [120, 260], [90, 150, 300, 420]
 FILES_MBF = 3600
+# (e) and (i) run lrs3's widths at this depth (the step phase runs its full depth)
+FILES_DEPTH = ["model.encoder.layers=2", "model.decoder.layers=1"]
 # vox2's tree: long clips windowed by a length histogram
 FILES_VOX2, FILES_VOX2_HIST = [300, 700, 1000, 1900, 2400, 600], [150, 400, 800]
 
@@ -2015,10 +2028,45 @@ def files_schedule(root, dataset, epoch, **over):
     return [(b, len(rows)) for b, rows, _ in loader._schedule(batcher, 1, epoch)]
 
 
-def cli_files(tmp):
+def cli_sentence(tmp):
+    """(d) of ``cli_phase``: ``lrs3`` cut to 2 encoder layers and 1 decoder
+    layer, 4 steps with an eval at step 2, then ``evaluate`` of its
+    ``best.msgpack`` with ``decode=greedy`` and with ``decode=beam_batched
+    decode_pad=bucket``, in a working directory of its own (``evaluate``
+    writes ``hypotheses.jsonl`` there). Returns its summary."""
+    import os
+
+    cwd = os.path.join(tmp, "cwd_sentence")
+    os.makedirs(cwd)
+    sent = os.path.join(tmp, "lrs3")
+    cut = ["preset=lrs3", "model.encoder.layers=2", "model.decoder.layers=1",
+           "data.dataset=synthetic"]
+    run_cli("train", [*cut, "optim.total_steps=4", "train.log_every=1",
+                      "train.eval_every=2", "train.ckpt_every=100",
+                      f"train.ckpt_dir={sent}"], cwd, "(d) lrs3 train")
+    rec = train_records(sent)
+    per_step = {"sync_ce_fwd": 0, "sync_ce_split_fwd": 1, "bn_stats_fwd": 22,
+                "bn_stats_bwd": 22}
+    check_launches(rec, per_step, "(d)")
+    losses(rec, "(d)")
+    if "best.msgpack" not in os.listdir(sent):
+        raise AssertionError("cli (d): no best.msgpack")
+    out = {"step_ms_ema": rec[-1]["train/step_ms_ema"], "launches_per_step": per_step}
+    for mode in (["decode=greedy"], ["decode=beam_batched", "decode_pad=bucket"]):
+        res_out, dt = run_cli("evaluate", [*cut, f"ckpt={os.path.join(sent, 'best.msgpack')}",
+                                           *mode], cwd, f"(d) lrs3 evaluate {mode[0]}")
+        res = last_json(res_out, "(d)")
+        hyps = open(os.path.join(cwd, "hypotheses.jsonl")).read().splitlines()
+        if not (math.isfinite(res.get("test/wer", math.nan)) and len(hyps) == 4 * 16):
+            raise AssertionError(f"cli (d) {mode[0]}: {res}, {len(hyps)} hypotheses")
+        out[mode[0].split("=")[1]] = dict(res, seconds=dt)
+    return {"lrs3": out}
+
+
+def cli_files(tmp, *more):
     """The CLIs reading datasets from files (``syncvsr_tpu_torch/data/
-    synthetic_tree.py`` writes them): (e) ``lrs3`` at full width from a
-    packed LRS3 tree (``tools/pack_dataset.py --task sentence``) with
+    synthetic_tree.py`` writes them): (e) ``lrs3`` at full width and
+    ``FILES_DEPTH`` from a packed LRS3 tree (``tools/pack_dataset.py --task sentence``) with
     ``data.max_batch_frames=3600 model.remat=true optim.accum_steps=2
     optim.skip_nonfinite=true`` for one epoch over all five buckets, then
     ``evaluate data.split=test decode=greedy`` of its last checkpoint; (f)
@@ -2026,43 +2074,69 @@ def cli_files(tmp):
     a length-distribution file; (h) ``lrw_landmark`` at full width from
     ``.npy`` clips with ``durations.csv``. (f) and (g) run 2 encoder and 1
     decoder layers. Each run's kernels' launches a step come from its
-    ``metrics.jsonl``. Returns the runs' summaries."""
+    ``metrics.jsonl``. Four chains run concurrently, each in a working
+    directory of its own: each of ``more(tmp)`` (``cli_sentence``) from the
+    start, and once the trees are written (e) then (i); (f), (g), (h);
+    (ii), (iii), (iv) (``cli_codecs``). They share the card and the host,
+    so their seconds and ``step_ms_ema`` are not the step phase's. Returns
+    the runs' summaries."""
     import os
+    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
     from syncvsr_tpu_torch.data.synthetic_tree import write_landmark_tree, write_lrs_tree
 
-    t0 = time.perf_counter()
-    root = os.path.join(tmp, "files")
-    write_lrs_tree(root, "LRS3", {"train": FILES_TRAIN, "val": FILES_VAL,
-                                  "test": FILES_TEST}, seed=5)
-    write_lrs_tree(root, "VOX2", {"train": FILES_VOX2, "val": FILES_VAL}, seed=6)
-    np.save(os.path.join(root, "vox2_length.npy"), np.asarray(FILES_VOX2_HIST, np.int64))
-    packed = os.path.join(tmp, "files_packed")
-    run_cli("tools.pack_dataset", [root, packed, "--task", "sentence", "--dataset", "LRS3",
-                                   "--splits", "train", "val", "test"], tmp, "(e) pack")
-    lrw = write_landmark_tree(os.path.join(tmp, "files_lrw"), ("ABOUT", "WORLD"),
-                              ("train", "val"), n=40, seed=7)
-    log(f"cli files: wrote the LRS3, VOX2 and LRW landmark trees and packed LRS3 in "
-        f"{time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(3 + len(more)) as pool:
+        futures = [pool.submit(fn, tmp) for fn in more]   # these read no tree
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "files")
+        write_lrs_tree(root, "LRS3", {"train": FILES_TRAIN, "val": FILES_VAL,
+                                      "test": FILES_TEST}, seed=5)
+        write_lrs_tree(root, "VOX2", {"train": FILES_VOX2, "val": FILES_VAL}, seed=6)
+        np.save(os.path.join(root, "vox2_length.npy"), np.asarray(FILES_VOX2_HIST, np.int64))
+        packed = os.path.join(tmp, "files_packed")
+        run_cli("tools.pack_dataset", [root, packed, "--task", "sentence", "--dataset",
+                                       "LRS3", "--splits", "train", "val", "test"], tmp,
+                "(e) pack")
+        lrw = write_landmark_tree(os.path.join(tmp, "files_lrw"), ("ABOUT", "WORLD"),
+                                  ("train", "val"), n=40, seed=7)
+        log(f"cli files: wrote the LRS3, VOX2 and LRW landmark trees and packed LRS3 in "
+            f"{time.perf_counter() - t0:.1f} s")
+        sched = files_schedule(packed, "lrs3", 1, **{"data.packed": True})
+        buckets = sorted({b for b, _ in sched})
+        log(f"cli (e): the epoch's schedule (bucket, clips): {sched}")
+        if buckets != [160, 320, 640, 1200, 1800]:
+            raise AssertionError(f"cli (e): the schedule's buckets are {buckets}")
+        futures += [pool.submit(cli_packed, tmp, root, packed, sched),
+                    pool.submit(cli_trees, tmp, root, lrw), pool.submit(cli_codecs, tmp, packed)]
+        out = {}
+        for f in futures:
+            out.update(f.result())
+    return out
+
+
+def cli_packed(tmp, root, packed, sched):
+    """(e) of ``cli_files``, then (i) of the codecs (which holds its
+    checkpoint's tree to (e)'s), in a working directory of their own."""
+    import os
+
+    cwd = os.path.join(tmp, "cwd_packed")
+    os.makedirs(cwd)
     out = {}
-    # (e) full-width lrs3 from the packed tree through every bucket
-    sched = files_schedule(packed, "lrs3", 1, **{"data.packed": True})
-    buckets = sorted({b for b, _ in sched})
-    log(f"cli (e): the epoch's schedule (bucket, clips): {sched}")
-    if buckets != [160, 320, 640, 1200, 1800]:
-        raise AssertionError(f"cli (e): the schedule's buckets are {buckets}")
+    # (e) lrs3 at full width from the packed tree through every bucket, 2 of
+    # its 12 encoder layers and 1 of its 6 decoder layers (the step phase
+    # runs all of them)
     ck = os.path.join(tmp, "files_lrs3")
-    lrs3 = ["preset=lrs3", "data.dataset=lrs3", "data.packed=true", f"data.root={packed}",
-            f"data.max_batch_frames={FILES_MBF}", "model.remat=true"]
+    lrs3 = ["preset=lrs3", *FILES_DEPTH, "data.dataset=lrs3", "data.packed=true",
+            f"data.root={packed}", f"data.max_batch_frames={FILES_MBF}", "model.remat=true"]
     _, dt = run_cli("train", [*lrs3, "optim.accum_steps=2", "optim.skip_nonfinite=true",
                               "train.epochs=1", "optim.total_steps=0", "train.log_every=1",
                               "train.eval_every=1000", "train.ckpt_every=1000",
-                              f"train.ckpt_dir={ck}"], tmp, "(e) lrs3 train from files")
+                              f"train.ckpt_dir={ck}"], cwd, "(e) lrs3 train from files")
     rec = train_records(ck)
-    per_step = {"sync_ce_fwd": 0, "sync_ce_split_fwd": 1, "bn_stats_fwd": 64,
-                "bn_stats_bwd": 32}
+    per_step = {"sync_ce_fwd": 0, "sync_ce_split_fwd": 1, "bn_stats_fwd": 44,
+                "bn_stats_bwd": 22}
     check_launches(rec, per_step, "(e)")
     if [r["step"] for r in rec] != list(range(1, len(sched) + 1)):
         raise AssertionError(f"cli (e): {len(rec)} steps, the schedule has {len(sched)}")
@@ -2070,7 +2144,7 @@ def cli_files(tmp):
     if last not in os.listdir(ck):
         raise AssertionError(f"cli (e): no {last}")
     res_out, dt_eval = run_cli("evaluate", [*lrs3, "data.split=test", "decode=greedy",
-                                            f"ckpt={os.path.join(ck, last)}"], tmp,
+                                            f"ckpt={os.path.join(ck, last)}"], cwd,
                                "(e) lrs3 evaluate greedy")
     res = last_json(res_out, "(e)")
     if not (math.isfinite(res.get("test/wer", math.nan)) and res.get("test/words", 0) > 0):
@@ -2078,6 +2152,18 @@ def cli_files(tmp):
     out["lrs3_files"] = {"seconds": dt, "evaluate_seconds": dt_eval, "schedule": sched,
                          "launches_per_step": per_step, "train_loss": losses(rec, "(e)"),
                          "step_ms_ema": rec[-1]["train/step_ms_ema"], "evaluate": res}
+    out.update(cli_instep(tmp, root, os.path.join(ck, last), cwd))
+    return out
+
+
+def cli_trees(tmp, root, lrw):
+    """(f), (g) and (h) of ``cli_files``, in a working directory of their
+    own."""
+    import os
+
+    cwd = os.path.join(tmp, "cwd_trees")
+    os.makedirs(cwd)
+    out = {}
     # (f) lrs3_audio over the pkl tree; (g) vox2 windowed by a histogram
     cut = ["model.encoder.layers=2", "model.decoder.layers=1", f"data.root={root}",
            f"data.max_batch_frames={FILES_MBF}", "train.log_every=1", "train.eval_every=1000",
@@ -2094,7 +2180,7 @@ def cli_files(tmp):
              {"sync_ce_fwd": 0, "sync_ce_split_fwd": 1, "bn_stats_fwd": 22,
               "bn_stats_bwd": 22})):
         ck = os.path.join(tmp, key)
-        _, dt = run_cli("train", [*args, *cut, f"train.ckpt_dir={ck}"], tmp, what)
+        _, dt = run_cli("train", [*args, *cut, f"train.ckpt_dir={ck}"], cwd, what)
         rec = train_records(ck)
         check_launches(rec, per_step, what)
         out[key] = {"seconds": dt, "steps": len(rec), "launches_per_step": per_step,
@@ -2106,13 +2192,12 @@ def cli_files(tmp):
                               f"data.root={lrw}", "data.batch_size=32", "train.epochs=1",
                               "optim.total_steps=0", "train.log_every=1",
                               "train.eval_every=1000", "train.ckpt_every=1000",
-                              f"train.ckpt_dir={ck}"], tmp, what)
+                              f"train.ckpt_dir={ck}"], cwd, what)
     rec = train_records(ck)
     per_step = {"sync_ce_fwd": 1, "sync_ce_split_fwd": 0, "bn_stats_fwd": 0, "bn_stats_bwd": 0}
     check_launches(rec, per_step, what)
     out["lrw_landmark_files"] = {"seconds": dt, "steps": len(rec),
                                  "launches_per_step": per_step, "train_loss": losses(rec, what)}
-    out.update(cli_codecs(tmp, root, packed, os.path.join(tmp, "files_lrs3", last)))
     return out
 
 
@@ -2125,40 +2210,30 @@ def tree_shapes(path):
             if k.startswith(("params.", "batch_stats.", "opt_state."))}
 
 
-def cli_codecs(tmp, root, packed, files_ckpt):
-    """The codec and reference-checkpoint entry points: (i) ``train
-    model.codec.in_step=true`` at full width from the LRS3 pkl tree (its
-    waveforms; the random codec) with (e)'s options (remat, accumulation,
-    the guard), 3 steps and the final eval (tokenized too), its checkpoint
-    tree equal to (e)'s (``files_ckpt``, the same run without the codec):
-    no codec leaf; (ii) ``tools.tokenize_audio`` on
-    both routes over a small tree of wavs and a pkl (the random codec; an
-    HF wav2vec2 directory at wav2vec2-large-xlsr-53's geometry the script
-    writes), each file's tokens against the CPU's; (iii)
-    ``tools.import_checkpoint lrs`` of a full-width synthetic ``Vox+LRS2+
-    LRS3.ckpt`` (espnet layout), then greedy ``evaluate`` of the test split
-    from the imported file (every leaf loaded); (iv) ``evaluate`` of the
-    val split (windowed to 160 frames) with the batched beam search and an
-    espnet TransformerLM
-    ``.pth`` at lrs3.yaml's 16 layers, converted on load, against the same
-    LM through ``import_checkpoint lm`` (equal hypotheses). Returns the
-    runs' summaries."""
+def cli_instep(tmp, root, files_ckpt, cwd):
+    """(i) of the codec entry points: ``train model.codec.in_step=true`` at
+    full width and ``FILES_DEPTH`` from the LRS3 pkl tree (its waveforms;
+    the random codec) with (e)'s options (remat, accumulation, the guard),
+    3 steps and the final eval (tokenized too), its checkpoint tree equal
+    to (e)'s (``files_ckpt``, the same run without the codec): no codec
+    leaf. Returns its summary."""
     import os
 
     out = {}
     # (i) the in-step codec through the train CLI
     ck = os.path.join(tmp, "files_instep")
     what = "(i) lrs3 train with model.codec.in_step from pkls"
-    _, dt = run_cli("train", ["preset=lrs3", "data.dataset=lrs3", f"data.root={root}",
-                              f"data.max_batch_frames={FILES_MBF}", "model.remat=true",
-                              "model.codec.in_step=true", f"model.codec.ckpt={CODECS['random']}",
+    _, dt = run_cli("train", ["preset=lrs3", *FILES_DEPTH, "data.dataset=lrs3",
+                              f"data.root={root}", f"data.max_batch_frames={FILES_MBF}",
+                              "model.remat=true", "model.codec.in_step=true",
+                              f"model.codec.ckpt={CODECS['random']}",
                               "optim.accum_steps=2", "optim.skip_nonfinite=true",
                               "optim.total_steps=3", "train.log_every=1",
                               "train.eval_every=1000", "train.ckpt_every=1000",
-                              f"train.ckpt_dir={ck}"], tmp, what)
+                              f"train.ckpt_dir={ck}"], cwd, what)
     rec = train_records(ck)
-    per_step = {"sync_ce_fwd": 0, "sync_ce_split_fwd": 1, "bn_stats_fwd": 64,
-                "bn_stats_bwd": 32}
+    per_step = {"sync_ce_fwd": 0, "sync_ce_split_fwd": 1, "bn_stats_fwd": 44,
+                "bn_stats_bwd": 22}
     check_launches(rec, per_step, what)
     mine, theirs = tree_shapes(os.path.join(ck, "step_3.msgpack")), tree_shapes(files_ckpt)
     if mine != theirs:
@@ -2167,11 +2242,30 @@ def cli_codecs(tmp, root, packed, files_ckpt):
     log(f"cli (i): the in-step run's checkpoint has (e)'s tree ({len(mine)} leaves)")
     out["lrs3_instep_files"] = {"seconds": dt, "steps": len(rec), "launches_per_step": per_step,
                                 "train_loss": losses(rec, what)}
-    out["codec_tools"] = dict(cli_tokenize(tmp), **cli_import(tmp, packed))
     return out
 
 
-def cli_tokenize(tmp):
+def cli_codecs(tmp, packed):
+    """The codec and reference-checkpoint tools: (ii)
+    ``tools.tokenize_audio`` on both routes over a small tree of wavs and a
+    pkl (the random codec; an HF wav2vec2 directory at
+    wav2vec2-large-xlsr-53's geometry the script writes), each file's tokens
+    against the CPU's; (iii) ``tools.import_checkpoint lrs`` of a full-width
+    synthetic ``Vox+LRS2+LRS3.ckpt`` (espnet layout), then greedy
+    ``evaluate`` of the test split from the imported file (every leaf
+    loaded); (iv) ``evaluate`` of the val split (windowed to 160 frames)
+    with the batched beam search and an espnet TransformerLM ``.pth`` at
+    lrs3.yaml's 16 layers, converted on load, against the same LM through
+    ``import_checkpoint lm`` (equal hypotheses); in a working directory of
+    their own. Returns the runs' summaries."""
+    import os
+
+    cwd = os.path.join(tmp, "cwd_codecs")
+    os.makedirs(cwd)
+    return {"codec_tools": dict(cli_tokenize(tmp, cwd), **cli_import(tmp, packed, cwd))}
+
+
+def cli_tokenize(tmp, cwd):
     """(ii) of ``cli_codecs``: ``tools.tokenize_audio`` on the card, both
     routes, over three wavs and a pkl of int16 audio; each file's tokens
     against ``tokenize_tree``'s on the CPU."""
@@ -2200,7 +2294,7 @@ def cli_tokenize(tmp):
         dst = os.path.join(tmp, f"tok_{codec}")
         what = f"(ii) tokenize_audio --codec {codec}"
         _, dt = run_cli("tools.tokenize_audio", ["--src", src, "--dst", dst, "--codec", codec,
-                                                 "--model", model], tmp, what)
+                                                 "--model", model], cwd, what)
         cpu = os.path.join(tmp, f"tok_{codec}_cpu")
         want = tokenize_tree(src, cpu, codec, model, device="cpu")
         same, total = 0, 0
@@ -2220,7 +2314,7 @@ def cli_tokenize(tmp):
     return tools
 
 
-def cli_import(tmp, packed):
+def cli_import(tmp, packed, cwd):
     """(iii) and (iv) of ``cli_codecs``: a full-width ``Vox+LRS2+LRS3.ckpt``
     (espnet layout) through ``tools.import_checkpoint lrs`` and a greedy
     ``evaluate`` of the packed tree's test split; beam ``evaluate`` of the
@@ -2243,11 +2337,11 @@ def cli_import(tmp, packed):
     torch.save({"state_dict": espnet_e2e_state_dict(lrs3_config(), seed=7), "epoch": 0},
                src_ckpt)
     imported = os.path.join(tmp, "lrs3_imported.msgpack")
-    _, dt = run_cli("tools.import_checkpoint", ["lrs", src_ckpt, imported], tmp,
+    _, dt = run_cli("tools.import_checkpoint", ["lrs", src_ckpt, imported], cwd,
                     "(iii) import_checkpoint lrs")
     lrs3 = ["preset=lrs3", "data.dataset=lrs3", "data.packed=true", f"data.root={packed}",
             f"ckpt={imported}"]
-    res_out, dt_eval = run_cli("evaluate", [*lrs3, "data.split=test", "decode=greedy"], tmp,
+    res_out, dt_eval = run_cli("evaluate", [*lrs3, "data.split=test", "decode=greedy"], cwd,
                                "(iii) evaluate greedy of the imported checkpoint")
     loaded = re.search(r"loaded (\d+)/(\d+) params", res_out)
     res = last_json(res_out, "(iii)")
@@ -2261,16 +2355,16 @@ def cli_import(tmp, packed):
     torch.save(espnet_transformer_lm_state_dict(5049, 16, 512, 2048, 128, seed=8), lm)
     run_cli("tools.import_checkpoint", ["lm", lm, os.path.join(tmp, "lm.msgpack"),
                                         "kind=transformer", "dim=512", "heads=8", "layers=16"],
-            tmp, "(iv) import_checkpoint lm")
+            cwd, "(iv) import_checkpoint lm")
     hyps = {}
     for name in ("lm.pth", "lm.msgpack"):
         # the val clips (120 and 260 frames) windowed to the 160-frame bucket:
         # one 160-step search
         res_out, dt = run_cli("evaluate", [*lrs3, "data.split=val", "data.max_frames_val=160",
                                            "decode=beam_batched", "decode_pad=bucket",
-                                           f"lm_ckpt={tmp}/{name}", "lm_weight=0.1"], tmp,
+                                           f"lm_ckpt={tmp}/{name}", "lm_weight=0.1"], cwd,
                               f"(iv) evaluate beam {name}")
-        with open(os.path.join(tmp, "hypotheses.jsonl")) as f:
+        with open(os.path.join(cwd, "hypotheses.jsonl")) as f:
             hyps[name] = [json.loads(line) for line in f]
         tools[f"beam_{name}"] = dict(last_json(res_out, "(iv)"), seconds=dt)
     if not (len(hyps["lm.pth"]) == 2 and hyps["lm.pth"] == hyps["lm.msgpack"]):
@@ -2556,17 +2650,25 @@ def parallel_world1(torch, np, summary):
             "launches_per_step": per_step}
 
 
-def _flat(torch, state):
-    """Every parameter, Adam moment and BatchNorm statistic of a state, as
-    CPU f32 copies by name (whole tensors: gathered under FSDP, a
-    collective)."""
+def _flat(torch, state, moments=True):
+    """Every parameter, Adam moment (unless not ``moments``) and BatchNorm
+    statistic of a state, as CPU f32 copies by name (whole tensors:
+    gathered from a split state, a collective)."""
     from syncvsr_tpu_torch.utils import checkpoint as ckpt
 
-    whole = ckpt.gather_for_save(state)
+    if moments:
+        whole = ckpt.gather_for_save(state)
+        lists = (("param", whole.params), ("mu", whole.mu), ("nu", whole.nu))
+    else:
+        params = [p.data for p in state.params]
+        for layout in (state.fsdp, state.tp):
+            if layout is not None:
+                params = layout.full(params)
+        lists = (("param", params),)
     out = {}
-    for what, ts in (("param", whole.params), ("mu", whole.mu), ("nu", whole.nu)):
+    for what, ts in lists:
         out.update((f"{what}:{n}", t.detach().float().cpu().clone())
-                   for n, t in zip(whole.names, ts))
+                   for n, t in zip(state.names, ts))
     out.update((f"stat:{n}", b.detach().float().cpu().clone())
                for n, b in state.model.named_buffers())
     return out
@@ -2804,34 +2906,13 @@ def parallel_phase(torch, np, summary):
     scaling. Returns the phase's summary."""
     import os
     import shutil
-    import socket
     import tempfile
-
-    import torch.multiprocessing as mp
 
     out = {"a_nccl_world1": parallel_world1(torch, np, summary)}
     tmp = tempfile.mkdtemp(prefix="syncvsr_parallel_")
     try:
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
-        res_path, ck = os.path.join(tmp, "res"), os.path.join(tmp, "ck")
-        t0 = time.perf_counter()
-        ctx = mp.spawn(parallel_worker, args=(2, port, res_path, ck), nprocs=2, join=False)
-        try:
-            while not ctx.join(timeout=5):
-                if time.perf_counter() - t0 > PARALLEL_TIMEOUT:
-                    raise AssertionError(f"parallel: the two processes ran past "
-                                         f"{PARALLEL_TIMEOUT} s")
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-        out["bc_seconds"] = time.perf_counter() - t0
-        ranks = []
-        for r in range(2):
-            with open(f"{res_path}.{r}") as f:
-                ranks.append(json.load(f))
+        ranks, out["bc_seconds"] = run_workers(torch, parallel_worker, 2,
+                                               os.path.join(tmp, "ck"), PARALLEL_TIMEOUT)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out.update(check_parallel(*ranks))
@@ -2911,6 +2992,337 @@ def check_parallel(r0, r1):
                 got = r[name] if path == "lrw_video_dp2" else r["lrs3_fsdp"][name]
                 for k, v in got["launches_per_step"].items():
                     out["launches"][k] += int(round(v * n))
+    return out
+
+
+# the tensor phase: tensor parallel (mesh.model) over processes sharing the card
+TENSOR_TIMEOUT = 300     # seconds the processes of (a)+(b), and of (d), may take
+# the model=2 runs against world 1 on the same batch, bf16: the first
+# step's loss within 2e-3 relative and its grad norm within 1e-2 (the
+# split products and the slot-split sync loss sum in other orders; bf16
+# rounds each op to 2^-9), the parameters as BF16_TOL's
+TP_TOL = {"loss": 2e-3, "grad_norm": 1e-2}
+# a rank's resident parameter (and moment) bytes over world 1's, as the
+# rule's split shares at model=2 predict (0.760 and 0.552 of the
+# parameters split in two: tests/test_torch_tensor_parallel.py)
+TP_HELD = {"lrs3": 0.620, "lrw_video": 0.724}
+TP_MIN_DIM_SMALL = 16    # (d)'s small model: the rule at test_spmd.py's min_dim
+TP_MIN_SIZE_SMALL = 256  # and its fsdp_min_size
+
+
+def tensor_worker(rank, world, port, out_path, job, device="cuda"):
+    """One of the processes of the tensor phase, all on cuda:0 in a gloo
+    group. ``job`` "ab": world 2 as (data=1, model=2), (a) ``lrs3`` and
+    (b) ``lrw_video`` at full width in bf16, 2 steps each with the rule's
+    split (min_dim 512), rank 0 also the world-1 references on the same
+    batch; "d": world 4 as (data=2, model=2) with FSDP on the small f32
+    ``lrw_video`` model, 3 steps, rank 0 also world 1 on the global batch.
+    Writes its results to ``out_path.<rank>``. (``device="cpu"`` rehearses
+    it without a card.)"""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from syncvsr_tpu_torch.engine import build_train_step, create_train_state
+    from syncvsr_tpu_torch.models import build_model
+    from syncvsr_tpu_torch.ops import image
+    from syncvsr_tpu_torch.parallel import (
+        create_mesh,
+        resident_bytes,
+        shard_batch,
+        shard_state,
+        state_shardings,
+    )
+    from syncvsr_tpu_torch.parallel.mesh import seed_dropout
+    from syncvsr_tpu_torch.utils import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        kernels.library()                       # built by the parent
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    mesh = create_mesh(model=2, device=dev)
+    res, mark = {"seconds": {}}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        res["seconds"][name] = round(now - mark[0], 1)
+        mark[0] = now
+
+    def on_dev(b):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in b.items()}
+
+    def make(cfg, batch, split, **rule):
+        state = create_train_state(cfg, build_model(cfg, device=dev), batch, device=dev)
+        if split:
+            seed_dropout(state, mesh)
+            state = shard_state(mesh, state, **rule)
+        return state
+
+    def run(cfg, whole, aug, n, name, rule, tol):
+        """The meshed steps on this rank's rows, then (rank 0) world 1 on
+        the global batch, and the comparison."""
+        batch = shard_batch(mesh, whole)
+        state = make(cfg, batch, True, **rule)
+        held = resident_bytes(state)
+        got, launches, ms = _steps(torch, state, build_train_step(aug, mesh), batch, n)
+        flat = _flat(torch, state, moments=False)
+        del state
+        torch.cuda.empty_cache()
+        out = {"metrics": got, "launches_per_step": launches, "resident_bytes": held,
+               "step_ms_ranks_one_card": ms}
+        if rank == 0:
+            state = make(cfg, on_dev(whole), False)
+            specs = state_shardings(mesh, state, **rule)
+            predicted = sum(p.numel() * p.element_size()
+                            // 2 ** (("model" in specs[n]) + ("data" in specs[n]))
+                            for n, p in zip(state.names, state.params))
+            out.update(world1_resident_bytes=resident_bytes(state), predicted_params=predicted,
+                       both_axes=[n for n, sp in specs.items() if "model" in sp and "data" in sp])
+            want, _, ms1 = _steps(torch, state, build_train_step(aug), on_dev(whole), n)
+            ref = _flat(torch, state, moments=False)
+            del state
+            torch.cuda.empty_cache()
+            lr_sum = sum(m["learning_rate"] for m in want)
+            keys = [k for k in ("loss", "loss_word", "loss_ctc", "loss_att", "loss_audio",
+                                "grad_norm") if k in want[0]]
+            if "param_rtol" in tol:
+                bad = _metrics_close(got, want, keys, tol["metric"])
+            else:   # bf16: the first step (same params) at TP_TOL
+                bad = _metrics_close(got[:1], want[:1], ("loss", "grad_norm"), TP_TOL["loss"],
+                                     TP_TOL["grad_norm"])
+            excess, leaf = _compare_flat(flat, ref, tol, lr_sum)
+            out.update(world1_metrics=want, world1_step_ms=ms1, bad_metrics=bad,
+                       param_excess=excess, param_worst_leaf=leaf)
+        dist.barrier()
+        res[name] = out
+        lap(name)
+
+    if job == "ab":
+        # (a) lrs3 at full width: 8 x 160 frames, 12 x 768 Conformer, 6 x 768 decoder
+        cfg = lrs3_cfg()
+        whole = uint8_sentences(np, cfg, LRS3_FRAMES, LRS3_LABEL_LEN, LRS3_SOURCE, seed=0)
+        run(cfg, whole, image.build_sentence_aug(cfg.data), 2, "lrs3_tp2", {}, BF16_TOL)
+        # (b) lrw_video at full width, 96 clips
+        cfg = lrw_video_cfg()
+        run(cfg, uint8_clips(np, cfg, seed=0), image.build_word_aug(cfg.data), 2,
+            "lrw_video_tp2", {}, BF16_TOL)
+    else:
+        # (d) the small f32 model on (data=2, model=2) with FSDP; deterministic
+        # cuDNN, as in the parallel phase (b)
+        no_dropout = {"model.encoder.emb_dropout": 0.0, "model.encoder.msa_dropout": 0.0,
+                      "model.encoder.mlp_dropout": 0.0, "model.encoder.droppath": 0.0}
+        small = lrw_video_cfg().override(**no_dropout, **{
+            "model.encoder.layers": 2, "model.encoder.dim": 64, "model.encoder.heads": 2,
+            "model.frontend.resnet_width": 16, "model.dtype": "float32",
+            "data.batch_size": 8})
+        torch.backends.cudnn.deterministic = True
+        run(small, uint8_clips(np, small, seed=0), image.build_word_aug(small.data), 3,
+            "small_grid", {"fsdp": True, "fsdp_min_size": TP_MIN_SIZE_SMALL,
+                           "min_dim": TP_MIN_DIM_SMALL}, F32_TOL)
+    dist.destroy_process_group()
+    with open(f"{out_path}.{rank}", "w") as f:
+        json.dump(res, f)
+
+
+def run_workers(torch, fn, world, job, timeout):
+    """``fn(rank, world, port, out_path, job)`` in ``world`` processes (each
+    writes its results as JSON to ``out_path.<rank>``); every rank's
+    results and the seconds they took."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="syncvsr_tensor_")
+    try:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        res_path = os.path.join(tmp, "res")
+        t0 = time.perf_counter()
+        ctx = mp.spawn(fn, args=(world, port, res_path, job), nprocs=world, join=False)
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > timeout:
+                    raise AssertionError(f"{fn.__name__}: the {world} processes ran past "
+                                         f"{timeout} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = []
+        for r in range(world):
+            with open(f"{res_path}.{r}") as f:
+                ranks.append(json.load(f))
+        return ranks, time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_tensor_run(ranks, name, want_steps, held=None):
+    """One meshed run's checks on every rank's results; its summary."""
+    got = ranks[0][name]
+    ratio = {k: got["resident_bytes"][k] / got["world1_resident_bytes"][k]
+             for k in got["resident_bytes"]}
+    predicted = got["predicted_params"] / got["world1_resident_bytes"]["params"]
+    log(f"tensor {name}: {len(ranks)} ranks {got['metrics']} against world 1 "
+        f"{got['world1_metrics']}; worst parameter excess over the tolerance "
+        f"{got['param_excess']:.3e} ({got['param_worst_leaf']}); resident bytes a rank "
+        f"{got['resident_bytes']} against world 1's {got['world1_resident_bytes']} "
+        f"(x{ratio['params']:.4f} params, x{ratio['moments']:.4f} moments; the specs predict "
+        f"x{predicted:.4f}{'' if held is None else f', TP_HELD x{held}'}); launches a step "
+        f"{got['launches_per_step']}; {got['step_ms_ranks_one_card']:.2f} ms a step "
+        f"({len(ranks)} ranks sharing one card, gloo through the host: correctness and "
+        f"memory, not scaling), world 1 {got['world1_step_ms']:.2f} ms")
+    if got["bad_metrics"] or got["param_excess"] > 0:
+        raise AssertionError(f"tensor {name}: the meshed step is not world 1's: "
+                             f"{got['bad_metrics']}, {got['param_worst_leaf']}")
+    for r in ranks:
+        if r[name]["launches_per_step"] != {k: float(v) for k, v in want_steps.items()}:
+            raise AssertionError(f"tensor {name}: launches a step {r[name]['launches_per_step']}")
+        if r[name]["metrics"] != got["metrics"]:
+            raise AssertionError(f"tensor {name}: the ranks' metrics differ")
+        if r[name]["resident_bytes"]["params"] != got["predicted_params"]:
+            raise AssertionError(f"tensor {name}: a rank holds {r[name]['resident_bytes']}, "
+                                 f"the specs predict {got['predicted_params']} params bytes")
+        if r[name]["resident_bytes"]["moments"] != 2 * got["predicted_params"]:
+            raise AssertionError(f"tensor {name}: Adam's moments are not split as the params")
+    if held is not None and abs(ratio["params"] - held) > 0.01 * held:
+        raise AssertionError(f"tensor {name}: a rank holds x{ratio['params']:.4f} of world 1's "
+                             f"parameter bytes, not x{held}")
+    return {k: got[k] for k in ("metrics", "world1_metrics", "param_excess",
+                                "param_worst_leaf", "launches_per_step", "resident_bytes",
+                                "world1_resident_bytes", "predicted_params",
+                                "step_ms_ranks_one_card", "world1_step_ms")} | {
+        "held_params": ratio["params"], "held_moments": ratio["moments"]}
+
+
+def tensor_cli(torch, np):
+    """(c): ``python -m torch.distributed.run --standalone --nproc-per-node 2
+    -m syncvsr_tpu_torch.train preset=lrs3 mesh.model=2 mesh.fsdp=true``
+    at full width and ``FILES_DEPTH`` ((a) runs the full depth) on
+    synthetic data, 2 steps (the two processes share the card over gloo):
+    rank 0 holds the bytes the specs predict, and its checkpoint, gathered
+    from both ranks, loads at one process with every leaf of the file
+    equal."""
+    import os
+    import shutil
+    import tempfile
+
+    from syncvsr_tpu_torch.engine import create_train_state
+    from syncvsr_tpu_torch.models import build_model
+    from syncvsr_tpu_torch.parallel import Mesh, state_shardings
+    from syncvsr_tpu_torch.utils import checkpoint as ckpt
+
+    tmp = tempfile.mkdtemp(prefix="syncvsr_tensor_cli_")
+    try:
+        ck = os.path.join(tmp, "ck")
+        env = dict(os.environ)
+        root = os.path.dirname(os.path.abspath(__file__))
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "2", "-m", "syncvsr_tpu_torch.train", "preset=lrs3",
+               *FILES_DEPTH, "data.dataset=synthetic", "data.batch_size=8", "mesh.model=2",
+               "mesh.fsdp=true",
+               "optim.total_steps=2", "train.log_every=1", "train.eval_every=1000",
+               "train.ckpt_every=1000", f"train.ckpt_dir={ck}"]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True,
+                             timeout=CLI_TIMEOUT)
+        dt = time.perf_counter() - t0
+        tail = "\n".join((out.stdout + out.stderr).strip().splitlines()[-12:])
+        log(f"tensor (c): {' '.join(cmd[1:])} -> exit {out.returncode} in {dt:.1f} s\n{tail}")
+        if out.returncode != 0:
+            raise AssertionError(f"tensor (c) failed (exit {out.returncode})")
+        if "mesh data 1 x model 2" not in out.stdout:
+            raise AssertionError("tensor (c): the driver did not make a model axis of 2")
+        held = int(out.stdout.split("[train] state a rank holds: params ")[1].split(" B")[0])
+        path = ckpt.latest_checkpoint(ck)
+        records = train_records(ck)
+        cfg = lrs3_cfg().override(**{a.split("=")[0]: int(a.split("=")[1])
+                                     for a in FILES_DEPTH})
+        dev = torch.device("cuda")
+        batch = {"videos": torch.zeros((1, 4, 88, 88, 1), device=dev),
+                 "lengths": torch.full((1,), 4, device=dev)}
+        state = create_train_state(cfg, build_model(cfg, device=dev), batch, device=dev)
+        full = sum(p.numel() * p.element_size() for p in state.params)
+        specs = state_shardings(Mesh(size=2, rank=0, device=dev, model=2), state)
+        predicted = sum(p.numel() * p.element_size() // (2 if "model" in specs[n] else 1)
+                        for n, p in zip(state.names, state.params))
+        ckpt.restore_train_state(path, state)
+        saved = ckpt.load_msgpack(path)
+        loaded = ckpt.state_payload(state)
+        unequal = [f"{key}:{k}" for key in ("params", "opt_state", "batch_stats")
+                   for k, v in ckpt.flatten(saved[key]).items()
+                   if not np.array_equal(v, ckpt.flatten(loaded[key])[k])]
+        leaves = sum(len(ckpt.flatten(saved[key])) for key in ("params", "opt_state",
+                                                                "batch_stats"))
+        del state
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ratio = held / full
+    log(f"tensor (c): rank 0 held {held} parameter bytes, x{ratio:.4f} of the whole "
+        f"{full} (the specs predict {predicted}); its checkpoint step {int(saved['step'])}: "
+        f"{leaves} leaves, unequal after the load at one process {unequal}; losses "
+        f"{[r['train/loss'] for r in records if 'train/loss' in r]}")
+    if unequal or not leaves or int(saved["step"]) != 2:
+        raise AssertionError("tensor (c): the checkpoint does not load whole at one process")
+    if held != predicted:
+        raise AssertionError(f"tensor (c): a rank holds {held} parameter bytes, the specs "
+                             f"predict {predicted}")
+    return {"seconds": dt, "held_params": ratio, "checkpoint_leaves": leaves}
+
+
+def tensor_phase(torch, np, summary):
+    """The ``tensor`` phase: tensor parallel (``mesh.model=2``) with the
+    processes sharing the card over gloo (NCCL takes one rank a device):
+    (a) ``lrs3`` and (b) ``lrw_video`` at full width against world 1 on
+    the same batch (bf16, ``TP_TOL``; each rank's resident bytes against
+    ``TP_HELD``; K1 on each rank's 4 of 8 slots: ``lrs3``'s local head is
+    [768, 4 x 320], 2.36 MiB, which the 4 MiB rule gives K1, not K2);
+    (c) the train driver under ``torch.distributed.run`` with
+    ``mesh.model=2 mesh.fsdp=true`` and its checkpoint at one process;
+    (d) four processes as (data=2, model=2) with FSDP on the small f32
+    model (``F32_TOL``, the rule at min_dim 16 so a leaf carries both
+    axes) against world 1. Step times of ranks sharing a card check
+    correctness and memory, not scaling. Returns the phase's summary."""
+    t0 = time.perf_counter()
+    out, launches = {}, {k: 0 for k in counters()}
+    ranks, out["ab_seconds"] = run_workers(torch, tensor_worker, 2, "ab", TENSOR_TIMEOUT)
+    log(f"tensor (a), (b): seconds {ranks[0]['seconds']}")
+    sent = {"sync_ce_fwd": 1, "sync_ce_split_fwd": 0, "bn_stats_fwd": 32, "bn_stats_bwd": 32}
+    word = {"sync_ce_fwd": 1, "sync_ce_split_fwd": 0, "bn_stats_fwd": 20, "bn_stats_bwd": 20}
+    out["lrs3_tp2"] = check_tensor_run(ranks, "lrs3_tp2", sent, TP_HELD["lrs3"])
+    out["lrw_video_tp2"] = check_tensor_run(ranks, "lrw_video_tp2", word,
+                                            TP_HELD["lrw_video"])
+    out["c"] = tensor_cli(torch, np)
+    ranks4, out["d_seconds"] = run_workers(torch, tensor_worker, 4, "d", TENSOR_TIMEOUT)
+    small = dict(word, bn_stats_fwd=21, bn_stats_bwd=21)
+    out["small_grid"] = check_tensor_run(ranks4, "small_grid", small)
+    if not ranks4[0]["small_grid"]["both_axes"]:
+        raise AssertionError("tensor (d): no leaf carries both axes")
+    log(f"tensor (d): leaves on both axes {ranks4[0]['small_grid']['both_axes'][:6]} ...")
+    for rs, runs in ((ranks, (("lrs3_tp2", 2), ("lrw_video_tp2", 2))),
+                     (ranks4, (("small_grid", 3),))):
+        for r in rs:
+            for name, n in runs:
+                for k, v in r[name]["launches_per_step"].items():
+                    launches[k] += int(round(v * n))
+    out["launches"] = launches
+    out["per_step"] = {p: out[p]["launches_per_step"] for p in ("lrs3_tp2", "lrw_video_tp2")}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"tensor: {out['seconds']:.1f} s in all; a two-rank step "
+        f"{out['lrs3_tp2']['step_ms_ranks_one_card']:.2f} ms (lrs3), "
+        f"{out['lrw_video_tp2']['step_ms_ranks_one_card']:.2f} ms (lrw_video): two ranks "
+        "sharing one card over gloo, which stages through the host: correctness and "
+        "memory, not scaling")
     return out
 
 
@@ -2994,6 +3406,10 @@ def main():
     lap("parallel")
     launches = {k: launches[k] + summary["parallel"]["launches"][k] for k in launches}
     per_step.update(summary["parallel"]["per_step"])
+    summary["tensor"] = tensor_phase(torch, np, summary)
+    lap("tensor")
+    launches = {k: launches[k] + summary["tensor"]["launches"][k] for k in launches}
+    per_step.update(summary["tensor"]["per_step"])
     # the kernels' windows first: after the steps' windows, torch.profiler
     # traced no kernel of theirs (run on an H100, PyTorch 2.11)
     for job in later + windows + [decode_window]:
@@ -3014,6 +3430,7 @@ def main():
     log(f"decode: {json.dumps(summary['decode'])}")
     log(f"cli: {json.dumps(summary['cli'])}")
     log(f"parallel: {json.dumps(summary['parallel'])}")
+    log(f"tensor: {json.dumps(summary['tensor'])}")
     log(f"summary: {json.dumps(summary)} on {card}")
     log(json.dumps({"kernels": entries}))
     log(card)

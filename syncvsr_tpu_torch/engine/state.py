@@ -90,7 +90,10 @@ class TrainState:
     ``total_notfinite`` (``ApplyIfFiniteState``). ``fsdp``: the
     ``parallel.mesh.ShardedParams`` of a state split over a mesh
     (``parallel.shard_state``), whose split parameters, moments and
-    accumulated gradient hold this rank's shard; None when it is whole."""
+    accumulated gradient hold this rank's shard; None when it is whole.
+    ``tp``: the ``parallel.mesh.TensorLayout`` of a state split over a
+    mesh's model axis, whose split parameters (and moments, and
+    accumulated gradient) hold this rank's columns; None without."""
 
     model: nn.Module
     optim: OptimConfig
@@ -113,6 +116,7 @@ class TrainState:
     last_finite: bool = True
     total_notfinite: int = 0
     fsdp: Optional[Any] = None
+    tp: Optional[Any] = None
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -123,24 +127,35 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 
 def grad_norm(state: TrainState, grads: List[torch.Tensor]) -> torch.Tensor:
     """The global norm of a gradient laid out as the state's parameters:
-    ``global_norm``, or under FSDP the split leaves' sum of squares summed
-    over the mesh (one all-reduce) plus the replicated leaves' once."""
-    layout = state.fsdp
-    if layout is None:
+    ``global_norm``; on a split state (``state.fsdp``, ``state.tp``) each
+    leaf's sum of squares summed over the axes it is split on (one
+    all-reduce over the data group, one over the model group) plus the
+    replicated leaves' once."""
+    fsdp, tp = state.fsdp, state.tp
+    if fsdp is None and tp is None:
         return global_norm(grads)
-    sq = [torch.stack([g.float().square().sum() for i, g in enumerate(grads)
-                       if layout.sharded(i) == split] or [grads[0].new_zeros(())])
-          .sum() for split in (True, False)]
-    (total,) = all_reduce_flat([sq[0]], layout.mesh)
-    return (total + sq[1]).sqrt()
+    zero = grads[0].new_zeros(())
+    sq = {}
+    for key in ((True, True), (True, False), (False, True), (False, False)):
+        sq[key] = torch.stack([g.float().square().sum() for i, g in enumerate(grads)
+                               if (fsdp is not None and fsdp.sharded(i),
+                                   tp is not None and tp.sharded(i)) == key] or [zero]).sum()
+    both, data_only = sq[True, True], sq[True, False]
+    if fsdp is not None:
+        both, data_only = all_reduce_flat([both, data_only], fsdp.mesh.data_group)
+    model_only = sq[False, True]
+    if tp is not None:
+        both, model_only = all_reduce_flat([both, model_only], tp.mesh.model_group)
+    return (both + data_only + model_only + sq[False, False]).sqrt()
 
 
 def all_finite(tensors: List[torch.Tensor], state: Optional[TrainState] = None) -> bool:
-    """Whether every element is finite (one host read); under FSDP, on
-    every rank's shards (one all-reduce), so the ranks decide alike."""
+    """Whether every element is finite (one host read); on a split state,
+    on every rank's shards (one all-reduce), so the ranks decide alike."""
     ok = torch.stack([torch.isfinite(t).all() for t in tensors]).all()
-    if state is not None and state.fsdp is not None:
-        (bad,) = all_reduce_flat([(~ok).float()], state.fsdp.mesh)
+    layout = None if state is None else (state.fsdp or state.tp)
+    if layout is not None:
+        (bad,) = all_reduce_flat([(~ok).float()], layout.mesh.group)
         return not bool(bad)
     return bool(ok)
 

@@ -35,12 +35,15 @@ def build_train_step(aug_fn: Optional[Callable] = None,
     which the step treats as the JAX package's global ``jit`` treats the
     batch sharded on ``data``: the forward and backward run with the mesh
     active (global BatchNorm statistics and loss means, global CutMix and
-    mixup partners; ``parallel/collectives.py``), then the gradients are
-    summed over the mesh (one all-reduce of one flat bucket; under FSDP,
-    ``state.fsdp``, a reduce-scatter of the split leaves after their
-    parameters were gathered for the forward), and every rank applies the
-    same update. The metrics are the global batch's on every rank."""
-    distributed = mesh is not None and mesh.size > 1
+    mixup partners; ``parallel/collectives.py``; on a state split over the
+    model axis, ``state.tp``, the split layers column-parallel,
+    ``parallel/tensor.py``), then the gradients are summed over the data
+    group (one all-reduce of one flat bucket; under FSDP, ``state.fsdp``, a
+    reduce-scatter of the split leaves after their parameters were gathered
+    for the forward), and every rank applies the update to what it holds
+    (the model ranks to their own columns). The metrics are the global
+    batch's on every rank."""
+    distributed = mesh is not None and mesh.data > 1
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
         layout = state.fsdp
@@ -62,7 +65,7 @@ def build_train_step(aug_fn: Optional[Callable] = None,
             grads = layout.reduce_gradients(grads)
             layout.release()
         elif distributed:
-            grads = all_reduce_flat(grads, mesh)
+            grads = all_reduce_flat(grads, mesh.data_group)
         norm = grad_norm(state, grads)
         lr = apply_gradients(state, grads)
         metrics = {k: v.detach() for k, v in out.items()}

@@ -24,7 +24,10 @@ rows of every eval batch, as the train driver's ranks do: the word-level
 step returns the global batch's metrics on every rank (``_weight`` the
 global real-row count), and the decoders run on each rank's rows, whose
 hypotheses rank 0 gathers in the loader's order, scores and writes. The
-WER, the accuracy and the hypotheses equal one process's. A mesh config
+WER, the accuracy and the hypotheses equal one process's. With
+``mesh.model > 1`` the weights stay whole on every rank (the JAX driver's
+``_eval_mesh`` replicates them too) and the rows split over the data axis:
+the ranks of one model group evaluate the same rows. A mesh config
 that does not fit the process group (``mesh.data`` another size) decodes
 unsharded, every rank the whole split, with the JAX driver's message.
 
@@ -134,15 +137,17 @@ def gather_records(records: List[Tuple[Tuple[int, int], Dict[str, Any]]], mesh: 
                    ) -> List[Dict[str, Any]]:
     """Every rank's (batch, row) keyed records, on rank 0 in the loaders'
     order: rank r's row i of batch k is row (k, i, r) of the split, which
-    is one process's order (the loaders give rank r the strided rows r, r +
-    W, ...). Other ranks get an empty list."""
+    is one process's order (the loaders give data index r the strided rows
+    r, r + W, ...; the ranks of one model group decode the same rows, and
+    model index 0's count). Other ranks get an empty list."""
     if mesh.size == 1:
         return [rec for _, rec in records]
     gathered = [None] * mesh.size
     dist.all_gather_object(gathered, records)
     if mesh.rank:
         return []
-    keyed = [(key + (r,), rec) for r, recs in enumerate(gathered) for key, rec in recs]
+    keyed = [(key + (r // mesh.model,), rec) for r, recs in enumerate(gathered)
+             if r % mesh.model == 0 for key, rec in recs]
     return [rec for _, rec in sorted(keyed, key=lambda kr: kr[0])]
 
 
@@ -208,9 +213,11 @@ def _evaluate(config: Config, split: str, dev: torch.device, ckpt_path, decode_m
     mesh = eval_mesh(config, dev)
     lead = mesh.rank == 0
     model = build_model(config, device=dev)
+    # the weights stay whole on every rank (the JAX driver's ``_eval_mesh``:
+    # replicated); the rows split over the data axis
     _, eval_loader = build_loaders(config, eval_split=split,
-                                   process_index=mesh.rank if mesh.size > 1 else 0,
-                                   process_count=mesh.size)
+                                   process_index=mesh.data_index if mesh.size > 1 else 0,
+                                   process_count=mesh.data)
     eval_transform, _ = transforms(config)
     example = eval_transform(to_device(next(iter(eval_loader)), dev))
     state = create_train_state(config, model, example, device=dev)

@@ -34,6 +34,7 @@ from syncvsr_tpu_torch.models.layers import (
 )
 from syncvsr_tpu_torch.models.transformer import HeadMerge, HeadProjection
 from syncvsr_tpu_torch.ops.cuda_bn import FastBatchNorm
+from syncvsr_tpu_torch.parallel import tensor
 
 Tensor = torch.Tensor
 
@@ -92,8 +93,8 @@ class RelPositionAttention(nn.Module):
         dt = self.dtype
         q, k, v = self.wq(x), self.wk(x), self.wv(x)                 # [B, T, H, Dk]
         p = self.linear_pos(pos_emb)                                 # [2T-1, H, Dk]
-        qu = (q + self.pos_bias_u.to(dt)).float().permute(0, 2, 1, 3)
-        qv = (q + self.pos_bias_v.to(dt)).float().permute(0, 2, 1, 3)
+        qu = (q + tensor.whole(self.pos_bias_u).to(dt)).float().permute(0, 2, 1, 3)
+        qv = (q + tensor.whole(self.pos_bias_v).to(dt)).float().permute(0, 2, 1, 3)
         ac = torch.matmul(qu, k.float().permute(0, 2, 3, 1))         # [B, H, T, T]
         bd = torch.matmul(qv, p.float().permute(1, 2, 0))            # [B, H, T, 2T-1]
         scores = (ac + rel_shift(bd)) / math.sqrt(self.d_k)
@@ -126,10 +127,18 @@ class ConvModule(nn.Module):
             x = x * pad_mask[:, :, None].to(x.dtype)
         a, g = self.pw1(x).chunk(2, dim=-1)
         h = a * torch.sigmoid(g)                                       # GLU
-        # over [B, C, T], back to a contiguous [B, T, C] for the BatchNorm
-        h = F.conv1d(h.transpose(1, 2), self.dw.weight.to(dt), self.dw.bias.to(dt),
-                     padding=self.dw.padding, groups=self.dw.groups)
-        h = h.transpose(1, 2).contiguous()
+        # over [B, C, T], back to a contiguous [B, T, C] for the BatchNorm;
+        # split over the model axis, on this rank's channels, gathered
+        # before the bias
+        w, b = self.dw.weight.to(dt), self.dw.bias.to(dt)
+        if tensor.split_dim(self.dw.weight) is None:
+            h = F.conv1d(h.transpose(1, 2), w, b, padding=self.dw.padding,
+                         groups=self.dw.groups)
+            h = h.transpose(1, 2).contiguous()
+        else:
+            h = F.conv1d(tensor.local(h).transpose(1, 2), w, padding=self.dw.padding,
+                         groups=w.shape[0])
+            h = tensor.gather_from_model(h.transpose(1, 2).contiguous(), bias=b)
         h = self.bn(h, train)
         h = h * torch.sigmoid(h)                                       # swish
         return self.pw2(h)

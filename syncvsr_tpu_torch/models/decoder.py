@@ -35,6 +35,7 @@ from syncvsr_tpu_torch.models.layers import (
     make_pad_bias,
 )
 from syncvsr_tpu_torch.models.transformer import HeadMerge, HeadProjection
+from syncvsr_tpu_torch.parallel import tensor
 
 Tensor = torch.Tensor
 
@@ -200,7 +201,11 @@ class TransformerDecoder(nn.Module):
 
     def _embed(self, ys: Tensor, det: bool = True,
                gen: Optional[torch.Generator] = None) -> Tensor:
-        x = self.embed.embedding.to(self.dtype)[ys.long()] * math.sqrt(self.dim)
+        table = self.embed.embedding
+        x = table.to(self.dtype)[ys.long()]
+        if tensor.split_dim(table) is not None:   # this rank's columns of the width
+            x = tensor.gather_from_model(x)
+        x = x * math.sqrt(self.dim)
         x = x + sinusoid_pe(ys.shape[1], self.dim, 0, self.dtype, ys.device)[None]
         return dropout(x, self.rate, det, gen)
 

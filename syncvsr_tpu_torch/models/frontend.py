@@ -23,6 +23,7 @@ from syncvsr_tpu_torch.models.resnet import ResNet1D, ResNetTrunk
 from syncvsr_tpu_torch.ops.cuda_bn import FastBatchNorm
 from syncvsr_tpu_torch.ops.maxpool import max_pool_3x3_s2
 from syncvsr_tpu_torch.ops.stem import stem_conv3d
+from syncvsr_tpu_torch.parallel import tensor
 
 Tensor = torch.Tensor
 
@@ -45,6 +46,8 @@ class Conv3DResNetFrontend(nn.Module):
 
     def forward(self, videos: Tensor, train: bool = False) -> Tensor:
         x = stem_conv3d(videos, self.stem_conv_kernel, self.dtype)   # [B, T, H, W, C]
+        if tensor.split_dim(self.stem_conv_kernel) is not None:   # this rank's channels
+            x = tensor.gather_from_model(x)
         # long clips fold time into batch after the only temporal op; the
         # statistics reduce over all non-channel axes either way
         b, t = x.shape[0], x.shape[1]

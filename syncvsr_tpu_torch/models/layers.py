@@ -21,7 +21,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from syncvsr_tpu_torch.parallel import collectives
+from syncvsr_tpu_torch.parallel import collectives, tensor
 
 Tensor = torch.Tensor
 
@@ -125,7 +125,9 @@ class Dense(nn.Module):
     """flax ``nn.Dense`` with f32 params: ``weight`` [out, in], ``bias``
     [out]; input, weight and bias are cast to ``dtype`` before the product.
     The weight starts truncated-normal at std 0.02, or at flax's default
-    ``lecun_normal`` with ``lecun=True``."""
+    ``lecun_normal`` with ``lecun=True``. Where the state holds this rank's
+    rows of the weight (tensor parallel, ``parallel/tensor.py``) the product
+    gives this rank's output columns, gathered before the bias."""
 
     def __init__(self, din: int, dout: int, dtype: torch.dtype = torch.float32,
                  lecun: bool = False):
@@ -137,7 +139,10 @@ class Dense(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         d = self.dtype
-        return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
+        if tensor.split_dim(self.weight) is None:
+            return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
+        y = F.linear(tensor.copy_to_model(x.to(d)), self.weight.to(d))
+        return tensor.gather_from_model(y, bias=self.bias.to(d))
 
 
 SE_REDUCTION = 16

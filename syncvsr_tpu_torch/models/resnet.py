@@ -24,13 +24,15 @@ from syncvsr_tpu_torch.models.layers import (
     variance_scaling_fan_out_,
 )
 from syncvsr_tpu_torch.ops.cuda_bn import FastBatchNorm
+from syncvsr_tpu_torch.parallel import tensor
 
 Tensor = torch.Tensor
 
 
 class SpatialConv(nn.Module):
     """k x k spatial conv, no bias, over [..., H, W, C] (4-D or 5-D; a 5-D
-    clip is convolved per frame); ``weight`` [O, I, k, k]."""
+    clip is convolved per frame); ``weight`` [O, I, k, k]. Split over the
+    model axis (on O), each rank gives its output channels, gathered."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  dtype: torch.dtype = torch.float32):
@@ -44,11 +46,14 @@ class SpatialConv(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         lead = x.shape[:-3]
         h, w, c = x.shape[-3:]
-        x4 = x.to(self.dtype).reshape(-1, h, w, c).permute(0, 3, 1, 2)
+        split = tensor.split_dim(self.weight) is not None
+        x = tensor.copy_to_model(x.to(self.dtype)) if split else x.to(self.dtype)
+        x4 = x.reshape(-1, h, w, c).permute(0, 3, 1, 2)
         wt = self.weight.to(self.dtype).contiguous(memory_format=torch.channels_last)
         y = F.conv2d(x4, wt, stride=self.stride, padding=self.pad)
         y = y.permute(0, 2, 3, 1).contiguous()
-        return y.reshape(*lead, *y.shape[1:])
+        y = y.reshape(*lead, *y.shape[1:])
+        return tensor.gather_from_model(y) if split else y
 
 
 class BasicBlock(nn.Module):
@@ -118,7 +123,9 @@ class Conv1d(nn.Module):
     so the output is contiguous [B, S', O] as cuDNN writes it: no transpose
     around the BatchNorms. On the CPU it runs as ``conv1d`` on the [B, C, S]
     transpose: oneDNN's backward of that 2-D form corrupts the heap there
-    (PyTorch 2.13 CPU, seen from a chain of two blocks)."""
+    (PyTorch 2.13 CPU, seen from a chain of two blocks). Split over the
+    model axis (on O), each rank gives its output channels (a depthwise
+    conv from its channels of the input), gathered before the bias."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  dtype: torch.dtype = torch.float32, dilation: int = 1, groups: int = 1,
@@ -136,19 +143,27 @@ class Conv1d(nn.Module):
         k = (self.weight.shape[-1] - 1) * self.dilation + 1
         lo, hi = same_padding(x.shape[1], k, self.stride)
         x = x.to(self.dtype)
-        if lo != hi:
-            x, lo = F.pad(x, (0, 0, lo, hi)), 0
         w = self.weight.to(self.dtype)
         b = self.bias.to(self.dtype) if hasattr(self, "bias") else None
+        groups = self.groups
+        split = tensor.split_dim(self.weight) is not None
+        if split:   # a depthwise conv (groups = channels) reads its channels
+            x = tensor.local(x) if groups > 1 else tensor.copy_to_model(x)
+            groups = w.shape[0] if groups > 1 else 1
+            b, bias = None, b
+        if lo != hi:
+            x, lo = F.pad(x, (0, 0, lo, hi)), 0
         if not x.is_cuda:
             y = F.conv1d(x.transpose(1, 2), w, b, stride=self.stride, padding=lo,
-                         dilation=self.dilation, groups=self.groups)
-            return y.transpose(1, 2).contiguous()
-        x4 = x.unsqueeze(1).permute(0, 3, 1, 2)              # [B, C, 1, S]
-        w4 = w.unsqueeze(2).contiguous(memory_format=torch.channels_last)
-        y = F.conv2d(x4, w4, b, stride=(1, self.stride), padding=(0, lo),
-                     dilation=(1, self.dilation), groups=self.groups)
-        return y.permute(0, 2, 3, 1).reshape(y.shape[0], y.shape[3], y.shape[1])
+                         dilation=self.dilation, groups=groups)
+            y = y.transpose(1, 2).contiguous()
+        else:
+            x4 = x.unsqueeze(1).permute(0, 3, 1, 2)              # [B, C, 1, S]
+            w4 = w.unsqueeze(2).contiguous(memory_format=torch.channels_last)
+            y = F.conv2d(x4, w4, b, stride=(1, self.stride), padding=(0, lo),
+                         dilation=(1, self.dilation), groups=groups)
+            y = y.permute(0, 2, 3, 1).reshape(y.shape[0], y.shape[3], y.shape[1])
+        return tensor.gather_from_model(y, bias=bias) if split else y
 
 
 class BasicBlock1D(nn.Module):

@@ -29,6 +29,7 @@ from syncvsr_tpu_torch.models.layers import (
     rope_angles,
     trunc_normal_,
 )
+from syncvsr_tpu_torch.parallel import tensor
 
 Tensor = torch.Tensor
 
@@ -36,7 +37,9 @@ Tensor = torch.Tensor
 class HeadProjection(nn.Module):
     """flax ``DenseGeneral((heads, head_dim))``: ``weight`` [H, Dh, in],
     ``bias`` [H, Dh] (none with ``bias=False``); [B, T, in] -> [B, T, H, Dh].
-    The weight starts at std 0.02, or at flax's ``lecun_normal``."""
+    The weight starts at std 0.02, or at flax's ``lecun_normal``. Split over
+    the model axis (on Dh, with the bias), each rank projects its Dh
+    columns of every head, gathered after."""
 
     def __init__(self, din: int, heads: int, head_dim: int, dtype: torch.dtype,
                  bias: bool = True, lecun: bool = False):
@@ -49,14 +52,19 @@ class HeadProjection(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         h, dh, din = self.weight.shape
         d = self.dtype
+        split = tensor.split_dim(self.weight) is not None
         b = None if self.bias is None else self.bias.to(d).reshape(-1)
-        y = F.linear(x.to(d), self.weight.to(d).reshape(h * dh, din), b)
-        return y.reshape(*x.shape[:-1], h, dh)
+        x = tensor.copy_to_model(x.to(d)) if split else x.to(d)
+        y = F.linear(x, self.weight.to(d).reshape(h * dh, din), b)
+        y = y.reshape(*x.shape[:-1], h, dh)
+        return tensor.gather_from_model(y) if split else y
 
 
 class HeadMerge(nn.Module):
     """flax ``DenseGeneral(out, axis=(-2, -1))``: ``weight`` [out, H, Dh],
-    ``bias`` [out]; [B, T, H, Dh] -> [B, T, out]."""
+    ``bias`` [out]; [B, T, H, Dh] -> [B, T, out]. Split over the model axis
+    (on out), each rank gives its output columns, gathered before the
+    bias."""
 
     def __init__(self, heads: int, head_dim: int, dout: int, dtype: torch.dtype,
                  lecun: bool = False):
@@ -70,8 +78,12 @@ class HeadMerge(nn.Module):
     def forward(self, o: Tensor) -> Tensor:
         d = self.dtype
         dout = self.weight.shape[0]
-        return F.linear(o.reshape(*o.shape[:-2], -1).to(d),
-                        self.weight.to(d).reshape(dout, -1), self.bias.to(d))
+        x = o.reshape(*o.shape[:-2], -1).to(d)
+        w = self.weight.to(d).reshape(dout, -1)
+        if tensor.split_dim(self.weight) is None:
+            return F.linear(x, w, self.bias.to(d))
+        return tensor.gather_from_model(F.linear(tensor.copy_to_model(x), w),
+                                        bias=self.bias.to(d))
 
 
 class RotaryAttention(nn.Module):

@@ -40,8 +40,8 @@ from syncvsr_tpu_torch.ops.cutmix import (
     temporal_cutmix_apply,
 )
 from syncvsr_tpu_torch.ops.masking import weighted_mean
-from syncvsr_tpu_torch.ops.sync_loss import sync_cross_entropy
-from syncvsr_tpu_torch.parallel import collectives
+from syncvsr_tpu_torch.ops.sync_loss import regroup_tokens, sync_cross_entropy
+from syncvsr_tpu_torch.parallel import collectives, tensor
 
 Tensor = torch.Tensor
 
@@ -59,7 +59,15 @@ class SyncHead(nn.Module):
     On a CUDA tensor the loss runs the fused projection + CE kernel (K1, or
     K2 for a wide head); on a CPU tensor the plain (chunked when ``chunk``
     is given) path, as the JAX head dispatches on the backend. ``chunk`` is
-    the backward's time chunk; the fused path defaults it to min(T, 128)."""
+    the backward's time chunk; the fused path defaults it to min(T, 128).
+
+    Split over the model axis (tensor parallel: the flax kernel [D, S*V] on
+    its trailing dim), rank m holds the weight of slots [m*S/M, (m+1)*S/M):
+    the loss runs on those slots only (K1 or K2 by the local weight's
+    size), its (sum, count) partials are summed over every rank, and the
+    features' gradient shares over the model group (``copy_to_model``).
+    Where S does not split evenly the weight is gathered whole (one
+    all-gather) and the kernel runs as on one rank."""
 
     def __init__(self, dim: int, alignment: int, groups: int, vocab: int):
         super().__init__()
@@ -70,14 +78,28 @@ class SyncHead(nn.Module):
 
     def forward(self, features: Tensor, tokens: Tensor,
                 chunk: Optional[int] = None) -> Tensor:
-        kernel = self.weight.t()  # [D, A*G*V], the flax layout
+        weight, bias = self.weight, self.bias
+        alignment, groups = self.alignment, self.groups
+        split = tensor.split_dim(weight) is not None
+        if split:
+            m, n = tensor.index()
+            slots = alignment * groups
+            if slots % n:
+                weight, split = tensor.whole(weight), False
+            else:   # this rank's slots: tokens [B, T, S/M] as (alignment 1, S/M groups)
+                b, t = features.shape[:2]
+                s = slots // n
+                tokens = regroup_tokens(tokens, b, t, alignment, groups)[..., m * s:(m + 1) * s]
+                alignment, groups = 1, s
+                features = tensor.copy_to_model(features)
+                bias = tensor.local(bias, 0)
+        kernel = weight.t()  # [D, A*G*V], the flax layout
         if features.is_cuda:
             bwd_chunk = chunk or min(max(features.shape[1], 8), 128)
-            return fused_sync_cross_entropy(features, kernel, self.bias, tokens,
-                                            self.alignment, self.groups, self.vocab,
-                                            bwd_chunk)
-        return sync_cross_entropy(features, kernel, self.bias, tokens, self.alignment,
-                                  self.groups, self.vocab, chunk=chunk)
+            return fused_sync_cross_entropy(features, kernel, bias, tokens, alignment,
+                                            groups, self.vocab, bwd_chunk, model=split)
+        return sync_cross_entropy(features, kernel, bias, tokens, alignment, groups,
+                                  self.vocab, chunk=chunk, model=split)
 
 
 class WordVSRModel(nn.Module):
@@ -169,7 +191,7 @@ class WordVSRModel(nn.Module):
                 raise ValueError("use_word_boundary needs a word_mask")
             hidden = torch.cat((hidden, word_mask[:, :, None].to(dtype)), dim=-1)
         b, t, dim_backbone = hidden.shape
-        cls = self.cls_token
+        cls = tensor.whole(self.cls_token)
         if cfg.use_word_boundary:  # the CLS token carries no boundary bit
             cls = torch.cat((cls[..., :-1], torch.zeros_like(cls[..., -1:])), dim=-1)
         hidden = torch.cat((cls.to(dtype).expand(b, 1, dim_backbone), hidden), dim=1)

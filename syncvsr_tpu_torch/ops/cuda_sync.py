@@ -29,7 +29,9 @@ per-device result arena (``utils/kernels``): no allocation a call.
 backward is the chunked recompute of ``ops/sync_loss.py`` in plain
 PyTorch, as the JAX package runs ``_chunked_bwd`` in XLA, over the original
 f32 features. In a data-parallel step the kernels run on this rank's rows
-and their (sum, count) is all-reduced before the division.
+and their (sum, count) is all-reduced before the division; with a head
+split over the model axis, on this rank's slots too (the choice of K1 or
+K2 then follows the local weight's size), summed over every rank.
 """
 
 from __future__ import annotations
@@ -232,17 +234,19 @@ def sync_ce_partials(x: Tensor, w: Tensor, b: Tensor, tok: Tensor
 
 class _FusedSyncCE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, features, kernel, bias, tokens, alignment, groups, vocab, chunk):
+    def forward(ctx, features, kernel, bias, tokens, alignment, groups, vocab, chunk,
+                model):
         b, t, d = features.shape
         slots = alignment * groups
         tok = regroup_tokens(tokens, b, t, alignment, groups)
         ce_sum, count = sync_ce_partials(features.reshape(b * t, d), kernel, bias,
                                          tok.reshape(b * t, slots))
         feats, tok_p, cnt = make_chunk_residuals(features, tokens, alignment, groups, chunk)
-        if collectives.active() is not None:
-            # K1/K2's (ce_sum, count) summed over the global batch before the
-            # division; the backward scales by the global count
-            ce_sum, count = collectives.reduce_sums(ce_sum, count)
+        if collectives.reduces(model):
+            # K1/K2's (ce_sum, count) summed over the global batch (and the
+            # model group's slots) before the division; the backward scales
+            # by the global count
+            ce_sum, count = collectives.reduce_sums(ce_sum, count, model=model)
             cnt = torch.clamp(count, min=1.0)
         ctx.save_for_backward(feats, kernel, bias, tok_p, cnt)
         ctx.meta = (t, alignment, groups, vocab, chunk)
@@ -254,16 +258,17 @@ class _FusedSyncCE(torch.autograd.Function):
         t, alignment, groups, vocab, chunk = ctx.meta
         df, dk, db = chunked_backward(feats, kernel, bias, tok, count, t, alignment,
                                       groups, vocab, chunk, g)
-        return df, dk, db, None, None, None, None, None
+        return df, dk, db, None, None, None, None, None, None
 
 
 def fused_sync_cross_entropy(features: Tensor, kernel: Tensor, bias: Tensor,
                              tokens: Tensor, alignment: int, groups: int, vocab: int,
-                             chunk: int = 128) -> Tensor:
+                             chunk: int = 128, model: bool = False) -> Tensor:
     """Drop-in fused version of ops.sync_loss.sync_cross_entropy.
 
     features [B, T, D]; kernel [D, A*G*V]; bias [A*G*V];
-    tokens [B, >= T*A, G] (-1 ignored); ``chunk`` is the backward's time chunk.
+    tokens [B, >= T*A, G] (-1 ignored); ``chunk`` is the backward's time
+    chunk; ``model``: the slots are this rank's share of the model group's.
     """
     return _FusedSyncCE.apply(features, kernel, bias, tokens, alignment, groups,
-                              vocab, chunk)
+                              vocab, chunk, model)

@@ -13,7 +13,9 @@ autograd function whose backward recomputes each chunk's softmax, so the
 
 In a data-parallel step (``parallel/collectives.py``) the sum and the valid
 count are the global batch's, all-reduced before the division; the
-backward scales by the global count.
+backward scales by the global count. With ``model`` (a head whose slots
+are split over the model axis, ``models/word.py::SyncHead``) they are
+this rank's slots' partials, summed over every rank.
 """
 
 from __future__ import annotations
@@ -115,7 +117,8 @@ def chunked_backward(features: Tensor, kernel: Tensor, bias: Tensor, tok: Tensor
 
 class _ChunkedSyncCE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, features, kernel, bias, tokens, alignment, groups, vocab, chunk):
+    def forward(ctx, features, kernel, bias, tokens, alignment, groups, vocab, chunk,
+                model):
         t = features.shape[1]
         feats, tok, count = make_chunk_residuals(features, tokens, alignment, groups, chunk)
         total = torch.zeros((), dtype=torch.float32, device=features.device)
@@ -124,8 +127,8 @@ class _ChunkedSyncCE(torch.autograd.Function):
                                  alignment, groups, vocab)
             s, _ = _masked_ce(logits, tok[:, c0:c0 + chunk])
             total = total + s
-        if collectives.active() is not None:   # the global sum and slot count
-            total, count = collectives.reduce_sums(total, (tok >= 0).sum())
+        if collectives.reduces(model):   # the global sum and slot count
+            total, count = collectives.reduce_sums(total, (tok >= 0).sum(), model=model)
             count = torch.clamp(count, min=1.0)
         ctx.save_for_backward(feats, kernel, bias, tok, count)
         ctx.meta = (t, alignment, groups, vocab, chunk)
@@ -137,22 +140,23 @@ class _ChunkedSyncCE(torch.autograd.Function):
         t, alignment, groups, vocab, chunk = ctx.meta
         df, dk, db = chunked_backward(feats, kernel, bias, tok, count, t, alignment,
                                       groups, vocab, chunk, g)
-        return df, dk, db, None, None, None, None, None
+        return df, dk, db, None, None, None, None, None, None
 
 
 def sync_cross_entropy(features: Tensor, kernel: Tensor, bias: Tensor, tokens: Tensor,
                        alignment: int, groups: int, vocab: int,
-                       chunk: Optional[int] = None) -> Tensor:
+                       chunk: Optional[int] = None, model: bool = False) -> Tensor:
     """Mean CE over every valid (frame, alignment, group) slot.
 
     features [B, T, D]; kernel [D, A*G*V]; bias [A*G*V];
-    tokens [B, >= T*A, G] int (negative = ignore).
+    tokens [B, >= T*A, G] int (negative = ignore). ``model``: the slots are
+    this rank's share of the model group's (the sums span every rank).
     """
     b, t, _ = features.shape
     if chunk is None or chunk >= t:
         tok = regroup_tokens(tokens, b, t, alignment, groups)
         logits = sync_logits(features, kernel, bias, alignment, groups, vocab)
         total, count = _masked_ce(logits, tok)
-        return collectives.global_mean(total, count, floor=1)
+        return collectives.global_mean(total, count, floor=1, model=model)
     return _ChunkedSyncCE.apply(features, kernel, bias, tokens, alignment, groups,
-                                vocab, chunk)
+                                vocab, chunk, model)

@@ -20,8 +20,16 @@ stand in for the cross-shard reductions XLA inserts:
   row, over the global batch (CutMix's and mixup's partners), with
   ``all_to_all_single`` and ``all_gather_into_tensor``.
 
+On a mesh with a ``model`` axis (``parallel/tensor.py``) these reduce over
+the **data group** only: the ranks of one model group hold the same rows,
+so a sum over them too would count each row ``model`` times. The one
+exception is ``model=True`` (``reduce_sums``, ``global_mean``): the
+(sum, count) partials of a sync head whose slots are split over the model
+ranks, which are summed over every rank (data and model).
+
 The step makes its mesh the active one (``data_parallel``) for its forward
-and backward; the ops ask ``active()``. The mark is process-wide, not
+and backward; the ops ask ``active()`` (the mesh where its data axis has
+more than one rank). The mark is process-wide, not
 per-thread: the autograd engine runs a CUDA backward, and a ``model.remat``
 recompute inside it, on a thread of its own. With no active mesh (one
 process) every helper is the identity and issues no collective, so the
@@ -47,7 +55,14 @@ _ACTIVE = None   # the Mesh whose step is running, or None
 
 
 def active():
-    """The mesh whose data-parallel step is running, or None."""
+    """The mesh whose step is running where its data axis has more than one
+    rank (so the global-batch reductions are needed), or None."""
+    mesh = _ACTIVE
+    return mesh if mesh is not None and mesh.data > 1 else None
+
+
+def running():
+    """The mesh whose step is running (any axis above one), or None."""
     return _ACTIVE
 
 
@@ -64,23 +79,35 @@ def data_parallel(mesh) -> Iterator[None]:
 
 
 def shard() -> Tuple[int, int]:
-    """(rank, world size) of the active mesh; (0, 1) with none."""
-    mesh = _ACTIVE
-    return (0, 1) if mesh is None else (mesh.rank, mesh.size)
+    """(data index, data size) of the active mesh; (0, 1) with none."""
+    mesh = active()
+    return (0, 1) if mesh is None else (mesh.data_index, mesh.data)
 
 
 def _all_reduce(t: Tensor, mesh) -> Tensor:
-    dist.all_reduce(t, group=mesh.group)
+    dist.all_reduce(t, group=mesh.data_group)
     return t
 
 
-def reduce_sums(*ts: Tensor) -> List[Tensor]:
-    """Each tensor summed over the active mesh, in one all-reduce of their
-    f32 concatenation (no gradient); the tensors themselves with none."""
+def reduces(model: bool = False) -> bool:
+    """Whether ``reduce_sums(..., model=model)`` sums over other ranks."""
     mesh = _ACTIVE
-    if mesh is None:
+    return mesh is not None and (mesh.data > 1 or (model and mesh.model > 1))
+
+
+def reduce_sums(*ts: Tensor, model: bool = False) -> List[Tensor]:
+    """Each tensor summed over the active mesh's data group (with ``model``,
+    over every rank: partials of a head split over the model group too),
+    in one all-reduce of their f32 concatenation (no gradient); the tensors
+    themselves where there is nothing to sum over."""
+    mesh = _ACTIVE
+    if not reduces(model):
         return list(ts)
-    flat = _all_reduce(torch.cat([t.detach().float().reshape(-1) for t in ts]), mesh)
+    flat = torch.cat([t.detach().float().reshape(-1) for t in ts])
+    if model and mesh.model > 1:
+        dist.all_reduce(flat, group=mesh.group)
+    else:
+        _all_reduce(flat, mesh)
     out, i = [], 0
     for t in ts:
         out.append(flat[i:i + t.numel()].view(t.shape))
@@ -89,24 +116,25 @@ def reduce_sums(*ts: Tensor) -> List[Tensor]:
 
 
 def global_sum(t: Tensor) -> Tensor:
-    """The sum of ``t`` over the active mesh: its value on every rank, with
-    the gradient of the local term."""
-    if _ACTIVE is None:
+    """The sum of ``t`` over the active mesh's data group: its value on
+    every rank, with the gradient of the local term."""
+    if active() is None:
         return t
     (tot,) = reduce_sums(t)
     return tot + (t - t.detach()) if t.requires_grad else tot
 
 
 def global_mean(num: Tensor, den: Union[Tensor, float],
-                floor: Optional[float] = None) -> Tensor:
-    """``num / max(den, floor)`` with both summed over the active mesh (one
-    all-reduce): the global mean on every rank, whose gradient is that of
-    ``num_local / den_global``. With no active mesh, the local division."""
-    if _ACTIVE is None:
+                floor: Optional[float] = None, model: bool = False) -> Tensor:
+    """``num / max(den, floor)`` with both summed over the active mesh's
+    data group (with ``model``, over every rank; one all-reduce): the global
+    mean on every rank, whose gradient is that of ``num_local /
+    den_global``. With nothing to sum over, the local division."""
+    if not reduces(model):
         return num / (den if floor is None else torch.clamp(den, min=floor))
     if not isinstance(den, Tensor):
         den = torch.tensor(float(den), device=num.device)
-    tot_num, tot_den = reduce_sums(num, den)
+    tot_num, tot_den = reduce_sums(num, den, model=model)
     if floor is not None:
         tot_den = torch.clamp(tot_den, min=floor)
     if num.requires_grad:
@@ -126,11 +154,12 @@ class _AllReduceGrad(torch.autograd.Function):
 
 
 def all_reduce_grad(x: Tensor) -> Tensor:
-    """``x`` summed over the active mesh; its backward sums the cotangent
-    over the mesh too (the gradient of a shared statistic)."""
-    if _ACTIVE is None:
+    """``x`` summed over the active mesh's data group; its backward sums
+    the cotangent over the group too (the gradient of a shared statistic)."""
+    mesh = active()
+    if mesh is None:
         return x
-    return _AllReduceGrad.apply(x, _ACTIVE)
+    return _AllReduceGrad.apply(x, mesh)
 
 
 def _bytes(x: Tensor) -> Tensor:
@@ -144,30 +173,31 @@ def _from_bytes(b: Tensor, like: Tensor) -> Tensor:
 
 
 def global_flip(x: Tensor) -> Tensor:
-    """``x`` flipped along the global batch: rank r's rows are rank
-    (W-1-r)'s, reversed. One ``all_to_all_single`` that sends the whole
-    local batch to the partner (the middle rank of an odd mesh is its own)."""
-    mesh = _ACTIVE
+    """``x`` flipped along the global batch: data index d's rows are index
+    (D-1-d)'s, reversed. One ``all_to_all_single`` over the data group that
+    sends the whole local batch to the partner (the middle rank of an odd
+    mesh is its own)."""
+    mesh = active()
     if mesh is None:
         return torch.flip(x, dims=(0,))
-    partner = mesh.size - 1 - mesh.rank
+    partner = mesh.data - 1 - mesh.data_index
     src = _bytes(x)
     out = torch.empty_like(src)
-    splits = [src.shape[0] if r == partner else 0 for r in range(mesh.size)]
+    splits = [src.shape[0] if r == partner else 0 for r in range(mesh.data)]
     dist.all_to_all_single(out, src, output_split_sizes=splits, input_split_sizes=splits,
-                           group=mesh.group)
+                           group=mesh.data_group)
     return torch.flip(_from_bytes(out, x), dims=(0,))
 
 
 def global_roll(x: Tensor) -> Tensor:
     """``x`` rolled by one row along the global batch (``roll(x, 1, 0)`` of
-    the whole): rank r's first row is rank (r-1)'s last. One all-gather of
-    every rank's last row."""
-    mesh = _ACTIVE
+    the whole): data index d's first row is index (d-1)'s last. One
+    all-gather over the data group of every rank's last row."""
+    mesh = active()
     if mesh is None:
         return torch.roll(x, 1, dims=0)
     last = _bytes(x[-1:])
-    rows = torch.empty((mesh.size, last.shape[1]), dtype=torch.uint8, device=x.device)
-    dist.all_gather_into_tensor(rows, last, group=mesh.group)
-    prev = _from_bytes(rows[(mesh.rank - 1) % mesh.size][None], x)
+    rows = torch.empty((mesh.data, last.shape[1]), dtype=torch.uint8, device=x.device)
+    dist.all_gather_into_tensor(rows, last, group=mesh.data_group)
+    prev = _from_bytes(rows[(mesh.data_index - 1) % mesh.data][None], x)
     return torch.cat((prev, x[:-1]), dim=0)

@@ -3,19 +3,24 @@
 The JAX package runs one process per host over a ``(data, seq, model)``
 device mesh and lets XLA place a sharded batch and state. PyTorch's idiom
 is one process per GPU: ``Mesh`` describes the ``torch.distributed`` group
-(its size is the ``data`` axis, each rank one device) and the step issues
-the collectives itself (``parallel/collectives.py``, ``engine/steps.py``).
-Each process holds its rows of the global batch: rank r rows
-[r*b, (r+1)*b), as ``jax.make_array_from_process_local_data`` lays
-processes out along ``data``.
+as a ``data`` x ``model`` grid of ranks, ``model`` innermost as in JAX's
+``reshape(data, seq, model)`` (rank r at data index ``r // model`` and
+model index ``r % model``), and the step issues the collectives itself
+(``parallel/collectives.py``, ``parallel/tensor.py``, ``engine/steps.py``).
+Each data index holds its rows of the global batch (rows [d*b, (d+1)*b)),
+as ``jax.make_array_from_process_local_data`` lays processes out along
+``data``; the ranks of one model group hold the same rows.
 
-``mesh.fsdp`` (ZeRO over ``data``) keeps every parameter of at least
-``fsdp_min_size`` elements, and both of its Adam moments, split over the
-ranks on one dimension, chosen by the JAX package's rule on the flax
-layout of the leaf (``state_shardings``); the step gathers the parameters
-for its forward and backward and reduce-scatters their gradients
-(``ShardedParams``). The ``model`` (tensor parallel) and ``seq`` (sequence
-parallel) axes are not ported: sizes above 1 raise.
+``state_shardings`` is the JAX package's rule on the flax layout of each
+leaf (``bridge.flax_perm``): on a mesh with ``model > 1`` a leaf of rank
+>= 2 whose trailing flax dim is >= ``min_dim`` and divisible by ``model``
+is split on it over the model ranks (tensor parallel: each rank then
+computes its columns, ``parallel/tensor.py``); under ``mesh.fsdp`` (ZeRO
+over ``data``) every leaf of at least ``fsdp_min_size`` elements is split
+over the data ranks on its largest other divisible dimension, and its Adam
+moments with it (``ShardedParams``: the step gathers the parameters for
+its forward and backward and reduce-scatters their gradients). The
+``seq`` (sequence parallel) axis is not ported: a size above 1 raises.
 
 With no process group, the mesh has one process and every function here is
 the identity: the step runs the one-process code, with no collective and no
@@ -38,14 +43,31 @@ Tensor = torch.Tensor
 
 @dataclass(frozen=True)
 class Mesh:
-    """A data-parallel process group: ``size`` processes (the ``data``
-    axis), this one ``rank``, on ``device``; ``group`` None is the default
-    group."""
+    """A ``data`` x ``model`` grid of ``size`` processes, this one ``rank``,
+    on ``device``. ``group`` is every rank's (None: the default group),
+    ``data_group`` the ranks of this one's model index (its data axis;
+    None: the default group, where ``model`` is 1), ``model_group`` the
+    ranks of this one's data index."""
 
     size: int
     rank: int
     device: torch.device
     group: Any = None
+    model: int = 1
+    data_group: Any = None
+    model_group: Any = None
+
+    @property
+    def data(self) -> int:
+        return self.size // self.model
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
 
 
 def world() -> Tuple[int, int]:
@@ -57,27 +79,39 @@ def world() -> Tuple[int, int]:
 
 def create_mesh(data: int = -1, model: int = 1, seq: int = 1,
                 device: Optional[torch.device] = None) -> Mesh:
-    """The mesh of the default process group (one process without one).
-    ``data=-1`` takes every process; another size must equal the world's.
-    ``device`` is this rank's (default: the current CUDA device)."""
-    for name, size, what in (("model", model, "tensor parallel"),
-                             ("seq", seq, "sequence parallel")):
-        if size != 1:
-            raise NotImplementedError(f"mesh.{name}={size} ({what}) is not ported to "
-                                      "PyTorch yet")
+    """The mesh of the default process group (one process without one):
+    ``data`` x ``model`` ranks, ``data=-1`` taking every process the
+    ``model`` axis leaves; the product must equal the world's size.
+    ``device`` is this rank's (default: the current CUDA device). Every
+    rank creates every sub-group, in the same order (``dist.new_group``
+    is collective)."""
+    if seq != 1:
+        raise NotImplementedError(f"mesh.seq={seq} (sequence parallel) is not ported to "
+                                  "PyTorch yet")
     rank, n = world()
     if data == -1:
-        data = n
-    if data != n:
+        data = max(n // max(model, 1), 1)
+    if model < 1 or data * model != n:
         raise ValueError(f"mesh {data}x{seq}x{model} != {n} processes")
     if device is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    return Mesh(size=n, rank=rank, device=torch.device(device))
+    data_group = model_group = None
+    if model > 1:
+        for d in range(data):
+            g = dist.new_group(list(range(d * model, (d + 1) * model)))
+            if rank // model == d:
+                model_group = g
+        for m in range(model):
+            g = dist.new_group(list(range(m, n, model)))
+            if rank % model == m:
+                data_group = g
+    return Mesh(size=n, rank=rank, device=torch.device(device), model=model,
+                data_group=data_group, model_group=model_group)
 
 
 def host_local_batch(global_batch_size: int, mesh: Optional[Mesh] = None) -> int:
-    """This process's rows of a global batch."""
-    n = mesh.size if mesh is not None else world()[1]
+    """This process's rows of a global batch (split over the data axis)."""
+    n = mesh.data if mesh is not None else world()[1]
     if global_batch_size % n:
         raise ValueError(f"global batch {global_batch_size} does not split over {n} "
                          "processes")
@@ -85,71 +119,117 @@ def host_local_batch(global_batch_size: int, mesh: Optional[Mesh] = None) -> int
 
 
 def shard_batch(mesh: Mesh, batch: Dict[str, Any]) -> Dict[str, Tensor]:
-    """This rank's rows [r*b, (r+1)*b) of a global batch (numpy arrays or
-    tensors), as tensors on its device. (The loaders give each process its
-    rows already: the driver only moves them.)"""
+    """This rank's rows [d*b, (d+1)*b) of a global batch (numpy arrays or
+    tensors; d its data index), as tensors on its device. (The loaders give
+    each process its rows already: the driver only moves them.)"""
     b = host_local_batch(len(next(iter(batch.values()))), mesh)
-    rows = slice(mesh.rank * b, (mesh.rank + 1) * b)
+    rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
     return {k: torch.as_tensor(v[rows]).to(mesh.device) for k, v in batch.items()}
 
 
 def seed_dropout(state, mesh: Mesh) -> None:
-    """Give rank r > 0 a dropout stream of its own, seeded from
-    (``train.dropout_seed``, r, ``state.step``); rank 0 keeps the state's
-    (the one-process stream, or the one a checkpoint restored). The ranks'
-    dropout masks differ by design: the JAX package draws one mask over the
-    global batch, which torch cannot reproduce (only dropout's apply part
-    is held against JAX)."""
-    if mesh.rank > 0:   # a 32-bit seed: the CPU generator reads no more
-        seq = np.random.SeedSequence([state.seeds[1], mesh.rank, state.step])
+    """Give data index d > 0 a dropout stream of its own, seeded from
+    (``train.dropout_seed``, d, ``state.step``); index 0 keeps the state's
+    (the one-process stream, or the one a checkpoint restored). The ranks
+    of one model group draw alike (their activations are the same rows,
+    whole after each gather). The data ranks' dropout masks differ by
+    design: the JAX package draws one mask over the global batch, which
+    torch cannot reproduce (only dropout's apply part is held against
+    JAX)."""
+    if mesh.data_index > 0:   # a 32-bit seed: the CPU generator reads no more
+        seq = np.random.SeedSequence([state.seeds[1], mesh.data_index, state.step])
         state.dropout_gen.manual_seed(int(seq.generate_state(1)[0]))
 
 
 def leaf_spec(key: str, shape: Sequence[int], data: int, fsdp: bool,
-              fsdp_min_size: int) -> Tuple[Optional[str], ...]:
-    """The JAX package's ``state_shardings`` rule (its ``data`` part) for
-    torch entry ``key``: a ``PartitionSpec`` tuple over the leaf's flax
-    layout. Under ``fsdp`` a leaf of at least ``fsdp_min_size`` elements is
-    split over ``data`` on its largest dimension divisible by it, ties to
-    the earliest."""
+              fsdp_min_size: int, model: int = 1,
+              min_dim: int = 512) -> Tuple[Optional[str], ...]:
+    """The JAX package's ``state_shardings`` rule for torch entry ``key``
+    of whole ``shape``: a ``PartitionSpec`` tuple over the leaf's flax
+    layout. With ``model > 1`` a leaf of rank >= 2 whose trailing flax dim
+    is >= ``min_dim`` and divisible by ``model`` is split on it over
+    ``model``; under ``fsdp`` a leaf of at least ``fsdp_min_size`` elements
+    is split over ``data`` on its largest other dimension divisible by it,
+    ties to the earliest."""
     perm = flax_perm(key, len(shape))
     flax_shape = [shape[i] for i in perm]
     spec: List[Optional[str]] = [None] * len(shape)
+    if (model > 1 and len(shape) >= 2 and flax_shape[-1] >= min_dim
+            and flax_shape[-1] % model == 0):
+        spec[-1] = "model"
     if fsdp and data > 1 and len(shape) >= 1 and int(np.prod(shape)) >= fsdp_min_size:
-        free = [(d, i) for i, d in enumerate(flax_shape) if d % data == 0 and d >= data]
+        free = [(d, i) for i, d in enumerate(flax_shape)
+                if spec[i] is None and d % data == 0 and d >= data]
         if free:
             _, i = max(free, key=lambda t: (t[0], -t[1]))
             spec[i] = "data"
     return tuple(spec)
 
 
-def state_shardings(mesh: Mesh, state, fsdp: bool = False,
-                    fsdp_min_size: int = 2 ** 15) -> Dict[str, Tuple[Optional[str], ...]]:
-    """Each parameter's spec (``leaf_spec``), by torch name; its Adam
-    moments share it, as every JAX rule is shape-based. BatchNorm
-    statistics stay replicated."""
-    return {n: leaf_spec(n, tuple(p.shape), mesh.size, fsdp, fsdp_min_size)
+def state_shardings(mesh: Mesh, state, fsdp: bool = False, fsdp_min_size: int = 2 ** 15,
+                    min_dim: int = 512) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Each parameter's spec (``leaf_spec``) by torch name, from the
+    state's whole shapes (take it before ``shard_state``); its Adam moments
+    share it, as every JAX rule is shape-based. BatchNorm statistics stay
+    replicated."""
+    return {n: leaf_spec(n, tuple(p.shape), mesh.data, fsdp, fsdp_min_size, mesh.model,
+                         min_dim)
             for n, p in zip(state.names, state.params)}
 
 
-def _torch_dim(key: str, spec: Tuple[Optional[str], ...]) -> Optional[int]:
-    if "data" not in spec:
+def _torch_dim(key: str, spec: Tuple[Optional[str], ...], axis: str) -> Optional[int]:
+    if axis not in spec:
         return None
-    return flax_perm(key, len(spec))[spec.index("data")]
+    return flax_perm(key, len(spec))[spec.index(axis)]
 
 
-def _shard(t: Tensor, dim: int, mesh: Mesh) -> Tensor:
-    """This rank's contiguous copy of ``t``'s equal part on ``dim``."""
-    s = t.shape[dim] // mesh.size
-    return t.narrow(dim, mesh.rank * s, s).clone(memory_format=torch.contiguous_format)
+def _shard(t: Tensor, dim: int, index: int, parts: int) -> Tensor:
+    """A contiguous copy of part ``index`` of ``t``'s ``parts`` equal parts
+    on ``dim``."""
+    s = t.shape[dim] // parts
+    return t.narrow(dim, index * s, s).clone(memory_format=torch.contiguous_format)
+
+
+def _split(tensors: Optional[List[Tensor]], dims: List[Optional[int]], index: int,
+           parts: int) -> Optional[List[Tensor]]:
+    """Part ``index`` of each tensor of a list laid out as the parameters
+    (Adam's moments, the accumulated gradient), whole where its dim is
+    None."""
+    if tensors is None:
+        return None
+    return [t if d is None else _shard(t, d, index, parts) for t, d in zip(tensors, dims)]
+
+
+def _gather(shards: Dict[int, Tensor], dims: List[Optional[int]], parts: int,
+            group) -> Dict[int, Tensor]:
+    """Whole tensors from every rank's shards (``shards``: index -> this
+    rank's part on ``dims[index]``), in one all-gather over ``group`` of
+    their flat concatenation."""
+    order = sorted(shards)
+    flat = torch.cat([shards[i].reshape(-1) for i in order])
+    out = torch.empty(parts * flat.numel(), dtype=flat.dtype, device=flat.device)
+    dist.all_gather_into_tensor(out, flat, group=group)
+    out = out.view(parts, flat.numel())
+    full, off = {}, 0
+    for i in order:
+        d, shard = dims[i], shards[i]
+        n = shard.numel()
+        whole = list(shard.shape)
+        whole[d] *= parts
+        chunk = out[:, off:off + n].reshape((parts,) + tuple(shard.shape))
+        full[i] = chunk.movedim(0, d).reshape(whole).contiguous()
+        off += n
+    return full
 
 
 class ShardedParams:
-    """Parameters split over the mesh on one torch dimension each (None:
-    replicated). At rest each split parameter's ``.data`` is this rank's
-    shard (``narrow(dim, rank * s, s)``), which the optimizer updates in
-    place with its Adam moments of the same shape; ``gather`` swaps the
-    whole tensors in for a forward and backward (one all-gather),
+    """Parameters split over the mesh's data axis on one torch dimension
+    each (None: replicated), FSDP's layout. At rest each split parameter's
+    ``.data`` is this rank's shard (``narrow(dim, data_index * s, s)`` of
+    the tensor it holds whole over ``data``: under tensor parallel its
+    model shard), which the optimizer updates in place with its Adam
+    moments of the same shape; ``gather`` swaps those tensors in for a
+    forward and backward (one all-gather over the data group),
     ``reduce_gradients`` reduce-scatters their gradients (one
     reduce-scatter, plus one all-reduce of the replicated leaves'), and
     ``release`` swaps the shards back."""
@@ -159,38 +239,20 @@ class ShardedParams:
         self.mesh, self.params, self.dims = mesh, params, dims
         self.full_shapes = [tuple(p.shape) for p in params]
         self.split = [i for i, d in enumerate(dims) if d is not None]
-        self.offsets, total = {}, 0
-        self.shards: Dict[int, Tensor] = {}
-        for i in self.split:
-            self.shards[i] = _shard(params[i].data, dims[i], mesh)
-            self.offsets[i] = total
-            total += self.shards[i].numel()
-        self.total = total
+        self.shards: Dict[int, Tensor] = {
+            i: _shard(params[i].data, dims[i], mesh.data_index, mesh.data)
+            for i in self.split}
         self.release()
 
     def sharded(self, i: int) -> bool:
         return self.dims[i] is not None
 
-    def _gather_flat(self, tensors: Dict[int, Tensor]) -> Dict[int, Tensor]:
-        """Whole tensors from every rank's shards (one all-gather)."""
-        w = self.mesh.size
-        flat = torch.cat([tensors[i].reshape(-1) for i in self.split])
-        out = torch.empty(w * self.total, dtype=flat.dtype, device=flat.device)
-        dist.all_gather_into_tensor(out, flat, group=self.mesh.group)
-        out = out.view(w, self.total)
-        full = {}
-        for i in self.split:
-            d, shard = self.dims[i], tensors[i]
-            n = shard.numel()
-            parts = out[:, self.offsets[i]:self.offsets[i] + n].reshape(
-                (w,) + tuple(shard.shape))
-            full[i] = parts.movedim(0, d).reshape(self.full_shapes[i]).contiguous()
-        return full
-
     def gather(self) -> None:
         """Each split parameter's whole tensor as its ``.data``."""
-        for i, t in self._gather_flat(self.shards).items():
-            self.params[i].data = t
+        if self.split:
+            for i, t in _gather(self.shards, self.dims, self.mesh.data,
+                                self.mesh.data_group).items():
+                self.params[i].data = t
 
     def release(self) -> None:
         """Each split parameter back to its shard."""
@@ -200,44 +262,81 @@ class ShardedParams:
     def full(self, tensors: List[Tensor]) -> List[Tensor]:
         """A list laid out as the parameters at rest (Adam's moments) with
         every shard gathered into its whole tensor (a collective)."""
-        whole = self._gather_flat({i: tensors[i] for i in self.split})
+        if not self.split:
+            return list(tensors)
+        whole = _gather({i: tensors[i] for i in self.split}, self.dims, self.mesh.data,
+                        self.mesh.data_group)
         return [whole.get(i, t) for i, t in enumerate(tensors)]
 
     def reduce_gradients(self, grads: List[Tensor]) -> List[Tensor]:
-        """The whole-tensor gradients of this rank, summed over the mesh:
-        this rank's shard for a split leaf (reduce-scatter), the whole sum
-        for a replicated one (all-reduce)."""
-        w, mesh = self.mesh.size, self.mesh
+        """The whole-tensor gradients of this rank, summed over the data
+        group: this rank's shard for a split leaf (reduce-scatter), the
+        whole sum for a replicated one (all-reduce)."""
+        w, mesh = self.mesh.data, self.mesh
         out = list(grads)
         if self.split:
-            buf = torch.empty((w, self.total), dtype=grads[self.split[0]].dtype,
+            total = sum(self.shards[i].numel() for i in self.split)
+            buf = torch.empty((w, total), dtype=grads[self.split[0]].dtype,
                               device=grads[self.split[0]].device)
+            off = 0
             for i in self.split:
                 d, g = self.dims[i], grads[i]
                 shard_shape = tuple(self.shards[i].shape)
                 n = self.shards[i].numel()
                 parts = g.reshape(shard_shape[:d] + (w,) + shard_shape[d:]).movedim(d, 0)
-                buf[:, self.offsets[i]:self.offsets[i] + n] = parts.reshape(w, n)
-            mine = torch.empty(self.total, dtype=buf.dtype, device=buf.device)
-            dist.reduce_scatter_tensor(mine, buf.view(-1), group=mesh.group)
+                buf[:, off:off + n] = parts.reshape(w, n)
+                off += n
+            mine = torch.empty(total, dtype=buf.dtype, device=buf.device)
+            dist.reduce_scatter_tensor(mine, buf.view(-1), group=mesh.data_group)
+            off = 0
             for i in self.split:
                 n = self.shards[i].numel()
-                off = self.offsets[i]
                 out[i] = mine[off:off + n].view(self.shards[i].shape)
+                off += n
         rest = [i for i in range(len(grads)) if not self.sharded(i)]
-        out_rest = all_reduce_flat([grads[i] for i in rest], mesh)
+        out_rest = all_reduce_flat([grads[i] for i in rest], mesh.data_group)
         for i, g in zip(rest, out_rest):
             out[i] = g
         return out
 
 
-def all_reduce_flat(tensors: List[Tensor], mesh: Mesh) -> List[Tensor]:
-    """The tensors summed over the mesh, in one all-reduce of their
-    concatenation (one bucket)."""
+class TensorLayout:
+    """Parameters split over the mesh's model axis on one torch dimension
+    each (None: replicated), tensor parallel's layout. Each split
+    parameter's ``.data`` is this rank's part for good (``narrow(dim,
+    model_index * s, s)``) and the parameter carries ``tp_dim``, the dim
+    ``parallel/tensor.py`` reads: the layers compute with it column-parallel
+    in a step whose mesh is active. ``full`` gathers tensors laid out as
+    the parameters (checkpoints)."""
+
+    def __init__(self, mesh: Mesh, params: List[torch.nn.Parameter],
+                 dims: List[Optional[int]]):
+        self.mesh, self.dims = mesh, dims
+        for p, d in zip(params, dims):
+            if d is not None:
+                p.data = _shard(p.data, d, mesh.model_index, mesh.model)
+                p.tp_dim = d
+
+    def sharded(self, i: int) -> bool:
+        return self.dims[i] is not None
+
+    def full(self, tensors: List[Tensor]) -> List[Tensor]:
+        """``tensors`` (laid out as the parameters) with every part gathered
+        into its whole tensor (a collective over the model group)."""
+        split = {i: t for i, t in enumerate(tensors) if self.sharded(i)}
+        if not split:
+            return list(tensors)
+        whole = _gather(split, self.dims, self.mesh.model, self.mesh.model_group)
+        return [whole.get(i, t) for i, t in enumerate(tensors)]
+
+
+def all_reduce_flat(tensors: List[Tensor], group=None) -> List[Tensor]:
+    """The tensors summed over ``group`` (None: every rank), in one
+    all-reduce of their concatenation (one bucket)."""
     if not tensors:
         return []
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, group=mesh.group)
+    dist.all_reduce(flat, group=group)
     out, i = [], 0
     for t in tensors:
         out.append(flat[i:i + t.numel()].view(t.shape))
@@ -254,33 +353,40 @@ def resident_bytes(state) -> Dict[str, int]:
             "moments": size(state.mu) + size(state.nu)}
 
 
-def shard_state(mesh: Mesh, state, fsdp: bool = False, fsdp_min_size: int = 2 ** 15):
-    """Place ``state`` by ``state_shardings``: under ``fsdp`` on a mesh of
-    more than one process, split the parameters and their Adam moments
-    (and the accumulated gradient) over the ranks, and print on rank 0, as
-    the JAX package does, how many MiB of eligible leaves (parameters and
-    moments) have no dimension divisible by the mesh and stay replicated.
-    Otherwise the identity. Returns the state."""
-    if not fsdp or mesh.size == 1:
+def shard_state(mesh: Mesh, state, fsdp: bool = False, fsdp_min_size: int = 2 ** 15,
+                min_dim: int = 512):
+    """Place ``state`` by ``state_shardings``: on a mesh with ``model > 1``
+    split the parameters of the model rule, their Adam moments and the
+    accumulated gradient over the model ranks (``TensorLayout``,
+    ``state.tp``); under ``fsdp`` on a mesh of more than one data rank, then
+    split the leaves of the data rule over the data ranks (``ShardedParams``,
+    ``state.fsdp``), and print on rank 0, as the JAX package does, how many
+    MiB of eligible leaves (parameters and moments) have no dimension
+    divisible by the data axis and stay replicated over it. Otherwise the
+    identity. Returns the state."""
+    tp, zero = mesh.model > 1, fsdp and mesh.data > 1
+    if not (tp or zero):
         return state
-    specs = state_shardings(mesh, state, fsdp, fsdp_min_size)
-    dims = [_torch_dim(n, specs[n]) for n in state.names]
-    if mesh.rank == 0:
+    specs = state_shardings(mesh, state, fsdp, fsdp_min_size, min_dim)
+    if zero and mesh.rank == 0:
         leftover = 3 * sum(p.numel() * p.element_size()
-                           for p, d in zip(state.params, dims)
-                           if d is None and p.numel() >= fsdp_min_size)
+                           for n, p in zip(state.names, state.params)
+                           if "data" not in specs[n] and p.numel() >= fsdp_min_size)
         if leftover >= 2 ** 20:
             print(f"[fsdp] {leftover / 2**20:.1f} MiB of >= {fsdp_min_size}-element "
                   "leaves have no data-divisible dim and stay REPLICATED on every "
                   "chip (per-chip memory unchanged for them); consider padding those "
-                  f"dims to a multiple of data={mesh.size}")
-    layout = ShardedParams(mesh, state.params, dims)
-
-    def split(tensors):
-        if tensors is None:
-            return None
-        return [t if d is None else _shard(t, d, mesh) for t, d in zip(tensors, dims)]
-
-    state.mu, state.nu, state.acc = split(state.mu), split(state.nu), split(state.acc)
-    state.fsdp = layout
+                  f"dims to a multiple of data={mesh.data}")
+    if tp:
+        layout = TensorLayout(mesh, state.params,
+                              [_torch_dim(n, specs[n], "model") for n in state.names])
+        state.mu, state.nu, state.acc = (
+            _split(t, layout.dims, mesh.model_index, mesh.model)
+            for t in (state.mu, state.nu, state.acc))
+        state.tp = layout
+    if zero:
+        dims = [_torch_dim(n, specs[n], "data") for n in state.names]
+        state.fsdp = ShardedParams(mesh, state.params, dims)
+        state.mu, state.nu, state.acc = (_split(t, dims, mesh.data_index, mesh.data)
+                                         for t in (state.mu, state.nu, state.acc))
     return state

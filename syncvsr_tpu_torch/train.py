@@ -70,7 +70,7 @@ from syncvsr_tpu_torch.ops.image import (
     build_sentence_eval_transform,
     build_word_aug,
 )
-from syncvsr_tpu_torch.parallel import create_mesh, shard_state
+from syncvsr_tpu_torch.parallel import create_mesh, resident_bytes, shard_state
 from syncvsr_tpu_torch.parallel.mesh import seed_dropout
 from syncvsr_tpu_torch.utils import checkpoint as ckpt
 from syncvsr_tpu_torch.utils.device import resolve_device
@@ -103,19 +103,29 @@ def init_distributed(config: Config, device: Optional[Union[str, torch.device]] 
     """This process's device, and whether this call started the process
     group. Under ``torchrun`` (``WORLD_SIZE`` set) or ``train.distributed``
     it joins the group from the environment (``MASTER_ADDR``, ``RANK``,
-    ...): NCCL on ``cuda:LOCAL_RANK``, gloo for a CPU device. A group that
-    exists already is used as it is."""
+    ...): NCCL on ``cuda:LOCAL_RANK``, gloo for a CPU device. Where a host
+    starts more processes than it has cards (``LOCAL_WORLD_SIZE``), they
+    share the cards (``cuda:LOCAL_RANK % cards``) over gloo, which NCCL
+    refuses: a check of a mesh on fewer cards, not a way to scale. A group
+    that exists already is used as it is."""
     dev = resolve_device(device)
     if not (config.train.distributed or "WORLD_SIZE" in os.environ):
         return dev, False
+    shared = False
     if dev.type == "cuda":
-        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        local, cards = int(os.environ.get("LOCAL_RANK", 0)), torch.cuda.device_count()
+        shared = int(os.environ.get("LOCAL_WORLD_SIZE", 1)) > cards
+        dev = torch.device("cuda", local % cards)
         torch.cuda.set_device(dev)
     if dist.is_initialized():
         return dev, False
-    if dev.type == "cuda":
+    if dev.type == "cuda" and not shared:
         dist.init_process_group("nccl", device_id=dev)
     else:
+        if shared and int(os.environ.get("LOCAL_RANK", 0)) == 0:
+            print(f"[train] {os.environ['LOCAL_WORLD_SIZE']} processes share "
+                  f"{torch.cuda.device_count()} card(s): gloo (NCCL takes one process a "
+                  "card); this checks the mesh, it does not scale")
         dist.init_process_group("gloo")
     return dev, True
 
@@ -162,8 +172,9 @@ def _train(config: Config, dev: torch.device) -> Dict[str, float]:
     mesh = create_mesh(config.mesh.data, config.mesh.model, config.mesh.seq, device=dev)
     lead = mesh.rank == 0
     model = build_model(config, device=dev)
-    train_loader, eval_loader = build_loaders(config, process_index=mesh.rank,
-                                              process_count=mesh.size)
+    # the loaders split over the data axis: a model group reads the same rows
+    train_loader, eval_loader = build_loaders(config, process_index=mesh.data_index,
+                                              process_count=mesh.data)
     base_eval_transform, aug_fn = transforms(config)
     tokenize = instep_tokenizer(config, dev)
 
@@ -183,7 +194,8 @@ def _train(config: Config, dev: torch.device) -> Dict[str, float]:
         print(f"[train] params: {n_params / 1e6:.2f}M, device: {dev}"
               + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else "")
               + f", processes: {mesh.size}"
-              + (f" ({dist.get_backend()})" if dist.is_initialized() else ""))
+              + (f" ({dist.get_backend()})" if dist.is_initialized() else "")
+              + f", mesh data {mesh.data} x model {mesh.model}")
         if config.train.tabulate:
             print(model)
 
@@ -202,7 +214,12 @@ def _train(config: Config, dev: torch.device) -> Dict[str, float]:
     if config.mesh.fsdp:
         # split the parameters and Adam moments after the restore and the
         # warm start, which every rank reads whole
+        # (and over a model axis, as the JAX driver's shard_state does)
         state = shard_state(mesh, state, fsdp=True, fsdp_min_size=config.mesh.fsdp_min_size)
+    if lead:
+        held = resident_bytes(state)
+        print(f"[train] state a rank holds: params {held['params']} B, Adam moments "
+              f"{held['moments']} B")
 
     train_step = build_train_step(aug_fn=aug_fn, mesh=mesh)
     eval_step = build_eval_step(mesh)

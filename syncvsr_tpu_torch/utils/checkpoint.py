@@ -34,8 +34,8 @@ JAX package wrote) re-seeds the generators from ``train.mixup_seed`` and
 Partial warm starts (``partial_load``, with key-prefix ``rename``) and the
 SSL-pretrained landmark encoder (``load_ssl_pretrained``) work on flax
 trees too. ``gather_for_save`` gathers a state split over a mesh
-(``mesh.fsdp``); restore a checkpoint before splitting the state
-(``parallel.shard_state``): every rank reads the whole file.
+(``mesh.fsdp``, ``mesh.model``); restore a checkpoint before splitting the
+state (``parallel.shard_state``): every rank reads the whole file.
 """
 
 from __future__ import annotations
@@ -175,18 +175,20 @@ def state_payload(state) -> Dict[str, Any]:
 
 
 def gather_for_save(state):
-    """The state with whole tensors, ready for ``state_payload``. Under FSDP
-    (``state.fsdp``) a collective that every rank of the mesh joins: it
-    gathers the split parameters, Adam moments and accumulated gradient
+    """The state with whole tensors, ready for ``state_payload``. On a split
+    state (``state.fsdp``, ``state.tp``) a collective that every rank of the
+    mesh joins: it gathers the split parameters, Adam moments and
+    accumulated gradient over the data group, then over the model group
     (the model keeps its shards); rank 0 then writes. Otherwise the state
     itself (each rank of a data-parallel mesh holds the whole state)."""
-    layout = state.fsdp
-    if layout is None:
+    if state.fsdp is None and state.tp is None:
         return state
-    return dataclasses.replace(
-        state, params=layout.full([p.data for p in state.params]),
-        mu=layout.full(state.mu), nu=layout.full(state.nu),
-        acc=None if state.acc is None else layout.full(state.acc), fsdp=None)
+    tensors = {"params": [p.data for p in state.params], "mu": state.mu, "nu": state.nu,
+               "acc": state.acc}
+    for layout in (state.fsdp, state.tp):
+        if layout is not None:
+            tensors = {k: None if v is None else layout.full(v) for k, v in tensors.items()}
+    return dataclasses.replace(state, **tensors, fsdp=None, tp=None)
 
 
 def save_train_state(ckpt_dir: str, state, step: int, keep: int = 5) -> str:

@@ -93,16 +93,16 @@ def test_train_pretrained_and_profile_window(tmp_path, capsys):
 
 
 def test_train_raises_for_what_is_not_ported(tmp_path, monkeypatch):
-    """The tensor- and sequence-parallel axes are not ported; a data axis
-    that is not the process group's, and ``train.distributed`` without a
+    """The sequence-parallel axis is not ported; a data or model axis that
+    does not fit the process group, and ``train.distributed`` without a
     launcher's environment, are errors (the multi-process driver is
-    tests/test_torch_parallel.py's)."""
+    tests/test_torch_parallel.py's and tests/test_torch_tensor_parallel_cli.py's)."""
     cfg = ttrain.load_config(WORD_ARGS + [f"train.ckpt_dir={json.dumps(str(tmp_path))}"])
-    for over, name in (({"mesh.model": 2}, "mesh.model=2"), ({"mesh.seq": 2}, "mesh.seq=2")):
-        with pytest.raises(NotImplementedError, match=f"{name} .* not ported"):
+    with pytest.raises(NotImplementedError, match="mesh.seq=2 .* not ported"):
+        ttrain.train(cfg.override(**{"mesh.seq": 2}), device="cpu")
+    for over, shape in (({"mesh.data": 2}, "2x1x1"), ({"mesh.model": 2}, "1x1x2")):
+        with pytest.raises(ValueError, match=f"mesh {shape} != 1 processes"):
             ttrain.train(cfg.override(**over), device="cpu")
-    with pytest.raises(ValueError, match="mesh 2x1x1 != 1 processes"):
-        ttrain.train(cfg.override(**{"mesh.data": 2}), device="cpu")
     for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
         monkeypatch.delenv(var, raising=False)
     with pytest.raises(ValueError, match="MASTER_ADDR|RANK|WORLD_SIZE"):

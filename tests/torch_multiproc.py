@@ -1,11 +1,13 @@
-"""Two-process runs of the port for the data-parallel and FSDP parity tests
-(tests/test_torch_parallel.py, tests/test_torch_fsdp.py).
+"""Multi-process runs of the port for the data-parallel, FSDP and tensor
+parallel parity tests (tests/test_torch_parallel.py,
+tests/test_torch_fsdp.py, tests/test_torch_tensor_parallel*.py).
 
 ``spawn(job, world, tmp)`` starts ``world`` processes (``spawn`` start
 method, one CPU thread each: the suite runs under ``-n 6``) that join a
 gloo group on a free port, each run ``JOBS[job["kind"]]`` on its rows of
 the job's global batch, and each save what it returns; the parent reads
-the results back. ``train_steps`` is also what the tests call in the
+the results back. A job's ``model`` (default 1) is its mesh's model axis
+(data x model = world). ``train_steps`` is also what the tests call in the
 parent for the one-process reference (``mesh=None``). This module imports
 no JAX: the workers import the port only.
 """
@@ -55,7 +57,9 @@ def train_steps(job: Dict[str, Any], mesh=None) -> Dict[str, Any]:
     ``fused_train_aug_apply``), ``cutmix`` ((ratio, start)) and ``lam``
     (the mixup weight); ``aug_dtype`` the augmented clips' dtype (bf16);
     ``no_dropout`` zeroes every dropout rate of the model (the DenseTCN's is
-    fixed). ``fsdp`` (min size) splits the state. Returns the
+    fixed). ``fsdp`` (min size) splits the state over data; on a mesh with a
+    model axis the state is split over it by the rule at ``min_dim``
+    (default 512) unless ``tp`` is False. Returns the
     metrics of every step, the params, batch_stats and moments as flax
     trees (gathered under FSDP) after the first step (``first``) and the
     last, the rank's resident bytes and its first dropout draws."""
@@ -71,8 +75,10 @@ def train_steps(job: Dict[str, Any], mesh=None) -> Dict[str, Any]:
     state = create_train_state(cfg, model, batch, device="cpu")
     if mesh is not None:
         seed_dropout(state, mesh)
-        if job.get("fsdp"):
-            state = shard_state(mesh, state, fsdp=True, fsdp_min_size=job["fsdp"])
+        if job.get("fsdp") or (mesh.model > 1 and job.get("tp", True)):
+            state = shard_state(mesh, state, fsdp=bool(job.get("fsdp")),
+                                fsdp_min_size=job.get("fsdp") or 2 ** 15,
+                                min_dim=job.get("min_dim", 512))
     aug_fn = None
     if job.get("aug") is not None:
         drawn = _rows(mesh, job["aug"])
@@ -121,12 +127,20 @@ def _snapshot(state) -> Dict[str, Any]:
 
 def cli(job: Dict[str, Any], mesh=None) -> Dict[str, Any]:
     """``syncvsr_tpu_torch.<job["module"]>.main(job["args"], device="cpu")``
-    in ``job["cwd"]`` (the process group already joined); its summary."""
+    in ``job["cwd"]`` (the process group already joined); its summary, or
+    with ``job["capture"]`` {"summary": it, "stdout": what it printed}."""
+    import contextlib
     import importlib
+    import io
 
     os.chdir(job["cwd"])
     main = importlib.import_module(f"syncvsr_tpu_torch.{job['module']}").main
-    return main(job["args"], device="cpu")
+    if not job.get("capture"):
+        return main(job["args"], device="cpu")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        summary = main(job["args"], device="cpu")
+    return {"summary": summary, "stdout": out.getvalue()}
 
 
 JOBS = {"train": train_steps, "cli": cli}
@@ -138,8 +152,11 @@ def _worker(rank: int, world: int, port: int, path: str) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=world, rank=rank)
     try:
-        mesh = create_mesh(device="cpu")
-        torch.save([JOBS[job["kind"]](job, mesh) for job in jobs], f"{path}.{rank}")
+        out = []
+        for job in jobs:
+            mesh = create_mesh(model=job.get("model", 1), device="cpu")
+            out.append(JOBS[job["kind"]](job, mesh))
+        torch.save(out, f"{path}.{rank}")
     finally:
         dist.destroy_process_group()
 
