@@ -138,7 +138,23 @@ non-zero before the last line is printed:
    model (the rule at min_dim 16: a leaf on both axes) against world 1
    (``F32_TOL``); the ranks' step times are labelled as correctness, not
    scaling;
-10. profiler windows, after every timing above (a process that torch.profiler
+10. seq (``seq_phase``): sequence parallel, ``mesh.seq=2``, each rank on
+   its half of every clip's frames, the processes sharing the card over
+   gloo: (a) ``lrs3_1800`` (2 x 1800 frames, full width and depth, no
+   remat) and (b) ``lrs3`` (8 x 160) on (data=1, seq=2) against world 1 on
+   the same batch (``TP_TOL`` on the first step, ``BF16_TOL`` on the
+   parameters after 2), K2/K3/K4 on a rank's frames counted in each rank,
+   a rank's peak device memory beside world 1's; (c) ``python -m
+   torch.distributed.run --nproc-per-node 2 -m syncvsr_tpu_torch.train
+   preset=lrs3 mesh.seq=2`` at full width and 2 + 1 layers with remat
+   over a synthetic LRS3 tree's buckets (160 to 1800 frames), its
+   checkpoint loaded at one process, every leaf equal; (d) four
+   processes: a 2 + 1-layer 64-wide f32 ``lrs3`` model as (data=2, seq=2)
+   with FSDP and as (seq=2, model=2), and a 2-layer 64-wide f32
+   ``lrw_video`` model at 40 frames and at 29 (indivisible: the seq ranks
+   repeat the rows) as (seq=2, model=2), against world 1 (``SEQ_F32_TOL``,
+   ``tests/test_spmd.py``'s for its sequence-parallel step);
+11. profiler windows, after every timing above (a process that torch.profiler
    has traced can pay more host time a launch from then on): each kernel's
    own device time (``device_ms``) over the calls phase 3 timed (K1's with
    its features' pad copy), each held to one kernel of its own a call (K3
@@ -150,11 +166,12 @@ non-zero before the last line is printed:
    (device launches a search step), greedy and align (launches, device
    time, idle share); with ``--profile DIR``, the full beam decode too and
    the tables in ``DIR/profile_decode_<name>.txt``;
-11. the ``decode``, ``cli``, ``parallel`` and ``tensor`` JSON lines, each
-    phase's seconds, the ``kernels`` JSON line (K1 and K2 also at a rank's
-    half batch, ``lrw_video_dp2`` and ``lrs3_fsdp2``, K1 at a model rank's
-    4 slots, ``lrs3_tp2`` and ``lrw_video_tp2``, K3/K4 at those paths'
-    shapes), the card line and the ``ok`` line.
+12. the ``decode``, ``cli``, ``parallel``, ``tensor`` and ``seq`` JSON
+    lines, each phase's seconds, the ``kernels`` JSON line (K1 and K2 also
+    at a rank's half batch, ``lrw_video_dp2`` and ``lrs3_fsdp2``, K1 at a
+    model rank's 4 slots, ``lrs3_tp2`` and ``lrw_video_tp2``, K2 at a seq
+    rank's frames, ``lrs3_1800_sp2`` and ``lrs3_sp2``, K3/K4 at those
+    paths' shapes), the card line and the ``ok`` line.
 """
 
 import json
@@ -351,7 +368,13 @@ def bn_shapes():
             # mesh.model=2: each rank's BatchNorms run on the gathered
             # channels of the whole batch, world 1's shapes
             "lrw_video_tp2": trunk_bn_shapes(lrw, lrw.data.num_frames),
-            "lrs3_tp2": trunk_bn_shapes(lrs3, LRS3_FRAMES) + [conformer(lrs3, LRS3_FRAMES)]}
+            "lrs3_tp2": trunk_bn_shapes(lrs3, LRS3_FRAMES) + [conformer(lrs3, LRS3_FRAMES)],
+            # mesh.seq=2: each rank's BatchNorms on its half of every clip's
+            # frames (lrs3_1800 without remat)
+            "lrs3_1800_sp2": (trunk_bn_shapes(long, LRS3_1800_FRAMES // 2)
+                              + [conformer(long, LRS3_1800_FRAMES // 2)]),
+            "lrs3_sp2": (trunk_bn_shapes(lrs3, LRS3_FRAMES // 2)
+                         + [conformer(lrs3, LRS3_FRAMES // 2)])}
 
 
 def device_ms(torch, fn, names, iters=20):
@@ -444,7 +467,9 @@ SPLIT_CASES = [(8 * 160, 768, 320, False, "bfloat16", 8),
                (1, 1664, 640, False, "float32", 4), (40 * 96, 1672, 640, False, "float32", 4),
                (40 * 96, 1664, 400, False, "float32", 4),
                (40 * 96, 1664, 640, True, "float32", 4),
-               (4 * 160, 768, 320, False, "bfloat16", 8)]
+               (4 * 160, 768, 320, False, "bfloat16", 8),
+               # a seq rank's frames (mesh.seq=2) of lrs3_1800's 2 clips
+               (2 * 900, 768, 320, False, "bfloat16", 8)]
 # the case of each path's sync head, timed: the entry's own numbers are its
 # first path's
 SYNC_PATHS = {"sync_ce_fwd": {"lrw_video": MONO_CASES[0], "lrw_landmark": MONO_CASES[1],
@@ -454,9 +479,11 @@ SYNC_PATHS = {"sync_ce_fwd": {"lrw_video": MONO_CASES[0], "lrw_landmark": MONO_C
                                     "lrw_dctcn": SPLIT_CASES[2],
                                     "lrw1000_dctcn": SPLIT_CASES[3],
                                     "lrs3_1800": SPLIT_CASES[4],
-                                    "lrs3_fsdp2": SPLIT_CASES[-1]}}
-# paths whose sync head has another path's shape: the same row
-SYNC_SAME = {"lrs3_instep": "lrs3"}
+                                    "lrs3_fsdp2": SPLIT_CASES[-2],
+                                    "lrs3_1800_sp2": SPLIT_CASES[-1]}}
+# paths whose sync head has another path's shape: the same row (a seq
+# rank's 8 x 80 frames of lrs3 are lrs3_fsdp2's 4 x 160 rows)
+SYNC_SAME = {"lrs3_instep": "lrs3", "lrs3_sp2": "lrs3_fsdp2"}
 
 
 def check_sync(torch, dev, kind, later):
@@ -2696,17 +2723,21 @@ def _steps(torch, state, step, batch, n):
     return metrics, {k: v / n for k, v in counts.items()}, ms
 
 
-def _compare_flat(got, want, tol, lr_sum=0.0):
+def _compare_flat(got, want, tol, lr_sum=0.0, zero=()):
     """(worst excess over the tolerance, its leaf) of two ``_flat`` dicts'
     parameters and BatchNorm statistics: f32 ``tol`` (rtol, atol)
-    elementwise, or bf16 each parameter within twice ``lr_sum`` plus
-    ``param_scale`` of its leaf's largest; <= 0 passes."""
+    elementwise (a parameter of ``zero``, whose true gradient is 0, within
+    twice ``lr_sum``: Adam turns its rounding noise into an update of
+    either sign up to the rate), or bf16 each parameter within twice
+    ``lr_sum`` plus ``param_scale`` of its leaf's largest; <= 0 passes."""
     worst, where = -math.inf, None
     for k, w in want.items():
         if not (k.startswith("param:") or ("param_rtol" in tol and k.startswith("stat:"))):
             continue
         g = got[k]
-        if "param_rtol" in tol:
+        if "param_rtol" in tol and k[len("param:"):] in zero:
+            allowed = 2 * lr_sum + 1e-12
+        elif "param_rtol" in tol:
             allowed = tol["param_atol"] + tol["param_rtol"] * w.abs()
         else:
             allowed = 2 * lr_sum + tol["param_scale"] * float(w.abs().max()) + 1e-12
@@ -3240,7 +3271,7 @@ def tensor_cli(torch, np):
         log(f"tensor (c): {' '.join(cmd[1:])} -> exit {out.returncode} in {dt:.1f} s\n{tail}")
         if out.returncode != 0:
             raise AssertionError(f"tensor (c) failed (exit {out.returncode})")
-        if "mesh data 1 x model 2" not in out.stdout:
+        if "mesh data 1 x seq 1 x model 2" not in out.stdout:
             raise AssertionError("tensor (c): the driver did not make a model axis of 2")
         held = int(out.stdout.split("[train] state a rank holds: params ")[1].split(" B")[0])
         path = ckpt.latest_checkpoint(ck)
@@ -3323,6 +3354,354 @@ def tensor_phase(torch, np, summary):
         f"{out['lrw_video_tp2']['step_ms_ranks_one_card']:.2f} ms (lrw_video): two ranks "
         "sharing one card over gloo, which stages through the host: correctness and "
         "memory, not scaling")
+    return out
+
+
+# the seq phase: sequence parallel (mesh.seq=2), the processes sharing the card
+SEQ_TIMEOUT = 420   # seconds the processes of (a)+(b), and of (d), may take
+# lrs3's K1-K4 launches a step at seq=2: K2 on a rank's frames (the head is
+# whole), each BatchNorm once (no remat)
+SEQ_SENTENCE = {"sync_ce_fwd": 0, "sync_ce_split_fwd": 1, "bn_stats_fwd": 32,
+                "bn_stats_bwd": 32}
+SEQ_SMALL_FRAMES = 32    # (d)'s small sentence model: 16 frames a rank
+# (d)'s f32 tolerances: tests/test_spmd.py's for its (data=4, seq=2) step,
+# metrics rtol 1e-5 and params rtol 1e-4 / atol 1e-5 (splitting time
+# re-associates f32 reductions, here the stem conv's weight gradient summed
+# over two half clips, and Adam turns the noise of its near-zero elements
+# into updates of either sign up to the rate: 1.4e-6 apart at 1e-6 rates
+# on an H100)
+SEQ_F32_TOL = {"metric": 1e-5, "param_rtol": 1e-4, "param_atol": 1e-5}
+
+
+def small_sentence_cfg():
+    """(d)'s small f32 ``lrs3`` model: 2 + 1 layers 64 wide (k = 31 depthwise
+    conv, a 15-frame halo), ResNet width 16, 4 clips; dropout 0 (data index
+    1 draws its own masks, by design, so (data=2, seq=2) would not be world
+    1's)."""
+    return lrs3_cfg().override(**{
+        "model.encoder.mlp_dropout": 0.0, "model.encoder.msa_dropout": 0.0,
+        "model.decoder.dropout": 0.0,
+        "model.encoder.layers": 2, "model.encoder.dim": 64, "model.encoder.heads": 2,
+        "model.decoder.layers": 1, "model.decoder.dim": 64, "model.decoder.heads": 2,
+        "model.decoder.hidden": 128, "model.frontend.resnet_width": 16,
+        "model.dtype": "float32", "data.batch_size": 4})
+
+
+def small_word_cfg(frames):
+    """(d)'s small f32 ``lrw_video`` model at ``frames`` frames (40:
+    ``lrw1000``'s clip length, split 20 + 20; 29: indivisible, the seq ranks
+    repeat the rows), augmentation, CutMix and dropout as the preset."""
+    return lrw_video_cfg().override(**{
+        "model.encoder.layers": 2, "model.encoder.dim": 64, "model.encoder.heads": 2,
+        "model.frontend.resnet_width": 16, "model.dtype": "float32",
+        "data.batch_size": 8, "data.num_frames": frames})
+
+
+def seq_worker(rank, world, port, out_path, job, device="cuda"):
+    """One of the processes of the seq phase, all on cuda:0 in a gloo group.
+    ``job`` "ab": world 2 as (data=1, seq=2), (a) ``lrs3_1800`` (bf16, 2 x
+    1800 frames, no remat) and (b) ``lrs3`` (8 x 160 frames) at full width
+    and depth, 2 steps each on the rank's frames, rank 0 also world 1 on the
+    same batch; "d": world 4, the small f32 ``lrs3`` model as (data=2,
+    seq=2) with FSDP and as (seq=2, model=2), and the small ``lrw_video``
+    model at 40 and 29 frames as (seq=2, model=2), 2 steps each against
+    world 1. Peak device memory a rank (``max_memory_allocated`` over the
+    state and the steps) beside world 1's. Writes its results to
+    ``out_path.<rank>``. (``device="cpu"`` rehearses it without a card.)"""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from syncvsr_tpu_torch.engine import build_train_step, create_train_state
+    from syncvsr_tpu_torch.models import build_model
+    from syncvsr_tpu_torch.ops import image
+    from syncvsr_tpu_torch.parallel import (
+        create_mesh,
+        resident_bytes,
+        shard_batch,
+        shard_state,
+    )
+    from syncvsr_tpu_torch.parallel.mesh import seed_dropout
+    from syncvsr_tpu_torch.utils import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+        kernels.library()                       # built by the parent
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    res, mark = {"seconds": {}}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        res["seconds"][name] = round(now - mark[0], 1)
+        mark[0] = now
+
+    def on_dev(b):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in b.items()}
+
+    def peak_from():
+        if not cuda:
+            return None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    def peak_since(base):
+        return None if base is None else torch.cuda.max_memory_allocated() - base
+
+    def run(cfg, whole, aug, n, name, mesh, tol, rule=None):
+        """The meshed steps on this rank's rows and frames, then (rank 0)
+        world 1 on the global batch, and the comparison."""
+        batch = shard_batch(mesh, whole)
+        base = peak_from()
+        model = build_model(cfg, device=dev)
+        state = create_train_state(cfg, model, batch, device=dev)
+        seed_dropout(state, mesh)
+        if rule:
+            state = shard_state(mesh, state, **rule)
+        got, launches, ms = _steps(torch, state, build_train_step(aug, mesh), batch, n)
+        peak = peak_since(base)
+        held = resident_bytes(state)
+        flat = _flat(torch, state, moments=False)
+        zero = zero_gradient_leaves(model)
+        del state, model
+        if cuda:
+            torch.cuda.empty_cache()
+        time_split = getattr(batch, "time", None)
+        out = {"metrics": got, "launches_per_step": launches, "peak_bytes": peak,
+               "resident_bytes": held, "step_ms_ranks_one_card": ms,
+               "frames": None if time_split is None else [time_split.start,
+                                                          time_split.length]}
+        if rank == 0:
+            base = peak_from()
+            state = create_train_state(cfg, build_model(cfg, device=dev), on_dev(whole),
+                                       device=dev)
+            want, want_launches, ms1 = _steps(torch, state, build_train_step(aug),
+                                              on_dev(whole), n)
+            peak1 = peak_since(base)
+            ref = _flat(torch, state, moments=False)
+            del state
+            if cuda:
+                torch.cuda.empty_cache()
+            lr_sum = sum(m["learning_rate"] for m in want)
+            keys = [k for k in ("loss", "loss_word", "loss_ctc", "loss_att", "loss_audio",
+                                "grad_norm") if k in want[0]]
+            if "param_rtol" in tol:
+                bad = _metrics_close(got, want, keys, tol["metric"])
+            else:   # bf16: the first step (same params) at TP_TOL
+                bad = _metrics_close(got[:1], want[:1], ("loss", "grad_norm"), TP_TOL["loss"],
+                                     TP_TOL["grad_norm"])
+            excess, leaf = _compare_flat(flat, ref, tol, lr_sum, zero=zero)
+            out.update(world1_metrics=want, world1_step_ms=ms1, world1_peak_bytes=peak1,
+                       world1_launches_per_step=want_launches, bad_metrics=bad,
+                       param_excess=excess, param_worst_leaf=leaf)
+        dist.barrier()
+        res[name] = out
+        lap(name)
+
+    if job == "ab":
+        mesh = create_mesh(seq=2, device=dev)
+        # (a) lrs3_1800: 2 x 1800 frames, full width and depth, no remat
+        cfg = lrs3_1800_cfg(remat=False)
+        whole = uint8_sentences(np, cfg, LRS3_1800_FRAMES, LRS3_1800_LABEL_LEN, LRS3_SOURCE,
+                                seed=0)
+        run(cfg, whole, image.build_sentence_aug(cfg.data), 2, "lrs3_1800_sp2", mesh,
+            BF16_TOL)
+        # (b) lrs3 at 8 x 160 frames
+        cfg = lrs3_cfg()
+        whole = uint8_sentences(np, cfg, LRS3_FRAMES, LRS3_LABEL_LEN, LRS3_SOURCE, seed=0)
+        run(cfg, whole, image.build_sentence_aug(cfg.data), 2, "lrs3_sp2", mesh, BF16_TOL)
+    else:
+        # (d) small f32 models, deterministic cuDNN as in the tensor phase (d)
+        if cuda:
+            torch.backends.cudnn.deterministic = True
+        data_seq = create_mesh(data=2, seq=2, device=dev)
+        seq_model = create_mesh(seq=2, model=2, device=dev)
+        cfg = small_sentence_cfg()
+        whole = uint8_sentences(np, cfg, SEQ_SMALL_FRAMES, 8, 64, seed=0)
+        aug = image.build_sentence_aug(cfg.data)
+        run(cfg, whole, aug, 2, "small_data_seq_fsdp", data_seq, SEQ_F32_TOL,
+            {"fsdp": True, "fsdp_min_size": TP_MIN_SIZE_SMALL})
+        run(cfg, whole, aug, 2, "small_seq_model", seq_model, SEQ_F32_TOL,
+            {"min_dim": TP_MIN_DIM_SMALL})
+        for frames in (40, 29):
+            cfg = small_word_cfg(frames)
+            run(cfg, uint8_clips(np, cfg, seed=0), image.build_word_aug(cfg.data), 2,
+                f"small_word{frames}_seq_model", seq_model, SEQ_F32_TOL,
+                {"min_dim": TP_MIN_DIM_SMALL})
+    dist.destroy_process_group()
+    with open(f"{out_path}.{rank}", "w") as f:
+        json.dump(res, f)
+
+
+def check_seq_run(ranks, name, want_steps=None):
+    """One seq run's checks on every rank's results; its summary. Launches
+    a step: ``want_steps``, or where None world 1's (K3/K4 alike, K1 + K2
+    one call a sync head)."""
+    got = ranks[0][name]
+    peak, peak1 = got["peak_bytes"], got["world1_peak_bytes"]
+    share = None if not (peak and peak1) else peak / peak1
+    log(f"seq {name}: {len(ranks)} ranks (frames {[r[name]['frames'] for r in ranks]}) "
+        f"{got['metrics']} against world 1 {got['world1_metrics']}; worst parameter excess "
+        f"over the tolerance {got['param_excess']:.3e} ({got['param_worst_leaf']}); peak "
+        f"device memory a rank {[r[name]['peak_bytes'] for r in ranks]} B against world 1's "
+        f"{peak1} B (x{share}); launches a step {got['launches_per_step']} (world 1 "
+        f"{got['world1_launches_per_step']}); {got['step_ms_ranks_one_card']:.2f} ms a step "
+        f"({len(ranks)} ranks sharing one card, gloo through the host: correctness and "
+        f"memory, not scaling), world 1 {got['world1_step_ms']:.2f} ms")
+    if got["bad_metrics"] or got["param_excess"] > 0:
+        raise AssertionError(f"seq {name}: the meshed step is not world 1's: "
+                             f"{got['bad_metrics']}, {got['param_worst_leaf']}")
+    w1 = got["world1_launches_per_step"]
+    for r in ranks:
+        have = r[name]["launches_per_step"]
+        if want_steps is not None:
+            ok = have == {k: float(v) for k, v in want_steps.items()}
+        else:
+            ok = (all(have[k] == w1[k] for k in ("bn_stats_fwd", "bn_stats_bwd"))
+                  and have["sync_ce_fwd"] + have["sync_ce_split_fwd"]
+                  == w1["sync_ce_fwd"] + w1["sync_ce_split_fwd"])
+        if not ok:
+            raise AssertionError(f"seq {name}: launches a step {have}")
+        if r[name]["metrics"] != got["metrics"]:
+            raise AssertionError(f"seq {name}: the ranks' metrics differ")
+    return {k: got[k] for k in ("metrics", "world1_metrics", "param_excess",
+                                "param_worst_leaf", "launches_per_step", "peak_bytes",
+                                "world1_peak_bytes", "step_ms_ranks_one_card",
+                                "world1_step_ms", "frames")} | {"peak_share": share}
+
+
+# (c)'s tree: one clip a bucket of the lrs3 recipe (160 ... 1800 frames, each
+# even, so every batch splits over seq=2), read from the pkls
+SEQ_FILES_TRAIN, SEQ_FILES_VAL = [150, 300, 600, 1100, 1700], [120]
+
+
+def seq_cli(torch, np):
+    """(c): ``python -m torch.distributed.run --standalone --nproc-per-node 2
+    -m syncvsr_tpu_torch.train preset=lrs3 mesh.seq=2`` at full width and
+    ``FILES_DEPTH`` with ``model.remat`` (its recompute replays the
+    frames' collectives) over a synthetic LRS3 tree's bucket schedule
+    (one clip a bucket, 160 to 1800 frames, at most ``FILES_MBF`` frames a
+    batch), an epoch; its checkpoint loads at one process with every leaf
+    of the file equal."""
+    import os
+    import shutil
+    import tempfile
+
+    from syncvsr_tpu_torch.data.synthetic_tree import write_lrs_tree
+    from syncvsr_tpu_torch.engine import create_train_state
+    from syncvsr_tpu_torch.models import build_model
+    from syncvsr_tpu_torch.utils import checkpoint as ckpt
+
+    tmp = tempfile.mkdtemp(prefix="syncvsr_seq_cli_")
+    try:
+        root = os.path.join(tmp, "files")
+        write_lrs_tree(root, "LRS3", {"train": SEQ_FILES_TRAIN, "val": SEQ_FILES_VAL},
+                       seed=8)
+        ck = os.path.join(tmp, "ck")
+        env = dict(os.environ)
+        here = os.path.dirname(os.path.abspath(__file__))
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (here, env.get("PYTHONPATH")) if p)
+        steps = len(SEQ_FILES_TRAIN)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "2", "-m", "syncvsr_tpu_torch.train", "preset=lrs3",
+               *FILES_DEPTH, "data.dataset=lrs3", f"data.root={root}", "mesh.seq=2",
+               f"data.max_batch_frames={FILES_MBF}", "model.remat=true",
+               f"optim.total_steps={steps}", "train.log_every=1", "train.eval_every=1000",
+               "train.ckpt_every=1000", f"train.ckpt_dir={ck}"]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True,
+                             timeout=CLI_TIMEOUT)
+        dt = time.perf_counter() - t0
+        tail = "\n".join((out.stdout + out.stderr).strip().splitlines()[-12:])
+        log(f"seq (c): {' '.join(cmd[1:])} -> exit {out.returncode} in {dt:.1f} s\n{tail}")
+        if out.returncode != 0:
+            raise AssertionError(f"seq (c) failed (exit {out.returncode})")
+        if "mesh data 1 x seq 2 x model 1" not in out.stdout:
+            raise AssertionError("seq (c): the driver did not make a seq axis of 2")
+        path = ckpt.latest_checkpoint(ck)
+        records = train_records(ck)
+        cfg = lrs3_cfg().override(**{a.split("=")[0]: int(a.split("=")[1])
+                                     for a in FILES_DEPTH})
+        dev = torch.device("cuda")
+        batch = {"videos": torch.zeros((1, 4, 88, 88, 1), device=dev),
+                 "lengths": torch.full((1,), 4, device=dev)}
+        state = create_train_state(cfg, build_model(cfg, device=dev), batch, device=dev)
+        ckpt.restore_train_state(path, state)
+        saved = ckpt.load_msgpack(path)
+        loaded = ckpt.state_payload(state)
+        unequal = [f"{key}:{k}" for key in ("params", "opt_state", "batch_stats")
+                   for k, v in ckpt.flatten(saved[key]).items()
+                   if not np.array_equal(v, ckpt.flatten(loaded[key])[k])]
+        leaves = sum(len(ckpt.flatten(saved[key])) for key in ("params", "opt_state",
+                                                                "batch_stats"))
+        del state
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    loss = [r["train/loss"] for r in records if "train/loss" in r]
+    log(f"seq (c): its checkpoint step {int(saved['step'])}: {leaves} leaves, unequal "
+        f"after the load at one process {unequal}; losses {loss}; launches a step "
+        f"{[{k.split('/')[-1]: v for k, v in r.items() if '/launches/' in k} for r in records if 'train/loss' in r]}")
+    if unequal or not leaves or int(saved["step"]) != steps:
+        raise AssertionError("seq (c): the checkpoint does not load whole at one process")
+    if not (len(loss) >= steps - 1 and all(math.isfinite(v) for v in loss)):
+        raise AssertionError(f"seq (c): the driver's losses {loss}")
+    check_launches([r for r in records if "train/launches/sync_ce_fwd" in r],
+                   {"sync_ce_fwd": 0, "sync_ce_split_fwd": 1, "bn_stats_fwd": 44,
+                    "bn_stats_bwd": 22}, "seq (c)")
+    return {"seconds": dt, "checkpoint_leaves": leaves, "losses": loss}
+
+
+def seq_phase(torch, np, summary):
+    """The ``seq`` phase: sequence parallel (``mesh.seq=2``), each rank on
+    its frames of every clip, with the processes sharing the card over gloo
+    (NCCL takes one rank a device): (a) ``lrs3_1800`` (2 x 1800 frames, no
+    remat) and (b) ``lrs3`` (8 x 160) at full width and depth against world
+    1 on the same batch (bf16: the first step's loss and grad norm at
+    ``TP_TOL``, the parameters at ``BF16_TOL`` after 2 steps), K2/K3/K4 on
+    a rank's frames, a rank's peak device memory beside world 1's; (c) the
+    train driver under ``torch.distributed.run`` with ``mesh.seq=2`` over a
+    bucket schedule from files and its checkpoint at one process; (d) four
+    processes: a small f32 ``lrs3`` model as (data=2, seq=2) with FSDP and
+    as (seq=2, model=2), and a small ``lrw_video`` model at 40 and 29
+    frames (the fallback) as (seq=2, model=2), against world 1
+    (``SEQ_F32_TOL``). Step times of ranks sharing a card check correctness
+    and memory, not scaling. Returns the phase's summary."""
+    t0 = time.perf_counter()
+    out, launches = {}, {k: 0 for k in counters()}
+    ranks, out["ab_seconds"] = run_workers(torch, seq_worker, 2, "ab", SEQ_TIMEOUT)
+    log(f"seq (a), (b): seconds {ranks[0]['seconds']}")
+    for name in ("lrs3_1800_sp2", "lrs3_sp2"):
+        out[name] = check_seq_run(ranks, name, SEQ_SENTENCE)
+    out["c"] = seq_cli(torch, np)
+    ranks4, out["d_seconds"] = run_workers(torch, seq_worker, 4, "d", SEQ_TIMEOUT)
+    log(f"seq (d): seconds {ranks4[0]['seconds']}")
+    small = ("small_data_seq_fsdp", "small_seq_model", "small_word40_seq_model",
+             "small_word29_seq_model")
+    for name in small:
+        out[name] = check_seq_run(ranks4, name)
+    if out["small_word29_seq_model"]["frames"] is not None:
+        raise AssertionError("seq (d): 29 frames were split over seq=2")
+    for rs, names in ((ranks, ("lrs3_1800_sp2", "lrs3_sp2")), (ranks4, small)):
+        for r in rs:
+            for name in names:
+                for k, v in r[name]["launches_per_step"].items():
+                    launches[k] += int(round(v * 2))
+    out["launches"] = launches
+    out["per_step"] = {p: out[p]["launches_per_step"] for p in ("lrs3_1800_sp2", "lrs3_sp2")}
+    out["seconds"] = time.perf_counter() - t0
+    a = out["lrs3_1800_sp2"]
+    log(f"seq: {out['seconds']:.1f} s in all; lrs3_1800 at seq=2: a rank's peak "
+        f"{a['peak_bytes'] / 2**30:.2f} GiB against world 1's "
+        f"{a['world1_peak_bytes'] / 2**30:.2f} GiB; a two-rank step "
+        f"{a['step_ms_ranks_one_card']:.2f} ms (lrs3_1800), "
+        f"{out['lrs3_sp2']['step_ms_ranks_one_card']:.2f} ms (lrs3): two ranks sharing one "
+        "card over gloo, which stages through the host: correctness and memory, not scaling")
     return out
 
 
@@ -3410,6 +3789,10 @@ def main():
     lap("tensor")
     launches = {k: launches[k] + summary["tensor"]["launches"][k] for k in launches}
     per_step.update(summary["tensor"]["per_step"])
+    summary["seq"] = seq_phase(torch, np, summary)
+    lap("seq")
+    launches = {k: launches[k] + summary["seq"]["launches"][k] for k in launches}
+    per_step.update(summary["seq"]["per_step"])
     # the kernels' windows first: after the steps' windows, torch.profiler
     # traced no kernel of theirs (run on an H100, PyTorch 2.11)
     for job in later + windows + [decode_window]:
@@ -3431,6 +3814,7 @@ def main():
     log(f"cli: {json.dumps(summary['cli'])}")
     log(f"parallel: {json.dumps(summary['parallel'])}")
     log(f"tensor: {json.dumps(summary['tensor'])}")
+    log(f"seq: {json.dumps(summary['seq'])}")
     log(f"summary: {json.dumps(summary)} on {card}")
     log(json.dumps({"kernels": entries}))
     log(card)

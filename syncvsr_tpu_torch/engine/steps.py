@@ -22,8 +22,8 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from syncvsr_tpu_torch.engine.state import TrainState, apply_gradients, grad_norm
-from syncvsr_tpu_torch.parallel import collectives
-from syncvsr_tpu_torch.parallel.mesh import Mesh, all_reduce_flat
+from syncvsr_tpu_torch.parallel import collectives, sequence
+from syncvsr_tpu_torch.parallel.mesh import Mesh, all_reduce_flat, split_time
 
 
 def build_train_step(aug_fn: Optional[Callable] = None,
@@ -41,13 +41,20 @@ def build_train_step(aug_fn: Optional[Callable] = None,
     group (one all-reduce of one flat bucket; under FSDP, ``state.fsdp``, a
     reduce-scatter of the split leaves after their parameters were gathered
     for the forward), and every rank applies the update to what it holds
-    (the model ranks to their own columns). The metrics are the global
-    batch's on every rank."""
-    distributed = mesh is not None and mesh.data > 1
+    (the model ranks to their own columns). On a mesh with a seq axis the
+    step first splits the time of a batch of the data index's rows
+    (``mesh.split_time``; a ``shard_batch`` batch is split already), runs
+    the forward and backward with that slice current
+    (``parallel/sequence.py``), and sums the gradients over the data x seq
+    ranks (one all-reduce; under FSDP one more over the seq ranks after the
+    reduce-scatter). The metrics are the global batch's on every rank."""
+    seq = mesh is not None and mesh.seq > 1
+    distributed = mesh is not None and mesh.data * mesh.seq > 1
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
         layout = state.fsdp
-        with collectives.data_parallel(mesh):
+        batch = split_time(mesh, batch)
+        with collectives.data_parallel(mesh), sequence.batch(getattr(batch, "time", None)):
             if layout is not None:
                 layout.gather()
             if aug_fn is not None:
@@ -64,8 +71,10 @@ def build_train_step(aug_fn: Optional[Callable] = None,
         if layout is not None:
             grads = layout.reduce_gradients(grads)
             layout.release()
+            if seq:
+                grads = all_reduce_flat(grads, mesh.seq_group)
         elif distributed:
-            grads = all_reduce_flat(grads, mesh.data_group)
+            grads = all_reduce_flat(grads, mesh.over("data", "seq"))
         norm = grad_norm(state, grads)
         lr = apply_gradients(state, grads)
         metrics = {k: v.detach() for k, v in out.items()}
@@ -80,12 +89,15 @@ def build_eval_step(mesh: Optional[Mesh] = None) -> Callable:
     """Returns ``eval_step(state, batch) -> metrics``: the forward with
     BatchNorm on its running statistics. Over a ``mesh`` of several
     processes the metrics, and ``_weight`` (the real rows' count), are the
-    global batch's, as the JAX package's step returns them."""
+    global batch's, as the JAX package's step returns them; on a mesh with
+    a seq axis the forward runs on the rank's time slice, as the train
+    step's."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, Any]):
         layout = state.fsdp
-        with collectives.data_parallel(mesh):
+        batch = split_time(mesh, batch)
+        with collectives.data_parallel(mesh), sequence.batch(getattr(batch, "time", None)):
             if layout is not None:
                 layout.gather()
             try:

@@ -25,9 +25,12 @@ step returns the global batch's metrics on every rank (``_weight`` the
 global real-row count), and the decoders run on each rank's rows, whose
 hypotheses rank 0 gathers in the loader's order, scores and writes. The
 WER, the accuracy and the hypotheses equal one process's. With
-``mesh.model > 1`` the weights stay whole on every rank (the JAX driver's
-``_eval_mesh`` replicates them too) and the rows split over the data axis:
-the ranks of one model group evaluate the same rows. A mesh config
+``mesh.model > 1`` or ``mesh.seq > 1`` the weights stay whole on every
+rank (the JAX driver's ``_eval_mesh`` replicates them too) and the rows
+split over the data axis: the seq and model ranks of one data index
+evaluate the same rows (the word-level step splits their clips' time over
+the seq ranks, as the train step does; the decoders run whole clips, as
+JAX's data-only decode mesh does). A mesh config
 that does not fit the process group (``mesh.data`` another size) decodes
 unsharded, every rank the whole split, with the JAX driver's message.
 
@@ -136,18 +139,20 @@ def eval_mesh(config: Config, device: torch.device) -> Mesh:
 def gather_records(records: List[Tuple[Tuple[int, int], Dict[str, Any]]], mesh: Mesh
                    ) -> List[Dict[str, Any]]:
     """Every rank's (batch, row) keyed records, on rank 0 in the loaders'
-    order: rank r's row i of batch k is row (k, i, r) of the split, which
-    is one process's order (the loaders give data index r the strided rows
-    r, r + W, ...; the ranks of one model group decode the same rows, and
-    model index 0's count). Other ranks get an empty list."""
+    order: data index d's row i of batch k is row (k, i, d) of the split,
+    which is one process's order (the loaders give data index d the strided
+    rows d, d + D, ...; the seq and model ranks of one data index decode
+    the same rows, and seq index 0's model index 0's count). Other ranks
+    get an empty list."""
     if mesh.size == 1:
         return [rec for _, rec in records]
     gathered = [None] * mesh.size
     dist.all_gather_object(gathered, records)
     if mesh.rank:
         return []
-    keyed = [(key + (r // mesh.model,), rec) for r, recs in enumerate(gathered)
-             if r % mesh.model == 0 for key, rec in recs]
+    per_data = mesh.seq * mesh.model   # ranks a data index: rank d * per_data leads
+    keyed = [(key + (r // per_data,), rec) for r, recs in enumerate(gathered)
+             if r % per_data == 0 for key, rec in recs]
     return [rec for _, rec in sorted(keyed, key=lambda kr: kr[0])]
 
 

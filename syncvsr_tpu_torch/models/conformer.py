@@ -1,7 +1,8 @@
 """Conformer encoder for sentence-level VSR (port of
 ``syncvsr_tpu/models/conformer.py``): macaron feed-forwards (0.5x, ReLU),
 relative-position multi-head attention (Transformer-XL style, the
-pad-and-reshape rel-shift), a convolution module (pointwise GLU ->
+reshape rel-shift, at a query offset under sequence parallel), a
+convolution module (pointwise GLU ->
 depthwise k=31 -> BatchNorm -> swish -> pointwise), pre-LN blocks, and a
 final LayerNorm. The input embedding scales by sqrt(d) and the encoder
 builds the relative sinusoid table.
@@ -34,7 +35,7 @@ from syncvsr_tpu_torch.models.layers import (
 )
 from syncvsr_tpu_torch.models.transformer import HeadMerge, HeadProjection
 from syncvsr_tpu_torch.ops.cuda_bn import FastBatchNorm
-from syncvsr_tpu_torch.parallel import tensor
+from syncvsr_tpu_torch.parallel import sequence, tensor
 
 Tensor = torch.Tensor
 
@@ -53,15 +54,23 @@ def rel_sinusoid_table(t: int, dim: int, dtype: torch.dtype = torch.float32,
     return pe.to(dtype)
 
 
-def rel_shift(x: Tensor) -> Tensor:
-    """[B, H, T, 2T-1] -> [B, H, T, T]: column j of row i holds relative
-    distance i - j (pad one zero column on the left, view as [2T, T], drop
-    the first row, view back, keep the first T columns)."""
-    b, h, t, _ = x.shape
-    x = F.pad(x, (1, 0))
-    x = x.reshape(b, h, 2 * t, t)
-    x = x[:, :, 1:].reshape(b, h, t, 2 * t - 1)
-    return x[..., :t]
+def rel_shift(x: Tensor, t0: int = 0) -> Tensor:
+    """[B, H, Tq, 2T-1] -> [B, H, Tq, T]: column j of row i holds relative
+    distance (t0 + i) - j, the table's column T-1 - (t0 + i) + j (queries
+    t0 .. t0+Tq-1 of a clip of T frames; the square case is Tq = T, t0 = 0).
+    The rows' windows lie in columns [c - Tq + 1, c + T) with c = T-1 - t0:
+    that [Tq, W] slice (W = T + Tq - 1), read flat from element Tq - 1 as
+    rows of W - 1, gives row i's window in its first T columns (the
+    pad-and-reshape shift of the square case, without the pad)."""
+    b, h, tq, w2 = x.shape
+    t = (w2 + 1) // 2
+    c = t - 1 - t0
+    x = x[..., c - tq + 1:c + t]
+    if tq == 1:
+        return x
+    w = t + tq - 1
+    x = x.reshape(b, h, tq * w)[..., tq - 1:tq - 1 + tq * (w - 1)]
+    return x.reshape(b, h, tq, w - 1)[..., :t]
 
 
 def _xavier_uniform_(t: Tensor) -> Tensor:
@@ -91,17 +100,20 @@ class RelPositionAttention(nn.Module):
     def forward(self, x: Tensor, pos_emb: Tensor, bias: Optional[Tensor] = None,
                 det: bool = True, gen: Optional[torch.Generator] = None) -> Tensor:
         dt = self.dtype
-        q, k, v = self.wq(x), self.wk(x), self.wv(x)                 # [B, T, H, Dk]
+        q, k, v = self.wq(x), self.wk(x), self.wv(x)                 # [B, Tq, H, Dk]
+        ts = sequence.active()
+        if ts is not None:   # this rank's queries against every key
+            k, v = sequence.gather_kv(torch.cat((k, v), dim=-1)).chunk(2, dim=-1)
         p = self.linear_pos(pos_emb)                                 # [2T-1, H, Dk]
         qu = (q + tensor.whole(self.pos_bias_u).to(dt)).float().permute(0, 2, 1, 3)
         qv = (q + tensor.whole(self.pos_bias_v).to(dt)).float().permute(0, 2, 1, 3)
-        ac = torch.matmul(qu, k.float().permute(0, 2, 3, 1))         # [B, H, T, T]
-        bd = torch.matmul(qv, p.float().permute(1, 2, 0))            # [B, H, T, 2T-1]
-        scores = (ac + rel_shift(bd)) / math.sqrt(self.d_k)
+        ac = torch.matmul(qu, k.float().permute(0, 2, 3, 1))         # [B, H, Tq, T]
+        bd = torch.matmul(qv, p.float().permute(1, 2, 0))            # [B, H, Tq, 2T-1]
+        scores = (ac + rel_shift(bd, 0 if ts is None else ts.start)) / math.sqrt(self.d_k)
         if bias is not None:
             scores = scores + bias.float()
         probs = torch.softmax(scores, dim=-1)
-        probs = dropout(probs, self.rate, det, gen)
+        probs = dropout(probs, self.rate, det, gen, time_dim=2)
         o = torch.matmul(probs.to(dt).float(), v.float().permute(0, 2, 1, 3))
         return self.wo(o.permute(0, 2, 1, 3).to(dt))
 
@@ -130,13 +142,22 @@ class ConvModule(nn.Module):
         # over [B, C, T], back to a contiguous [B, T, C] for the BatchNorm;
         # split over the model axis, on this rank's channels, gathered
         # before the bias
+        # under sequence parallel, this rank's frames with a (K-1)/2-frame
+        # halo each side and no padding
         w, b = self.dw.weight.to(dt), self.dw.bias.to(dt)
+        pad = self.dw.padding[0]
+        split_time = sequence.active() is not None
         if tensor.split_dim(self.dw.weight) is None:
-            h = F.conv1d(h.transpose(1, 2), w, b, padding=self.dw.padding,
+            if split_time:
+                h = sequence.halo(h, pad, pad)
+            h = F.conv1d(h.transpose(1, 2), w, b, padding=0 if split_time else pad,
                          groups=self.dw.groups)
             h = h.transpose(1, 2).contiguous()
         else:
-            h = F.conv1d(tensor.local(h).transpose(1, 2), w, padding=self.dw.padding,
+            h = tensor.local(h)
+            if split_time:
+                h = sequence.halo(h, pad, pad)
+            h = F.conv1d(h.transpose(1, 2), w, padding=0 if split_time else pad,
                          groups=w.shape[0])
             h = tensor.gather_from_model(h.transpose(1, 2).contiguous(), bias=b)
         h = self.bn(h, train)
@@ -156,7 +177,7 @@ class ConformerFeedForward(nn.Module):
 
     def forward(self, x: Tensor, det: bool = True,
                 gen: Optional[torch.Generator] = None) -> Tensor:
-        return self.w2(dropout(F.relu(self.w1(x)), self.rate, det, gen))
+        return self.w2(dropout(F.relu(self.w1(x)), self.rate, det, gen, time_dim=1))
 
 
 class ConformerBlock(nn.Module):
@@ -181,7 +202,7 @@ class ConformerBlock(nn.Module):
                 pad_mask: Optional[Tensor], det: bool = True,
                 gen: Optional[torch.Generator] = None) -> Tensor:
         def drop(h):
-            return dropout(h, self.rate, det, gen)
+            return dropout(h, self.rate, det, gen, time_dim=1)
 
         if self.macaron:
             x = x + 0.5 * drop(self.ff_macaron(self.norm_ff_macaron(x), det, gen))
@@ -194,7 +215,11 @@ class ConformerBlock(nn.Module):
 class ConformerEncoder(nn.Module):
     """[B, T, D_in] (frontend features) -> [B, T, dim]. With ``remat`` each
     block's activations are recomputed in the backward (``layers.remat``,
-    as the JAX package's ``nn.remat`` of the block)."""
+    as the JAX package's ``nn.remat`` of the block). In the time-split
+    region of a sequence-parallel step (``parallel/sequence.py``) ``x``
+    holds this rank's frames and ``pad_mask`` [B, T] the whole clip's: the
+    position table and the attention bias cover every frame, the queries
+    and the convolution module this rank's."""
 
     def __init__(self, din: int, layers: int, dim: int, heads: int, hidden: int,
                  conv_kernel: int = 31, macaron: bool = True, dropout: float = 0.1,
@@ -214,12 +239,14 @@ class ConformerEncoder(nn.Module):
 
     def forward(self, x: Tensor, pad_mask: Optional[Tensor] = None, det: bool = True,
                 gen: Optional[torch.Generator] = None) -> Tensor:
-        t = x.shape[1]
+        t = sequence.total(x.shape[1])
         x = self.embed(x) * math.sqrt(self.dim)
-        x = dropout(x, self.rate, det, gen)
+        x = dropout(x, self.rate, det, gen, time_dim=1)
         pos_emb = rel_sinusoid_table(t, self.dim, self.dtype, x.device)
         pos_emb = dropout(pos_emb, self.rate, det, gen)   # one mask for the batch
         bias = None if pad_mask is None else make_pad_bias(pad_mask)
+        if pad_mask is not None:
+            pad_mask = sequence.local(pad_mask, 1)   # the convolution modules' frames
         for i in range(self.layers):
             block = getattr(self, f"block_{i}")
             x = (remat(gen, block, x, pos_emb, bias, pad_mask, det, gen) if self.remat

@@ -11,6 +11,13 @@ conventions: blank 0, sos = eos = labels - 1, ignore -1. In train mode
 accepted for the train step's calling shape and not used (the sentence
 recipe has no CutMix).
 
+Under sequence parallel (``parallel/sequence.py``) the frontend, the
+Conformer and the sync head run on this rank's frames (the region), the
+encoder output is gathered, and the CTC head, CTC and the decoder run on
+the whole clip alike on every seq rank; those loss terms are weighted by
+1/S in the backward (``sequence.replicated``), so the step sums every
+gradient over data x seq. The metrics are unscaled.
+
 The decoding hooks (``ctc_log_probs``, ``decoder_init_cache``,
 ``decoder_step``, ``decoder_precompute_memory``) feed the encoder output to
 the decoder as it is, without ``proj_decoder``, as the JAX package's hooks
@@ -38,7 +45,7 @@ from syncvsr_tpu_torch.ops.masking import (
     label_smoothing_kl,
     length_mask,
 )
-from syncvsr_tpu_torch.parallel import collectives
+from syncvsr_tpu_torch.parallel import collectives, sequence
 
 Tensor = torch.Tensor
 
@@ -72,15 +79,18 @@ class SentenceVSRModel(nn.Module):
 
     def encode(self, videos: Tensor, lengths: Tensor, det: bool = True,
                gen: Optional[torch.Generator] = None) -> Tensor:
-        """Frontend + Conformer: [B, T, ...] -> [B, T, encoder dim]. With
-        ``model.remat`` in training the frontend's activations are
-        recomputed in the backward too: at the 1800-frame bucket its
-        per-frame activations, not the Conformer's, take most memory."""
+        """Frontend + Conformer: [B, T, ...] -> [B, T, encoder dim] (in the
+        time-split region of a sequence-parallel step, this rank's frames
+        of both). With ``model.remat`` in training the frontend's
+        activations are recomputed in the backward too: at the 1800-frame
+        bucket its per-frame activations, not the Conformer's, take most
+        memory."""
         if self.cfg.remat and not det:
             feats = remat(None, lambda v: self.frontend(v, train=True), videos)
         else:
             feats = self.frontend(videos, train=not det)
-        pad_mask = length_mask(self.frame_lengths(videos, lengths), feats.shape[1])
+        pad_mask = length_mask(self.frame_lengths(videos, lengths),
+                               sequence.total(feats.shape[1]))
         return self.encoder(feats, pad_mask, det, gen)
 
     def forward(self, videos: Tensor, lengths: Tensor, labels: Tensor, audio_tokens: Tensor,
@@ -88,20 +98,31 @@ class SentenceVSRModel(nn.Module):
                 mixup_gen: Optional[torch.Generator] = None,
                 dropout_gen: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
         cfg, codec = self.cfg, self.cfg.codec
-        x = self.encode(videos, lengths, det, dropout_gen)
-        t = x.shape[1]
-        lengths = self.frame_lengths(videos, lengths)
-        pad_mask = length_mask(lengths, t)
+        a = codec.audio_alignment
+        with sequence.region():
+            # the frontend, the Conformer and the sync head on this rank's
+            # frames [t0, t0 + t) under sequence parallel
+            x = self.encode(videos, lengths, det, dropout_gen)
+            lengths = self.frame_lengths(videos, lengths)
+            t, t0 = x.shape[1], sequence.start()
+            pad_mask = sequence.local(length_mask(lengths, sequence.total(t)), 1)
 
-        # frame-level audio sync loss over the valid frames only
-        audio_tokens = audio_tokens[:, : t * codec.audio_alignment]
-        frame_valid = pad_mask.repeat_interleave(codec.audio_alignment, dim=1)
-        if sample_weight is not None:
-            frame_valid = frame_valid & (sample_weight[:, None] > 0)
-        masked_tokens = torch.where(frame_valid[:, :, None], audio_tokens,
-                                    torch.full_like(audio_tokens, -1))
-        loss_audio = self.audio_classifier(x.float(), masked_tokens,
-                                           chunk=128 if t > 256 else None)
+            # frame-level audio sync loss over the valid frames only
+            audio_tokens = audio_tokens[:, t0 * a:(t0 + t) * a]
+            frame_valid = pad_mask.repeat_interleave(a, dim=1)
+            if sample_weight is not None:
+                frame_valid = frame_valid & (sample_weight[:, None] > 0)
+            masked_tokens = torch.where(frame_valid[:, :, None], audio_tokens,
+                                        torch.full_like(audio_tokens, -1))
+            loss_audio = self.audio_classifier(x.float(), masked_tokens,
+                                               chunk=128 if t > 256 else None)
+            audio_term = sequence.replicated(loss_audio)
+            if det:
+                slots = collectives.global_sum((masked_tokens >= 0).sum().float())
+        # the rest on the whole clip, alike on the seq ranks
+        x = sequence.gather_time(x)
+        t = x.shape[1]
+        pad_mask = length_mask(lengths, t)
 
         # CTC
         label_lengths = (labels != -1).sum(1)
@@ -118,8 +139,9 @@ class SentenceVSRModel(nn.Module):
                                       ignore_id=-1, sample_weight=sample_weight)
         acc = decoder_accuracy(dec_logits, ys_out, ignore_id=-1, sample_weight=sample_weight)
 
-        loss = (cfg.mtlalpha * loss_ctc + (1.0 - cfg.mtlalpha) * loss_att
-                + cfg.sync_lambda * loss_audio)
+        loss = (sequence.replicated(cfg.mtlalpha * loss_ctc
+                                    + (1.0 - cfg.mtlalpha) * loss_att)
+                + cfg.sync_lambda * audio_term)
         out = {"loss": loss, "loss_ctc": loss_ctc, "loss_att": loss_att,
                "loss_audio": loss_audio, "decoder_acc": acc}
         if det:
@@ -129,7 +151,7 @@ class SentenceVSRModel(nn.Module):
             if sample_weight is not None:
                 valid_out = valid_out & (sample_weight[:, None] > 0)
             out["_tokens"] = collectives.global_sum(valid_out.sum().float())
-            out["_slots"] = collectives.global_sum((masked_tokens >= 0).sum().float())
+            out["_slots"] = slots
         return out
 
     # ---- decoding hooks (used by syncvsr_tpu_torch.decode) ------------------

@@ -10,6 +10,12 @@ modality to a [B, T, D] sequence:
   ``resnet1d``), [B, S] or [B, S, 1] at 16 kHz -> [B, S // 640, 8*width].
 
 ``build_frontend`` picks one by ``frontend.kind``, as the JAX function does.
+
+In the time-split region of a sequence-parallel step
+(``parallel/sequence.py``) each rank runs the video and landmark frontends
+on its frames: the stem conv, the only temporal op, reads a 2-frame halo,
+and the trunk's BatchNorms reduce over data x seq. The audio frontend
+raises there.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from syncvsr_tpu_torch.models.resnet import ResNet1D, ResNetTrunk
 from syncvsr_tpu_torch.ops.cuda_bn import FastBatchNorm
 from syncvsr_tpu_torch.ops.maxpool import max_pool_3x3_s2
 from syncvsr_tpu_torch.ops.stem import stem_conv3d
-from syncvsr_tpu_torch.parallel import tensor
+from syncvsr_tpu_torch.parallel import sequence, tensor
 
 Tensor = torch.Tensor
 
@@ -45,11 +51,17 @@ class Conv3DResNetFrontend(nn.Module):
         self.out_dim = self.resnet.out_dim
 
     def forward(self, videos: Tensor, train: bool = False) -> Tensor:
-        x = stem_conv3d(videos, self.stem_conv_kernel, self.dtype)   # [B, T, H, W, C]
+        if sequence.active() is None:
+            x = stem_conv3d(videos, self.stem_conv_kernel, self.dtype)   # [B, T, H, W, C]
+        else:   # this rank's frames: the stem's 5-frame kernel reads 2 frames around
+            x = stem_conv3d(sequence.halo(videos, 2, 2), self.stem_conv_kernel, self.dtype,
+                            time_pad=0)
         if tensor.split_dim(self.stem_conv_kernel) is not None:   # this rank's channels
             x = tensor.gather_from_model(x)
         # long clips fold time into batch after the only temporal op; the
-        # statistics reduce over all non-channel axes either way
+        # statistics reduce over all non-channel axes either way (under
+        # sequence parallel the threshold reads this rank's frames: the
+        # fold is a view, so the result is the same on either side of it)
         b, t = x.shape[0], x.shape[1]
         fold = t >= self.fold_threshold
         if fold:
@@ -87,6 +99,12 @@ class Conv1DResNetFrontend(nn.Module):
         self.out_dim = self.resnet1d.out_dim
 
     def forward(self, audio: Tensor, train: bool = False) -> Tensor:
+        if sequence.active() is not None:
+            raise NotImplementedError(
+                "mesh.seq > 1 with the Conv1D audio frontend: a waveform split over "
+                "the seq ranks needs a halo at every strided conv of ResNet1D, which "
+                "is not ported (a waveform whose length does not divide mesh.seq "
+                "stays whole and runs)")
         if audio.dim() == 2:
             audio = audio[..., None]
         s = audio.shape[1] // 640 * 640

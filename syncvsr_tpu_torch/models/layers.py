@@ -21,7 +21,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from syncvsr_tpu_torch.parallel import collectives, tensor
+from syncvsr_tpu_torch.parallel import collectives, sequence, tensor
 
 Tensor = torch.Tensor
 
@@ -43,10 +43,13 @@ def remat(gen: Optional[torch.Generator], fn, *args):
     replays only the global RNG; the recompute here starts ``gen`` (the
     region's dropout generator, if any) from its state at the forward, so it
     draws the same masks, and puts it back afterwards, so the draws after
-    the region do not move. Without autograd it is the plain call."""
+    the region do not move; it runs in the forward's time-split region or
+    outside it (``parallel/sequence.py``), so it replays the forward's
+    collectives. Without autograd it is the plain call."""
     if not torch.is_grad_enabled():
         return fn(*args)
     at_forward = gen.get_state() if gen is not None else None
+    split = collectives.splitting()
     calls = [0]
 
     def run(*a):
@@ -58,7 +61,8 @@ def remat(gen: Optional[torch.Generator], fn, *args):
             gen.set_state(at_forward)
         _remat.recomputing = True
         try:
-            return fn(*a)
+            with collectives.time_split(split):   # the forward's reductions
+                return fn(*a)
         finally:   # a recompute may stop early by raising
             _remat.recomputing = False
             if gen is not None:
@@ -100,13 +104,24 @@ def activation(name: str):
     }[name]
 
 
-def dropout(x: Tensor, rate: float, det: bool, gen: Optional[torch.Generator]) -> Tensor:
+def dropout(x: Tensor, rate: float, det: bool, gen: Optional[torch.Generator],
+            time_dim: Optional[int] = None) -> Tensor:
     """Element dropout with flax semantics: keep with p = 1 - rate, scale
-    kept values by 1 / p."""
+    kept values by 1 / p. ``time_dim``: the dim of ``x`` that holds this
+    rank's frames in the time-split region of a sequence-parallel step;
+    the mask is drawn there at the whole clip's shape and sliced, so a
+    clip's masks are one process's."""
     if det or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    ts = sequence.active() if time_dim is not None else None
+    if ts is None:
+        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    else:
+        shape = list(x.shape)
+        shape[time_dim] = ts.total
+        mask = (torch.rand(shape, generator=gen, device=x.device) < keep).narrow(
+            time_dim, ts.start, ts.length)
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -190,12 +205,13 @@ class FlaxBatchNorm(nn.Module):
         x32 = x.float()
         if train:
             axes = tuple(range(x.dim() - 1))
-            if collectives.active() is None:
+            over = collectives.span()
+            if over is None:
                 mean = x32.mean(axes)
                 var = torch.clamp((x32 * x32).mean(axes) - mean * mean, min=0.0)
             else:   # the global batch's sums (the batch splits evenly)
                 c = x.shape[-1]
-                n = x32.numel() // c * collectives.shard()[1]
+                n = x32.numel() // c * over.ranks
                 sums = collectives.all_reduce_grad(
                     torch.cat((x32.sum(axes), (x32 * x32).sum(axes))))
                 mean = sums[:c] / n

@@ -13,6 +13,14 @@ sync head on the pooled and per-frame features; in train mode each loss is
 lerped between the clip's own targets and the rolled batch's by the mixup
 weight, so the sync head runs twice.
 
+Under sequence parallel (``parallel/sequence.py``) the frontend runs on
+this rank's frames and its features are gathered before the
+word-boundary channel, the CLS token and the encoder, which run on the
+whole clip alike on every seq rank (the loss weighted by 1/S in the
+backward); CutMix's keep mask covers the whole clip, its slice the
+rank's frames. A clip whose length does not divide the seq axis stays
+whole on every seq rank.
+
 In train mode (``det=False``) CutMix and mixup sample from the
 ``mixup_gen`` CPU generator and dropout draws from ``dropout_gen`` on the
 activations' device. ``model.remat`` recomputes the transformer's blocks in
@@ -41,7 +49,7 @@ from syncvsr_tpu_torch.ops.cutmix import (
 )
 from syncvsr_tpu_torch.ops.masking import weighted_mean
 from syncvsr_tpu_torch.ops.sync_loss import regroup_tokens, sync_cross_entropy
-from syncvsr_tpu_torch.parallel import collectives, tensor
+from syncvsr_tpu_torch.parallel import collectives, sequence, tensor
 
 Tensor = torch.Tensor
 
@@ -161,7 +169,7 @@ class WordVSRModel(nn.Module):
         if inputs.dim() == 3:   # landmark pad sentinel -> 0
             inputs = torch.where(inputs == -100.0, torch.zeros_like(inputs), inputs)
         onehot = F.one_hot(labels.long(), cfg.labels).float() if labels.dim() == 1 else labels
-        t_in = inputs.shape[1]
+        t_in = sequence.total(inputs.shape[1])   # the whole clip's frames
         need = t_in * codec.audio_alignment
         if audio_tokens.shape[1] < need:
             raise ValueError(
@@ -183,9 +191,11 @@ class WordVSRModel(nn.Module):
                 inputs, onehot, audio_tokens, word_mask = temporal_cutmix_apply(
                     inputs, onehot, audio_tokens, word_mask, keep)
 
-        hidden = self.frontend(inputs, train=not det)               # [B, T, width]
-        if hasattr(self, "frontend_proj"):
-            hidden = self.frontend_proj(hidden)
+        with sequence.region():   # this rank's frames under sequence parallel
+            hidden = self.frontend(inputs, train=not det)           # [B, T, width]
+            if hasattr(self, "frontend_proj"):
+                hidden = self.frontend_proj(hidden)
+        hidden = sequence.gather_time(hidden)
         if cfg.use_word_boundary:
             if word_mask is None:
                 raise ValueError("use_word_boundary needs a word_mask")
@@ -210,7 +220,7 @@ class WordVSRModel(nn.Module):
         """The step's metrics: the composite loss, its parts, top-1/top-5
         accuracy against the (soft) labels' argmax, and in eval the sync
         slots' count."""
-        loss = loss_word + self.cfg.sync_lambda * loss_audio
+        loss = sequence.replicated(loss_word + self.cfg.sync_lambda * loss_audio)
         hard = onehot.argmax(-1)
         acc1 = weighted_mean((logits.argmax(-1) == hard).float(), sample_weight)
         k5 = min(5, logits.shape[-1])
@@ -233,7 +243,9 @@ class WordVSRModel(nn.Module):
             lam = sample_mixup(mixup_gen, self.cutmix_alpha)
             inputs = batch_mixup_apply(inputs, lam)
             lam = lam.to(inputs.device)   # f32, for the losses' lerp
-        hidden = self.frontend(inputs, train=not det)               # [B, T, width]
+        with sequence.region():
+            hidden = self.frontend(inputs, train=not det)           # [B, T, width]
+        hidden = sequence.gather_time(hidden)
         if cfg.use_word_boundary:
             if word_mask is None:
                 raise ValueError("use_word_boundary needs a word_mask")

@@ -15,8 +15,10 @@ Port of ``syncvsr_tpu/ops/pallas_bn.py`` (default math only):
   PyTorch, as it stays in XLA in the JAX package;
 * in a data-parallel step (``parallel/collectives.py``) the forward's
   sums are all-reduced between K3 and the division, and the
-  backward's between K4 and dx, so the statistics, dx and the running
-  statistics are the global batch's on every rank; the scale's and bias's
+  backward's between K4 and dx, over the data ranks (and, in the
+  time-split region of a sequence-parallel step, the seq ranks), so the
+  statistics, dx and the running statistics are the global batch's on
+  every rank; the scale's and bias's
   gradients stay this rank's terms, which the step sums;
 * running stats ``ra = 0.9 * ra + 0.1 * batch`` with the biased variance
   (flax's convention; ``nn.BatchNorm``'s momentum and unbiased running
@@ -254,12 +256,14 @@ class _BatchNormTrain(torch.autograd.Function):
         x2d = x.view(-1, c)
         m = x2d.shape[0]
         s, s2 = bn_stats(x2d)
-        if collectives.active() is not None:
-            # the global batch's sums, between K3 and the division (the batch
-            # splits evenly over the mesh)
-            s, s2 = collectives.reduce_sums(s, s2)
-            m *= collectives.shard()[1]
-        ctx.rows = m
+        over = collectives.span()
+        if over is not None:
+            # the global batch's sums, between K3 and the division (the batch,
+            # and in the time-split region each clip's frames, split evenly
+            # over the span's ranks)
+            s, s2 = collectives.reduce_sums(s, s2, over=over)
+            m *= over.ranks
+        ctx.rows, ctx.over = m, over
         mean = s / m
         var = torch.clamp(s2 / m - mean * mean, min=0.0)
         inv = torch.rsqrt(var + eps)
@@ -281,8 +285,9 @@ class _BatchNormTrain(torch.autograd.Function):
         n = x.numel() // c
         s1, s2 = bn_bwd_stats(gy.view(n, c), x.view(n, c), mean, inv)
         # the scale's and bias's gradients are this rank's terms (the step
-        # sums them over the mesh); dx needs the global batch's sums
-        g1, g2 = collectives.reduce_sums(s1, s2)
+        # sums them over the mesh); dx needs the global batch's sums, over
+        # the forward's ranks
+        g1, g2 = collectives.reduce_sums(s1, s2, over=ctx.over)
         n = ctx.rows
         k = (inv * scale).to(dtype)
         c1 = (inv * scale * g1 / n).to(dtype)

@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from syncvsr_tpu_torch.parallel import collectives
+from syncvsr_tpu_torch.parallel import collectives, sequence
 
 Tensor = torch.Tensor
 
@@ -51,15 +51,17 @@ def temporal_cutmix_apply(inputs: Tensor, labels: Tensor, audio_tokens: Tensor,
                           word_mask: Optional[Tensor], keep: Tensor
                           ) -> Tuple[Tensor, Tensor, Tensor, Optional[Tensor]]:
     """inputs [B, T, ...], labels [B, L] soft, audio_tokens [B, T*rep, G],
-    word_mask [B, T] or None, keep [T] bool -> the mixed four."""
-    t = inputs.shape[1]
+    word_mask [B, T] or None, keep [T] bool -> the mixed four. Under
+    sequence parallel ``inputs`` holds this rank's frames of the clip and
+    takes the keep mask's slice; the rest covers the whole clip."""
+    t = keep.shape[0]
     keep = keep.to(inputs.device)
     lam = keep.float().mean()
     audio_keep = keep.repeat_interleave(audio_tokens.shape[1] // t)
 
     flip = collectives.global_flip
-    kshape = (1, t) + (1,) * (inputs.dim() - 2)
-    inputs = torch.where(keep.reshape(kshape), inputs, flip(inputs))
+    kshape = (1, inputs.shape[1]) + (1,) * (inputs.dim() - 2)
+    inputs = torch.where(sequence.local(keep, 0).reshape(kshape), inputs, flip(inputs))
     labels = lam * labels + (1.0 - lam) * flip(labels)
     audio_tokens = torch.where(audio_keep[None, :, None], audio_tokens, flip(audio_tokens))
     if word_mask is not None:

@@ -11,7 +11,10 @@ Eval: ``to_float`` -> ``center_crop_resize`` -> ``normalize``.
 
 In a data-parallel step (``parallel/collectives.py``) the draws are made
 for the global batch on every rank, from the same-seeded generator, and
-each rank keeps its own rows.
+each rank keeps its own rows; under sequence parallel
+(``parallel/sequence.py``) the time masks are drawn over the whole clip
+and each seq rank keeps its frames, so a clip gets the same draws at any
+mesh.
 
 The word-level pipeline (``build_word_aug``, ``build_eval_transform``)
 reads ``inputs``; the sentence-level one (``build_sentence_aug``,
@@ -26,7 +29,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from syncvsr_tpu_torch.parallel import collectives
+from syncvsr_tpu_torch.parallel import collectives, sequence
 
 Tensor = torch.Tensor
 
@@ -123,10 +126,13 @@ def fused_train_aug_apply(videos: Tensor, p: Dict[str, Tensor], out_size: int,
                           mean: float = 0.421, std: float = 0.165,
                           dtype: torch.dtype = torch.bfloat16) -> Tensor:
     """videos [B, T, H, W, C] (uint8 or float) + sampled values ->
-    [B, T, out, out, C] normalised clips in ``dtype``."""
+    [B, T, out, out, C] normalised clips in ``dtype``. Under sequence
+    parallel ``videos`` holds this rank's frames and ``p["hit"]`` the whole
+    clip's: the rank takes its slice, and the clip-mean fill is the whole
+    clip's (a sum over the seq ranks)."""
     dev = videos.device
     ch, cw, y0, x0 = (p[k].to(dev)[:, None] for k in ("ch", "cw", "y0", "x0"))
-    flip, hit = p["flip"].to(dev), p["hit"].to(dev)
+    flip, hit = p["flip"].to(dev), sequence.local(p["hit"].to(dev), 1)
     grid = (torch.arange(out_size, dtype=torch.float32, device=dev) + 0.5) / out_size
     ys = y0 + grid * ch - 0.5
     xs_f = x0 + grid * cw - 0.5
@@ -136,7 +142,11 @@ def fused_train_aug_apply(videos: Tensor, p: Dict[str, Tensor], out_size: int,
     f = videos.float()
     v = torch.einsum("boh,bthwc->btowc", wy, f)
     v = torch.einsum("bpw,btowc->btopc", wx, v) * (1.0 / 255.0)
-    fill = v.mean(dim=(1, 2, 3, 4), keepdim=True)
+    if sequence.current() is None:
+        fill = v.mean(dim=(1, 2, 3, 4), keepdim=True)
+    else:
+        fill = sequence.time_sum(v, (1, 2, 3, 4)) / (sequence.total(v.shape[1])
+                                                     * v[0, 0].numel())
     v = torch.where(hit[:, :, None, None, None], fill, v)
     return ((v - mean) / std).to(dtype)
 
@@ -149,8 +159,8 @@ def fused_train_aug(gen: torch.Generator, videos: Tensor, out_size: int,
                     lengths: Optional[Tensor] = None,
                     dtype: torch.dtype = torch.bfloat16) -> Tensor:
     b, t, h, w, _ = videos.shape
-    p = sample_train_aug(gen, b, t, h, w, scale, ratio, hflip_prob, time_mask_span,
-                         time_mask_n, lengths, collectives.shard())
+    p = sample_train_aug(gen, b, sequence.total(t), h, w, scale, ratio, hflip_prob,
+                         time_mask_span, time_mask_n, lengths, collectives.shard())
     return fused_train_aug_apply(videos, p, out_size, mean, std, dtype)
 
 

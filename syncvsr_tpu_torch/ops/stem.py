@@ -15,10 +15,13 @@ import torch.nn.functional as F
 Tensor = torch.Tensor
 
 
-def stem_conv3d(x: Tensor, weight: Tensor, dtype: torch.dtype) -> Tensor:
+def stem_conv3d(x: Tensor, weight: Tensor, dtype: torch.dtype, time_pad: int = 2) -> Tensor:
     """x [B, T, H, W, 1]; weight [C, 1, 5, 7, 7] (OITHW) ->
-    contiguous [B, T, ceil(H/2), ceil(W/2), C] in ``dtype``."""
+    contiguous [B, T + 2*time_pad - 4, ceil(H/2), ceil(W/2), C] in
+    ``dtype``: [B, T, ...] at the default SAME padding, and this rank's
+    frames from an input that carries a 2-frame halo on each side with
+    ``time_pad=0`` (sequence parallel, ``models/frontend.py``)."""
     xc = x.to(dtype).permute(0, 4, 1, 2, 3)           # [B, 1, T, H, W], free view
     w = weight.to(dtype).contiguous(memory_format=torch.channels_last_3d)
-    y = F.conv3d(xc, w, stride=(1, 2, 2), padding=(2, 3, 3))
+    y = F.conv3d(xc, w, stride=(1, 2, 2), padding=(time_pad, 3, 3))
     return y.permute(0, 2, 3, 4, 1).contiguous()

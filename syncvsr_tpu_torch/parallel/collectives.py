@@ -20,20 +20,27 @@ stand in for the cross-shard reductions XLA inserts:
   row, over the global batch (CutMix's and mixup's partners), with
   ``all_to_all_single`` and ``all_gather_into_tensor``.
 
-On a mesh with a ``model`` axis (``parallel/tensor.py``) these reduce over
-the **data group** only: the ranks of one model group hold the same rows,
-so a sum over them too would count each row ``model`` times. The one
-exception is ``model=True`` (``reduce_sums``, ``global_mean``): the
-(sum, count) partials of a sync head whose slots are split over the model
-ranks, which are summed over every rank (data and model).
+These reduce over the ranks that hold other rows or frames of the global
+batch (``span``): the **data group**, and inside the time-split region of
+a step whose batch is split over ``seq`` (``parallel/sequence.py``;
+``time_split``) the data x seq ranks, each of which holds its frames of
+its rows. The ranks of one model group hold the same rows and, after
+every gather, the same activations, so a sum over them too would count
+each row ``model`` times. The one exception is ``model=True``
+(``reduce_sums``, ``global_mean``): the (sum, count) partials of a sync
+head whose slots are split over the model ranks, which are summed over
+the model ranks as well. ``global_flip`` and ``global_roll`` pair rows, so
+they run over the data group only (a seq rank's partner holds the same
+frames of another row).
 
 The step makes its mesh the active one (``data_parallel``) for its forward
-and backward; the ops ask ``active()`` (the mesh where its data axis has
-more than one rank). The mark is process-wide, not
-per-thread: the autograd engine runs a CUDA backward, and a ``model.remat``
-recompute inside it, on a thread of its own. With no active mesh (one
-process) every helper is the identity and issues no collective, so the
-one-process step runs exactly the code it ran before.
+and backward; the ops ask ``span()`` or ``active()``. An op whose backward
+reduces too keeps the span of its forward (a ``model.remat`` recompute
+re-enters the region it ran in, ``models/layers.py::remat``). The marks
+are process-wide, not per-thread: the autograd engine runs a CUDA
+backward, and a recompute inside it, on a thread of its own. With no
+active mesh (one process) every helper is the identity and issues no
+collective, so the one-process step runs exactly the code it ran before.
 
 Only collectives that gloo runs on CUDA tensors are used (all_reduce,
 all_gather_into_tensor, reduce_scatter_tensor, all_to_all_single), so two
@@ -44,7 +51,8 @@ send/recv hands the device pointer to the socket and fails there.
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, List, Optional, Tuple, Union
+from dataclasses import dataclass
+from typing import Any, Iterator, List, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -52,13 +60,7 @@ import torch.distributed as dist
 Tensor = torch.Tensor
 
 _ACTIVE = None   # the Mesh whose step is running, or None
-
-
-def active():
-    """The mesh whose step is running where its data axis has more than one
-    rank (so the global-batch reductions are needed), or None."""
-    mesh = _ACTIVE
-    return mesh if mesh is not None and mesh.data > 1 else None
+_SPLIT = False   # inside the time-split region of a step whose batch is split
 
 
 def running():
@@ -78,36 +80,74 @@ def data_parallel(mesh) -> Iterator[None]:
         _ACTIVE = prev
 
 
+def splitting() -> bool:
+    """Whether the running step is inside its time-split region (its batch
+    split over a seq axis above one)."""
+    return _SPLIT and _ACTIVE is not None and _ACTIVE.seq > 1
+
+
+@contextlib.contextmanager
+def time_split(on: bool = True) -> Iterator[None]:
+    """Mark the time-split region (``parallel/sequence.py::region``), or,
+    with ``on`` False, its absence (a ``model.remat`` recompute restores
+    its forward's mark)."""
+    global _SPLIT
+    prev, _SPLIT = _SPLIT, bool(on)
+    try:
+        yield
+    finally:
+        _SPLIT = prev
+
+
+@dataclass(frozen=True)
+class Span:
+    """The ranks a global-batch reduction sums over: their ``group`` (None:
+    the default group) and count."""
+
+    group: Any
+    ranks: int
+
+
+def span(model: bool = False) -> Optional[Span]:
+    """The ranks holding other rows (and, inside the time-split region,
+    other frames) of the running step's global batch, with ``model`` the
+    model ranks too; None where that is this rank alone."""
+    mesh = _ACTIVE
+    if mesh is None:
+        return None
+    axes = ("data",) + (("seq",) if splitting() else ()) + (("model",) if model else ())
+    n = mesh.axis_size(*axes)
+    return None if n == 1 else Span(mesh.over(*axes), n)
+
+
+def active():
+    """The running mesh where the global-batch reductions span other ranks
+    (``span``), or None."""
+    return _ACTIVE if span() is not None else None
+
+
 def shard() -> Tuple[int, int]:
-    """(data index, data size) of the active mesh; (0, 1) with none."""
-    mesh = active()
+    """(data index, data size) of the running mesh; (0, 1) with none: which
+    rows of the global batch this rank holds."""
+    mesh = _ACTIVE
     return (0, 1) if mesh is None else (mesh.data_index, mesh.data)
-
-
-def _all_reduce(t: Tensor, mesh) -> Tensor:
-    dist.all_reduce(t, group=mesh.data_group)
-    return t
 
 
 def reduces(model: bool = False) -> bool:
     """Whether ``reduce_sums(..., model=model)`` sums over other ranks."""
-    mesh = _ACTIVE
-    return mesh is not None and (mesh.data > 1 or (model and mesh.model > 1))
+    return span(model) is not None
 
 
-def reduce_sums(*ts: Tensor, model: bool = False) -> List[Tensor]:
-    """Each tensor summed over the active mesh's data group (with ``model``,
-    over every rank: partials of a head split over the model group too),
-    in one all-reduce of their f32 concatenation (no gradient); the tensors
+def reduce_sums(*ts: Tensor, model: bool = False, over: Optional[Span] = None
+                ) -> List[Tensor]:
+    """Each tensor summed over ``over`` (default: ``span(model)``), in one
+    all-reduce of their f32 concatenation (no gradient); the tensors
     themselves where there is nothing to sum over."""
-    mesh = _ACTIVE
-    if not reduces(model):
+    over = over or span(model)
+    if over is None:
         return list(ts)
     flat = torch.cat([t.detach().float().reshape(-1) for t in ts])
-    if model and mesh.model > 1:
-        dist.all_reduce(flat, group=mesh.group)
-    else:
-        _all_reduce(flat, mesh)
+    dist.all_reduce(flat, group=over.group)
     out, i = [], 0
     for t in ts:
         out.append(flat[i:i + t.numel()].view(t.shape))
@@ -116,9 +156,9 @@ def reduce_sums(*ts: Tensor, model: bool = False) -> List[Tensor]:
 
 
 def global_sum(t: Tensor) -> Tensor:
-    """The sum of ``t`` over the active mesh's data group: its value on
+    """The sum of ``t`` over the global batch (``span``): its value on
     every rank, with the gradient of the local term."""
-    if active() is None:
+    if span() is None:
         return t
     (tot,) = reduce_sums(t)
     return tot + (t - t.detach()) if t.requires_grad else tot
@@ -126,15 +166,16 @@ def global_sum(t: Tensor) -> Tensor:
 
 def global_mean(num: Tensor, den: Union[Tensor, float],
                 floor: Optional[float] = None, model: bool = False) -> Tensor:
-    """``num / max(den, floor)`` with both summed over the active mesh's
-    data group (with ``model``, over every rank; one all-reduce): the global
-    mean on every rank, whose gradient is that of ``num_local /
-    den_global``. With nothing to sum over, the local division."""
-    if not reduces(model):
+    """``num / max(den, floor)`` with both summed over the global batch
+    (``span(model)``; one all-reduce): the global mean on every rank, whose
+    gradient is that of ``num_local / den_global``. With nothing to sum
+    over, the local division."""
+    over = span(model)
+    if over is None:
         return num / (den if floor is None else torch.clamp(den, min=floor))
     if not isinstance(den, Tensor):
         den = torch.tensor(float(den), device=num.device)
-    tot_num, tot_den = reduce_sums(num, den, model=model)
+    tot_num, tot_den = reduce_sums(num, den, over=over)
     if floor is not None:
         tot_den = torch.clamp(tot_den, min=floor)
     if num.requires_grad:
@@ -144,22 +185,26 @@ def global_mean(num: Tensor, den: Union[Tensor, float],
 
 class _AllReduceGrad(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return _all_reduce(x.clone(), mesh)
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g.contiguous().clone(), ctx.mesh), None
+        out = g.contiguous().clone()
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
 
 
 def all_reduce_grad(x: Tensor) -> Tensor:
-    """``x`` summed over the active mesh's data group; its backward sums
-    the cotangent over the group too (the gradient of a shared statistic)."""
-    mesh = active()
-    if mesh is None:
+    """``x`` summed over the global batch (``span``); its backward sums the
+    cotangent over the same ranks (the gradient of a shared statistic)."""
+    over = span()
+    if over is None:
         return x
-    return _AllReduceGrad.apply(x, mesh)
+    return _AllReduceGrad.apply(x, over.group)
 
 
 def _bytes(x: Tensor) -> Tensor:
@@ -177,8 +222,8 @@ def global_flip(x: Tensor) -> Tensor:
     (D-1-d)'s, reversed. One ``all_to_all_single`` over the data group that
     sends the whole local batch to the partner (the middle rank of an odd
     mesh is its own)."""
-    mesh = active()
-    if mesh is None:
+    mesh = _ACTIVE
+    if mesh is None or mesh.data == 1:
         return torch.flip(x, dims=(0,))
     partner = mesh.data - 1 - mesh.data_index
     src = _bytes(x)
@@ -193,8 +238,8 @@ def global_roll(x: Tensor) -> Tensor:
     """``x`` rolled by one row along the global batch (``roll(x, 1, 0)`` of
     the whole): data index d's first row is index (d-1)'s last. One
     all-gather over the data group of every rank's last row."""
-    mesh = active()
-    if mesh is None:
+    mesh = _ACTIVE
+    if mesh is None or mesh.data == 1:
         return torch.roll(x, 1, dims=0)
     last = _bytes(x[-1:])
     rows = torch.empty((mesh.data, last.shape[1]), dtype=torch.uint8, device=x.device)

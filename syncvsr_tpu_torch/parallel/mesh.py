@@ -3,13 +3,19 @@
 The JAX package runs one process per host over a ``(data, seq, model)``
 device mesh and lets XLA place a sharded batch and state. PyTorch's idiom
 is one process per GPU: ``Mesh`` describes the ``torch.distributed`` group
-as a ``data`` x ``model`` grid of ranks, ``model`` innermost as in JAX's
-``reshape(data, seq, model)`` (rank r at data index ``r // model`` and
-model index ``r % model``), and the step issues the collectives itself
-(``parallel/collectives.py``, ``parallel/tensor.py``, ``engine/steps.py``).
+as a ``data`` x ``seq`` x ``model`` grid of ranks laid out as JAX's
+``reshape(data, seq, model)`` (rank r at data index ``r // (seq*model)``,
+seq index ``(r // model) % seq`` and model index ``r % model``), and the
+step issues the collectives itself (``parallel/collectives.py``,
+``parallel/sequence.py``, ``parallel/tensor.py``, ``engine/steps.py``).
 Each data index holds its rows of the global batch (rows [d*b, (d+1)*b)),
 as ``jax.make_array_from_process_local_data`` lays processes out along
-``data``; the ranks of one model group hold the same rows.
+``data``; the ranks of one data index hold the same rows. On a mesh with
+``seq > 1`` the time axis (axis 1) of the ``videos``/``inputs`` leaves
+whose length divides ``seq`` is split over the seq ranks too (JAX's
+``batch_shardings``): seq index s holds frames [s*T/seq, (s+1)*T/seq);
+an indivisible leaf (LRW's T = 29) stays whole and the seq ranks repeat
+its rows.
 
 ``state_shardings`` is the JAX package's rule on the flax layout of each
 leaf (``bridge.flax_perm``): on a mesh with ``model > 1`` a leaf of rank
@@ -19,8 +25,9 @@ computes its columns, ``parallel/tensor.py``); under ``mesh.fsdp`` (ZeRO
 over ``data``) every leaf of at least ``fsdp_min_size`` elements is split
 over the data ranks on its largest other divisible dimension, and its Adam
 moments with it (``ShardedParams``: the step gathers the parameters for
-its forward and backward and reduce-scatters their gradients). The
-``seq`` (sequence parallel) axis is not ported: a size above 1 raises.
+its forward and backward and reduce-scatters their gradients). No leaf is
+split over ``seq``: the seq ranks hold the same state, as the JAX rule
+never names the axis.
 
 With no process group, the mesh has one process and every function here is
 the identity: the step runs the one-process code, with no collective and no
@@ -29,7 +36,7 @@ added host read.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,34 +47,73 @@ from syncvsr_tpu_torch.utils.bridge import flax_perm
 
 Tensor = torch.Tensor
 
+AXES = ("data", "seq", "model")
+# batch keys whose axis 1 is (video/waveform) time, candidates for the seq
+# axis (the JAX package's ``_SEQ_KEYS``; ``audio_tokens``, T*alignment + 4
+# long, is never split)
+SEQ_KEYS = ("videos", "inputs")
+
 
 @dataclass(frozen=True)
 class Mesh:
-    """A ``data`` x ``model`` grid of ``size`` processes, this one ``rank``,
-    on ``device``. ``group`` is every rank's (None: the default group),
-    ``data_group`` the ranks of this one's model index (its data axis;
-    None: the default group, where ``model`` is 1), ``model_group`` the
-    ranks of this one's data index."""
+    """A ``data`` x ``seq`` x ``model`` grid of ``size`` processes, this one
+    ``rank``, on ``device``. ``group`` is every rank's (None: the default
+    group); ``groups`` holds, by the axes it spans, the group of the ranks
+    that share this one's indices on the other axes (``over``), made by
+    every rank in the same order in ``create_mesh``."""
 
     size: int
     rank: int
     device: torch.device
     group: Any = None
     model: int = 1
-    data_group: Any = None
-    model_group: Any = None
+    seq: int = 1
+    groups: Dict[Tuple[str, ...], Any] = field(default_factory=dict, compare=False,
+                                               hash=False, repr=False)
 
     @property
     def data(self) -> int:
-        return self.size // self.model
+        return self.size // (self.model * self.seq)
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.model
+        return self.rank // (self.seq * self.model)
+
+    @property
+    def seq_index(self) -> int:
+        return (self.rank // self.model) % self.seq
 
     @property
     def model_index(self) -> int:
         return self.rank % self.model
+
+    def axis_size(self, *axes: str) -> int:
+        """The number of ranks that ``axes`` span."""
+        sizes = {"data": self.data, "seq": self.seq, "model": self.model}
+        return int(np.prod([sizes[a] for a in set(axes)]))
+
+    def over(self, *axes: str):
+        """The process group of the ranks that share this one's indices on
+        every axis but ``axes`` (None: the default group, where they span
+        the world)."""
+        if self.axis_size(*axes) == self.size:
+            return self.group
+        return self.groups[tuple(a for a in AXES if a in axes)]
+
+    @property
+    def data_group(self):
+        """The ranks of this one's (seq, model) indices: its data axis."""
+        return self.over("data")
+
+    @property
+    def seq_group(self):
+        """The ranks of this one's (data, model) indices, in seq order."""
+        return self.over("seq")
+
+    @property
+    def model_group(self):
+        """The ranks of this one's (data, seq) indices."""
+        return self.over("model")
 
 
 def world() -> Tuple[int, int]:
@@ -77,36 +123,45 @@ def world() -> Tuple[int, int]:
     return 0, 1
 
 
+def _coords(rank: int, seq: int, model: int) -> Dict[str, int]:
+    return {"data": rank // (seq * model), "seq": (rank // model) % seq,
+            "model": rank % model}
+
+
 def create_mesh(data: int = -1, model: int = 1, seq: int = 1,
                 device: Optional[torch.device] = None) -> Mesh:
     """The mesh of the default process group (one process without one):
-    ``data`` x ``model`` ranks, ``data=-1`` taking every process the
-    ``model`` axis leaves; the product must equal the world's size.
-    ``device`` is this rank's (default: the current CUDA device). Every
-    rank creates every sub-group, in the same order (``dist.new_group``
-    is collective)."""
-    if seq != 1:
-        raise NotImplementedError(f"mesh.seq={seq} (sequence parallel) is not ported to "
-                                  "PyTorch yet")
+    ``data`` x ``seq`` x ``model`` ranks, ``data=-1`` taking every process
+    the other axes leave; the product must equal the world's size.
+    ``device`` is this rank's (default: the current CUDA device). Where
+    ``seq`` or ``model`` is above 1 every rank creates the group of every
+    proper set of axes (``Mesh.over``), in the same order
+    (``dist.new_group`` is collective)."""
     rank, n = world()
     if data == -1:
-        data = max(n // max(model, 1), 1)
-    if model < 1 or data * model != n:
+        data = max(n // max(model * seq, 1), 1)
+    if model < 1 or seq < 1 or data * seq * model != n:
         raise ValueError(f"mesh {data}x{seq}x{model} != {n} processes")
     if device is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    data_group = model_group = None
-    if model > 1:
-        for d in range(data):
-            g = dist.new_group(list(range(d * model, (d + 1) * model)))
-            if rank // model == d:
-                model_group = g
-        for m in range(model):
-            g = dist.new_group(list(range(m, n, model)))
-            if rank % model == m:
-                data_group = g
-    return Mesh(size=n, rank=rank, device=torch.device(device), model=model,
-                data_group=data_group, model_group=model_group)
+    groups: Dict[Tuple[str, ...], Any] = {}
+    if model > 1 or seq > 1:
+        sizes = {"data": data, "seq": seq, "model": model}
+        for axes in (("data",), ("seq",), ("model",), ("data", "seq"), ("data", "model"),
+                     ("seq", "model")):
+            if int(np.prod([sizes[a] for a in axes])) == n:
+                continue   # the default group
+            members: Dict[Tuple[int, ...], List[int]] = {}
+            for r in range(n):
+                c = _coords(r, seq, model)
+                members.setdefault(tuple(c[a] for a in AXES if a not in axes), []).append(r)
+            mine = tuple(c for a, c in _coords(rank, seq, model).items() if a not in axes)
+            for key, ranks in members.items():
+                g = dist.new_group(ranks)
+                if key == mine:
+                    groups[axes] = g
+    return Mesh(size=n, rank=rank, device=torch.device(device), model=model, seq=seq,
+                groups=groups)
 
 
 def host_local_batch(global_batch_size: int, mesh: Optional[Mesh] = None) -> int:
@@ -118,21 +173,77 @@ def host_local_batch(global_batch_size: int, mesh: Optional[Mesh] = None) -> int
     return global_batch_size // n
 
 
+class ShardedBatch(dict):
+    """A rank's part of a global batch (a dict of tensors), with ``time``,
+    the ``sequence.TimeSlice`` of its split time axis (None where nothing
+    was split). The train and eval steps read ``time``; the model sees
+    the dict."""
+
+    time = None
+
+
+def batch_shardings(mesh: Mesh, batch: Dict[str, Any]) -> Dict[str, Tuple[str, ...]]:
+    """The JAX package's ``batch_shardings`` rule, as each key's spec: the
+    leading axis over ``data``; a time-like leaf (``SEQ_KEYS``) of rank
+    >= 2 also splits axis 1 over ``seq`` where the mesh has one and the
+    length divides it (an indivisible leaf falls back to data only)."""
+    def spec(key, x):
+        if (mesh.seq > 1 and key in SEQ_KEYS and getattr(x, "ndim", 0) >= 2
+                and x.shape[1] % mesh.seq == 0):
+            return ("data", "seq")
+        return ("data",)
+
+    return {k: spec(k, v) for k, v in batch.items()}
+
+
+def split_time(mesh: Optional[Mesh], batch: Dict[str, Any]) -> Dict[str, Any]:
+    """This rank's time slice [s*T/seq, (s+1)*T/seq) of each seq-split leaf
+    (``batch_shardings``) of a batch of its data index's rows (as the
+    loaders give them), as a ``ShardedBatch`` whose ``time`` is that slice;
+    the batch itself on a mesh without a seq axis or when it is a
+    ``ShardedBatch`` already."""
+    if mesh is None or mesh.seq == 1 or isinstance(batch, ShardedBatch):
+        return batch
+    from syncvsr_tpu_torch.parallel.sequence import TimeSlice
+
+    specs = batch_shardings(mesh, batch)
+    split = {k for k, sp in specs.items() if "seq" in sp}
+    totals = {batch[k].shape[1] for k in split}
+    if len(totals) > 1:
+        raise ValueError(f"time-split leaves of unequal lengths: "
+                         f"{ {k: batch[k].shape[1] for k in split} }")
+    out = ShardedBatch()
+    time = None
+    if totals:
+        total = totals.pop()
+        length = total // mesh.seq
+        time = TimeSlice(mesh, mesh.seq_index * length, length, total)
+    for k, v in batch.items():
+        v = torch.as_tensor(v)
+        out[k] = v.narrow(1, time.start, time.length).contiguous() if k in split else v
+    out.time = time
+    return out
+
+
 def shard_batch(mesh: Mesh, batch: Dict[str, Any]) -> Dict[str, Tensor]:
-    """This rank's rows [d*b, (d+1)*b) of a global batch (numpy arrays or
-    tensors; d its data index), as tensors on its device. (The loaders give
-    each process its rows already: the driver only moves them.)"""
+    """This rank's part of a global batch (numpy arrays or tensors), as
+    tensors on its device: rows [d*b, (d+1)*b) (d its data index), then on
+    a mesh with a seq axis the time slice of each seq-split leaf
+    (``split_time``: a ``ShardedBatch``). (The loaders give each process
+    its rows already: the driver moves them and the step splits time.)"""
     b = host_local_batch(len(next(iter(batch.values()))), mesh)
     rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
-    return {k: torch.as_tensor(v[rows]).to(mesh.device) for k, v in batch.items()}
+    out = {k: torch.as_tensor(v[rows]).to(mesh.device) for k, v in batch.items()}
+    return split_time(mesh, out)
 
 
 def seed_dropout(state, mesh: Mesh) -> None:
     """Give data index d > 0 a dropout stream of its own, seeded from
     (``train.dropout_seed``, d, ``state.step``); index 0 keeps the state's
     (the one-process stream, or the one a checkpoint restored). The ranks
-    of one model group draw alike (their activations are the same rows,
-    whole after each gather). The data ranks' dropout masks differ by
+    of one data index draw alike: a model group's activations are the same
+    rows, whole after each gather, and the seq ranks draw each mask at the
+    whole clip's shape and keep their frames (``layers.dropout``). The data ranks' dropout masks differ by
     design: the JAX package draws one mask over the global batch, which
     torch cannot reproduce (only dropout's apply part is held against
     JAX)."""

@@ -39,12 +39,19 @@ parameters and Adam moments over the ranks (``parallel/mesh.py``), each
 rank draws dropout from its own stream (``train.dropout_seed`` and the
 rank), and rank 0 alone prints, logs ``metrics.jsonl`` and writes
 checkpoints (every rank joins the gather before a write). ``mesh.data``
-must be -1 or the world size; ``mesh.model`` and ``mesh.seq`` above 1
-raise ``NotImplementedError``. ``train.scoped_vmem_kib`` and
+x ``mesh.seq`` x ``mesh.model`` must be the world size (``mesh.data=-1``
+takes what the others leave): ``mesh.model`` splits the model rule's
+leaves over the model ranks (tensor parallel, under ``mesh.fsdp`` as the
+JAX driver places the state), ``mesh.seq`` the clips' time over the seq
+ranks (sequence parallel, ``parallel/sequence.py``; a clip length that
+does not divide it runs whole on every seq rank). The ranks of one data
+index load the same rows. ``train.scoped_vmem_kib`` and
 ``train.donate`` are the JAX package's compiler settings and are ignored.
 
     torchrun --nproc-per-node 8 -m syncvsr_tpu_torch.train preset=lrs3 \\
         data.dataset=lrs3 data.root=/data mesh.fsdp=true
+    torchrun --nproc-per-node 8 -m syncvsr_tpu_torch.train preset=lrs3 \\
+        data.dataset=lrs3 data.root=/data mesh.seq=2
 """
 
 from __future__ import annotations
@@ -172,7 +179,8 @@ def _train(config: Config, dev: torch.device) -> Dict[str, float]:
     mesh = create_mesh(config.mesh.data, config.mesh.model, config.mesh.seq, device=dev)
     lead = mesh.rank == 0
     model = build_model(config, device=dev)
-    # the loaders split over the data axis: a model group reads the same rows
+    # the loaders split over the data axis: the seq and model ranks of a
+    # data index read the same rows
     train_loader, eval_loader = build_loaders(config, process_index=mesh.data_index,
                                               process_count=mesh.data)
     base_eval_transform, aug_fn = transforms(config)
@@ -195,7 +203,7 @@ def _train(config: Config, dev: torch.device) -> Dict[str, float]:
               + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else "")
               + f", processes: {mesh.size}"
               + (f" ({dist.get_backend()})" if dist.is_initialized() else "")
-              + f", mesh data {mesh.data} x model {mesh.model}")
+              + f", mesh data {mesh.data} x seq {mesh.seq} x model {mesh.model}")
         if config.train.tabulate:
             print(model)
 

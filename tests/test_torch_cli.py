@@ -93,14 +93,35 @@ def test_train_pretrained_and_profile_window(tmp_path, capsys):
 
 
 def test_train_raises_for_what_is_not_ported(tmp_path, monkeypatch):
-    """The sequence-parallel axis is not ported; a data or model axis that
-    does not fit the process group, and ``train.distributed`` without a
-    launcher's environment, are errors (the multi-process driver is
-    tests/test_torch_parallel.py's and tests/test_torch_tensor_parallel_cli.py's)."""
+    """The Conv1D audio frontend on a waveform split over the seq ranks is
+    not ported; a data, seq or model axis that does not fit the process
+    group, and ``train.distributed`` without a launcher's environment, are
+    errors (the multi-process driver is tests/test_torch_parallel.py's,
+    tests/test_torch_tensor_parallel_cli.py's and
+    tests/test_torch_seq_parallel_grid.py's)."""
+    import torch
+
+    from syncvsr_tpu_torch.config import lrs3_audio_config
+    from syncvsr_tpu_torch.data.synthetic import sentence_batch as t_sentence_batch
+    from syncvsr_tpu_torch.models import build_model
+    from syncvsr_tpu_torch.parallel import Mesh, collectives, sequence, split_time
+
+    acfg = lrs3_audio_config().override(**{
+        "model.encoder.layers": 1, "model.encoder.dim": 16, "model.encoder.heads": 2,
+        "model.decoder.layers": 1, "model.decoder.dim": 16, "model.decoder.heads": 2,
+        "model.frontend.resnet_width": 4, "data.batch_size": 1})
+    model = build_model(acfg, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in
+             t_sentence_batch(acfg, num_frames=4, label_len=2).items()}
+    seq2 = Mesh(size=2, rank=1, device=torch.device("cpu"), seq=2)
+    part = split_time(seq2, batch)   # a waveform of 4 * 640 samples splits
+    assert part.time.length == 2 * 640 and part["videos"].shape[1] == 2 * 640
+    with collectives.data_parallel(seq2), sequence.batch(part.time):
+        with pytest.raises(NotImplementedError, match="mesh.seq > 1 with the Conv1D audio"):
+            model(**part, det=True)
     cfg = ttrain.load_config(WORD_ARGS + [f"train.ckpt_dir={json.dumps(str(tmp_path))}"])
-    with pytest.raises(NotImplementedError, match="mesh.seq=2 .* not ported"):
-        ttrain.train(cfg.override(**{"mesh.seq": 2}), device="cpu")
-    for over, shape in (({"mesh.data": 2}, "2x1x1"), ({"mesh.model": 2}, "1x1x2")):
+    for over, shape in (({"mesh.data": 2}, "2x1x1"), ({"mesh.model": 2}, "1x1x2"),
+                        ({"mesh.seq": 2}, "1x2x1")):
         with pytest.raises(ValueError, match=f"mesh {shape} != 1 processes"):
             ttrain.train(cfg.override(**over), device="cpu")
     for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):

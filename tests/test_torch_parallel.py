@@ -251,8 +251,8 @@ def test_mesh_checks(capsys):
         create_mesh(data=2, device="cpu")
     with pytest.raises(ValueError, match="mesh 1x1x2 != 1 processes"):
         create_mesh(model=2, device="cpu")   # tensor parallel needs a model axis's ranks
-    with pytest.raises(NotImplementedError, match="mesh.seq=4 .sequence parallel."):
-        create_mesh(device="cpu", seq=4)
+    with pytest.raises(ValueError, match="mesh 1x4x1 != 1 processes"):
+        create_mesh(device="cpu", seq=4)   # sequence parallel needs a seq axis's ranks
     assert host_local_batch(8, mesh) == 8
     two = mesh.__class__(size=2, rank=1, device=torch.device("cpu"))
     assert host_local_batch(8, two) == 4

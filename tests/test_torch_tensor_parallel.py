@@ -114,7 +114,7 @@ def test_mesh_grid():
     """Rank r of a data x model grid sits at data index r // model and
     model index r % model (JAX's ``reshape(data, seq, model)``); the batch
     splits over the data axis only, so a model group holds the same rows;
-    one process cannot make a model axis, and ``seq`` still raises."""
+    one process cannot make a model or a seq axis."""
     grid = [Mesh(size=4, rank=r, device=torch.device("cpu"), model=2) for r in range(4)]
     assert [(m.data, m.data_index, m.model_index) for m in grid] == [
         (2, 0, 0), (2, 0, 1), (2, 1, 0), (2, 1, 1)]
@@ -124,5 +124,5 @@ def test_mesh_grid():
         [0, 1, 2, 3], [0, 1, 2, 3], [4, 5, 6, 7], [4, 5, 6, 7]]
     with pytest.raises(ValueError, match="mesh 1x1x2 != 1 processes"):
         create_mesh(model=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh.seq=2 .sequence parallel."):
+    with pytest.raises(ValueError, match="mesh 1x2x1 != 1 processes"):
         create_mesh(seq=2, device="cpu")

@@ -6,14 +6,15 @@ tests/test_torch_fsdp.py, tests/test_torch_tensor_parallel*.py).
 method, one CPU thread each: the suite runs under ``-n 6``) that join a
 gloo group on a free port, each run ``JOBS[job["kind"]]`` on its rows of
 the job's global batch, and each save what it returns; the parent reads
-the results back. A job's ``model`` (default 1) is its mesh's model axis
-(data x model = world). ``train_steps`` is also what the tests call in the
+the results back. A job's ``model`` and ``seq`` (default 1) are its
+mesh's model and seq axes (data x seq x model = world). ``train_steps`` is also what the tests call in the
 parent for the one-process reference (``mesh=None``). This module imports
 no JAX: the workers import the port only.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import socket
 import time
@@ -27,7 +28,7 @@ import torch.multiprocessing as mp
 from syncvsr_tpu_torch.config import Config
 from syncvsr_tpu_torch.engine import build_eval_step, build_train_step, create_train_state
 from syncvsr_tpu_torch.models import build_model, word
-from syncvsr_tpu_torch.ops.image import fused_train_aug_apply
+from syncvsr_tpu_torch.ops.image import build_sentence_aug, build_word_aug, fused_train_aug_apply
 from syncvsr_tpu_torch.parallel import create_mesh, resident_bytes, shard_batch, shard_state
 from syncvsr_tpu_torch.parallel.mesh import seed_dropout
 from syncvsr_tpu_torch.utils import checkpoint as ckpt
@@ -56,6 +57,9 @@ def train_steps(job: Dict[str, Any], mesh=None) -> Dict[str, Any]:
     and sliced here: ``aug`` (the augmentation's sampled values, applied by
     ``fused_train_aug_apply``), ``cutmix`` ((ratio, start)) and ``lam``
     (the mixup weight); ``aug_dtype`` the augmented clips' dtype (bf16);
+    ``port_aug`` augments with the port's own sampler instead
+    (``build_word_aug``/``build_sentence_aug``, from the state's mixup
+    stream);
     ``no_dropout`` zeroes every dropout rate of the model (the DenseTCN's is
     fixed). ``fsdp`` (min size) splits the state over data; on a mesh with a
     model axis the state is split over it by the rule at ``min_dim``
@@ -89,6 +93,8 @@ def train_steps(job: Dict[str, Any], mesh=None) -> Dict[str, Any]:
         def aug_fn(gen, bt):
             return dict(bt, **{key: fused_train_aug_apply(bt[key], drawn, d.crop_size,
                                                          d.mean, d.std, dtype)})
+    if job.get("port_aug"):
+        aug_fn = (build_word_aug if cfg.model.task == "word" else build_sentence_aug)(cfg.data)
     if job.get("cutmix") is not None:
         ratio, start = (torch.tensor(np.float32(v)) for v in job["cutmix"])
         word.sample_cutmix = lambda gen, alpha: (ratio, start)
@@ -129,7 +135,6 @@ def cli(job: Dict[str, Any], mesh=None) -> Dict[str, Any]:
     """``syncvsr_tpu_torch.<job["module"]>.main(job["args"], device="cpu")``
     in ``job["cwd"]`` (the process group already joined); its summary, or
     with ``job["capture"]`` {"summary": it, "stdout": what it printed}."""
-    import contextlib
     import importlib
     import io
 
@@ -143,7 +148,41 @@ def cli(job: Dict[str, Any], mesh=None) -> Dict[str, Any]:
     return {"summary": summary, "stdout": out.getvalue()}
 
 
-JOBS = {"train": train_steps, "cli": cli}
+def seq_ops(job: Dict[str, Any], mesh=None) -> Dict[str, Any]:
+    """The sequence-parallel primitives on this rank's frames of
+    ``job["x"]`` [B, T, C] inside the time-split region: for each
+    ``(left, right)`` of ``job["halos"]`` the ``halo`` and the gradient of
+    <its output, this rank's ``job["cot"][r]`` window>; ``gather_kv`` and
+    the gradient of <its output, ``job["cot"][r]``> (a rank's own
+    cotangent of every frame); ``gather_time`` and the gradient of
+    ``replicated(<its output, job["cot"][0]>)`` (alike on every rank), as
+    the step weights the replicated part."""
+    from syncvsr_tpu_torch.parallel import collectives, sequence
+
+    x_all = torch.from_numpy(job["x"])
+    cots = torch.from_numpy(job["cot"])
+    batch = shard_batch(mesh, {"inputs": x_all})
+    out: Dict[str, Any] = {"time": (batch.time.start, batch.time.length)}
+    with collectives.data_parallel(mesh), sequence.batch(batch.time):
+        for name, fn, cot in (
+                [(f"halo{l}_{r}", lambda x, l=l, r=r: sequence.halo(x, l, r), None)
+                 for l, r in job["halos"]]
+                + [("gather_kv", sequence.gather_kv, cots[mesh.rank]),
+                   ("gather_time", sequence.gather_time, cots[0])]):
+            x = batch["inputs"].clone().requires_grad_(True)
+            with sequence.region() if name != "gather_time" else contextlib.nullcontext():
+                y = fn(x)
+            if cot is None:   # a halo: this rank's window of the padded clip
+                cot = cots[mesh.rank]
+            loss = (y * cot[:, :y.shape[1]]).sum()
+            if name == "gather_time":
+                loss = sequence.replicated(loss)
+            loss.backward()
+            out[name] = (y.detach().numpy(), x.grad.numpy())
+    return out
+
+
+JOBS = {"train": train_steps, "cli": cli, "seq_ops": seq_ops}
 
 
 def _worker(rank: int, world: int, port: int, path: str) -> None:
@@ -154,7 +193,8 @@ def _worker(rank: int, world: int, port: int, path: str) -> None:
     try:
         out = []
         for job in jobs:
-            mesh = create_mesh(model=job.get("model", 1), device="cpu")
+            mesh = create_mesh(model=job.get("model", 1), seq=job.get("seq", 1),
+                               device="cpu")
             out.append(JOBS[job["kind"]](job, mesh))
         torch.save(out, f"{path}.{rank}")
     finally:
