@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (``syncvsr_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py --tools-full    # every measurement tool at full size
 
 Run from the root of a checkout. Phases, in order; any failure exits
 non-zero before the last line is printed:
@@ -117,8 +118,8 @@ non-zero before the last line is printed:
    against one process on the same 96 clips (bf16, ``BF16_TOL``), the same
    with a 2-layer 64-wide f32 model (``F32_TOL``, ``tests/test_spmd.py``'s),
    then 3 steps with the preset's dropout (the ranks' parameters and
-   statistics bitwise equal); (c) ``lrs3`` at full width on 8 x 160
-   frames (4 a rank) with FSDP against data parallel (metrics and
+   statistics bitwise equal); (c) ``lrs3`` at full width and 2 + 1 layers
+   (``FILES_DEPTH``) on 8 x 160 frames (4 a rank) with FSDP against data parallel (metrics and
    parameters, each rank's resident parameter and moment bytes: half of
    the split leaves'), and FSDP's checkpoint loaded at one process, every
    leaf equal; K1/K3/K4 and K2/K3/K4 counted in each rank; the two-rank
@@ -148,13 +149,22 @@ non-zero before the last line is printed:
    torch.distributed.run --nproc-per-node 2 -m syncvsr_tpu_torch.train
    preset=lrs3 mesh.seq=2`` at full width and 2 + 1 layers with remat
    over a synthetic LRS3 tree's buckets (160 to 1800 frames), its
-   checkpoint loaded at one process, every leaf equal; (d) four
+   checkpoint loaded at one process, every leaf equal, beside (d) four
    processes: a 2 + 1-layer 64-wide f32 ``lrs3`` model as (data=2, seq=2)
    with FSDP and as (seq=2, model=2), and a 2-layer 64-wide f32
    ``lrw_video`` model at 40 frames and at 29 (indivisible: the seq ranks
    repeat the rows) as (seq=2, model=2), against world 1 (``SEQ_F32_TOL``,
-   ``tests/test_spmd.py``'s for its sequence-parallel step);
-11. profiler windows, after every timing above (a process that torch.profiler
+   ``tests/test_spmd.py``'s for its sequence-parallel step); (e)
+   ``lrs3_audio`` (32 x 102400 samples, full width and depth) at seq=2,
+   each rank on its 51200 samples (ResNet1D's convs with halos), against
+   world 1 as (a) and (b) are, a rank's peak below world 1's;
+11. tools (``tools_phase``, one more chain of phase 7's, ``tools_chain``):
+   each measurement tool of the port (``syncvsr_tpu_torch/tools/``) once
+   on the card at toy widths (``TOOL_RUNS``), all in one process: each must
+   print its JSON line from the card (its name and power limit), and
+   ``bench_aux_workloads``' steps launch each path's kernels (at toy
+   widths K1 once a step of each, K3/K4 21 times ``lrs3_audio``'s);
+12. profiler windows, after every timing above (a process that torch.profiler
    has traced can pay more host time a launch from then on): each kernel's
    own device time (``device_ms``) over the calls phase 3 timed (K1's with
    its features' pad copy), each held to one kernel of its own a call (K3
@@ -166,11 +176,12 @@ non-zero before the last line is printed:
    (device launches a search step), greedy and align (launches, device
    time, idle share); with ``--profile DIR``, the full beam decode too and
    the tables in ``DIR/profile_decode_<name>.txt``;
-12. the ``decode``, ``cli``, ``parallel``, ``tensor`` and ``seq`` JSON
-    lines, each phase's seconds, the ``kernels`` JSON line (K1 and K2 also
+13. the ``decode``, ``cli``, ``parallel``, ``tensor``, ``seq`` and ``tools``
+    JSON lines, each phase's seconds, the ``kernels`` JSON line (K1 and K2 also
     at a rank's half batch, ``lrw_video_dp2`` and ``lrs3_fsdp2``, K1 at a
     model rank's 4 slots, ``lrs3_tp2`` and ``lrw_video_tp2``, K2 at a seq
-    rank's frames, ``lrs3_1800_sp2`` and ``lrs3_sp2``, K3/K4 at those
+    rank's frames, ``lrs3_1800_sp2``, ``lrs3_sp2`` and ``lrs3_audio_sp2``,
+    K3/K4 at those
     paths' shapes), the card line and the ``ok`` line.
 """
 
@@ -182,123 +193,58 @@ import time
 
 WARMUP_STEPS = 3
 TIMED_STEPS = 5      # per window; two windows
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
-# them, device memory
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
+
+from syncvsr_tpu_torch.utils.benchmark import (  # noqa: E402
+    PEAK_BF16_FLOPS,
+    PEAK_BYTES,
+    PEAK_F32_FLOPS,
+    bound_ms,
+    card_line,
+    device_ms,
+    profile_window,
+    resnet1d_bn_shapes,
+    time_ms,
+    trunk_bn_shapes,
+)
+from syncvsr_tpu_torch.utils.workloads import (  # noqa: E402
+    AUDIO_FRAMES,
+    AUDIO_LABEL_LEN,
+    LRS3_1800_FRAMES,
+    LRS3_1800_LABEL_LEN,
+    LRS3_FRAMES,
+    LRS3_LABEL_LEN,
+    LRS3_SOURCE,
+    landmark_clips,
+    lrs3_1800_cfg,
+    lrs3_audio_cfg,
+    lrs3_cfg,
+    lrw_landmark_cfg,
+    lrw_video_cfg,
+    uint8_clips,
+    uint8_sentences,
+)
+
+
+CUDA = "cuda"   # the device ``time_ms`` times on
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    if out.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(torch, fn, iters=20, warmup=3):
-    """Mean device time of ``fn`` in ms over ``iters`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def library_ms(torch, fn, what):
     """Time of a PyTorch library call used as a yardstick, or None (with the
     reason printed) where this PyTorch build refuses it."""
     try:
-        return cuda_ms(torch, fn)
+        return time_ms(fn, CUDA)
     except (RuntimeError, TypeError, AttributeError) as e:
         log(f"  library yardstick {what} unavailable: {e}")
         return None
 
 
-def bound_ms(flops, peak_flops, nbytes):
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def trunk_bn_shapes(cfg, frames):
-    """(N, C, launches per step) of every BatchNorm statistics call of the
-    Conv3D ResNet-18 frontend over ``frames`` frames a clip: the stem BN,
-    then layer1..layer4."""
-    b, t = cfg.data.batch_size, frames
-    hw = -(-cfg.data.crop_size // 2)             # stem stride 2
-    shapes = [(b * t * hw * hw, cfg.model.frontend.stem_channels, 1)]
-    hw = -(-hw // 2)                             # max-pool stride 2
-    width = cfg.model.frontend.resnet_width
-    for i in range(4):
-        if i:
-            hw = -(-hw // 2)
-        # two BasicBlocks of two BNs, plus the downsample BN of layer2..4
-        shapes.append((b * t * hw * hw, width * 2 ** i, 4 if i == 0 else 5))
-    return shapes
-
-
-def lrw_video_cfg():
-    from syncvsr_tpu_torch.config import lrw_video_config
-
-    return lrw_video_config()   # bs 96, 29 frames, crop 96, 12 x 512 (+1) encoder, bf16
-
-
-LRS3_FRAMES, LRS3_LABEL_LEN, LRS3_SOURCE = 160, 48, 128
-
-
-def lrs3_cfg():
-    from syncvsr_tpu_torch.config import lrs3_config
-
-    # the JAX bench's single-chip bucket: bs 8 x 160 frames, 12 x 768 Conformer,
-    # 6 x 768 decoder, 5049 labels, bf16
-    return lrs3_config().override(**{"data.batch_size": 8})
-
-
-# the LRS recipe's longest bucket at the JAX package's own single-chip size
-# (tools/bench_decode.py::bench_train1800): bs 2 x 1800 frames, 128 labels
-LRS3_1800_FRAMES, LRS3_1800_LABEL_LEN = 1800, 128
 # the paths whose step recomputes every BatchNorm's statistics (model.remat):
 # K3 runs twice a BatchNorm, K4 once
 REMAT_PATHS = ("lrs3_1800",)
-
-
-def lrs3_1800_cfg(remat=True):
-    from syncvsr_tpu_torch.config import lrs3_config
-
-    # the full-width lrs3 model (12 x 768 Conformer, 6 x 768 decoder, bf16)
-    return lrs3_config().override(**{"data.batch_size": 2, "model.remat": remat})
-
-
-def lrw_landmark_cfg():
-    from syncvsr_tpu_torch.config import lrw_landmark_config
-
-    # bench.py::bench_landmark's workload: bs 1024 x 29 frames of 1434 f32
-    # landmark features, 8 x 320 LayerNorm/GELU encoder, 4 heads, bf16
-    return lrw_landmark_config()
-
-
-AUDIO_FRAMES, AUDIO_LABEL_LEN = 160, 48      # 160 x 640 = 102400 samples a clip
-
-
-def lrs3_audio_cfg():
-    from syncvsr_tpu_torch.config import lrs3_audio_config
-
-    # bench.py::bench_audio's workload: bs 32 x 102400 samples of 16 kHz
-    # waveform, the Conv1D ResNet-18 frontend, then lrs3's Conformer, decoder
-    # and losses, bf16
-    return lrs3_audio_config().override(**{"data.batch_size": 32})
 
 
 def lrw1000_cfg():
@@ -328,16 +274,6 @@ def lrw1000_dctcn_cfg():
     return lrw1000_cfg().override(**LRW1000_DCTCN)
 
 
-def resnet1d_bn_shapes(cfg, frames):
-    """(N, C, launches per step) of every BatchNorm statistics call of the
-    ResNet1D audio frontend over ``frames`` frames (640 samples each) a clip:
-    the stem BN and layer1's four, then the five of each of layer2..layer4,
-    each at half the samples of the one before."""
-    n = cfg.data.batch_size * frames * 640 // 4          # stem stride 4
-    width = cfg.model.frontend.resnet_width
-    return [(n >> i, width * 2 ** i, 5) for i in range(4)]
-
-
 def bn_shapes():
     """Per path with BatchNorms, (N, C, launches per step) of every
     BatchNorm statistics call (``lrw_landmark`` has none)."""
@@ -345,7 +281,8 @@ def bn_shapes():
     lrw1000, dctcn, lrw1000_dctcn = lrw1000_cfg(), lrw_dctcn_cfg(), lrw1000_dctcn_cfg()
     long = lrs3_1800_cfg()
     half_lrw = lrw.override(**{"data.batch_size": lrw.data.batch_size // 2})
-    half_lrs3 = lrs3.override(**{"data.batch_size": lrs3.data.batch_size // 2})
+    # the parallel phase's (c) runs lrs3 at FILES_DEPTH
+    half_lrs3 = lrs3.override(**{"data.batch_size": lrs3.data.batch_size // 2, **FILES_LAYERS})
 
     def conformer(cfg, frames):
         return (cfg.data.batch_size * frames, cfg.model.encoder.dim, cfg.model.encoder.layers)
@@ -374,48 +311,10 @@ def bn_shapes():
             "lrs3_1800_sp2": (trunk_bn_shapes(long, LRS3_1800_FRAMES // 2)
                               + [conformer(long, LRS3_1800_FRAMES // 2)]),
             "lrs3_sp2": (trunk_bn_shapes(lrs3, LRS3_FRAMES // 2)
-                         + [conformer(lrs3, LRS3_FRAMES // 2)])}
-
-
-def device_ms(torch, fn, names, iters=20):
-    """(ms, own launches per call, device kernels per call, source, all
-    ms): the device time per call of the kernels whose names hold one of
-    ``names``, with no host time in it, from a torch.profiler window over
-    ``iters`` warm calls, and that of all the call's device kernels. Where
-    the profiler traces no device time, both times are that of CUDA-graph
-    replay of the call (all the kernels it makes) and the launch counts are
-    None; so it is where the window traced some of the calls' kernels and
-    not others."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    key = ("self_device_time_total" if avgs and hasattr(avgs[0], "self_device_time_total")
-           else "self_cuda_time_total")
-    dev_events = [e for e in avgs if e.device_type == DeviceType.CUDA and getattr(e, key) > 0]
-    own = [e for e in dev_events if any(n in e.key for n in names)]
-    # a window that lost kernel records counts a fraction of a launch a call
-    if own and sum(e.count for e in own) % iters == 0:
-        return (sum(getattr(e, key) for e in own) / 1e3 / iters,
-                sum(e.count for e in own) / iters,
-                sum(e.count for e in dev_events) / iters, "profiler",
-                sum(getattr(e, key) for e in dev_events) / 1e3 / iters)
-    graph = torch.cuda.CUDAGraph()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    with torch.cuda.graph(graph):
-        fn()
-    ms = cuda_ms(torch, graph.replay, iters)
-    return ms, None, None, "graph replay", ms
+                         + [conformer(lrs3, LRS3_FRAMES // 2)]),
+            # a seq rank's 80 frames (51200 samples) of lrs3_audio's clips
+            "lrs3_audio_sp2": (resnet1d_bn_shapes(audio, AUDIO_FRAMES // 2)
+                               + [conformer(audio, AUDIO_FRAMES // 2)])}
 
 
 # K1's cases (N, D, V, every token ignored, the features' dtype, slots):
@@ -468,7 +367,9 @@ SPLIT_CASES = [(8 * 160, 768, 320, False, "bfloat16", 8),
                (40 * 96, 1664, 400, False, "float32", 4),
                (40 * 96, 1664, 640, True, "float32", 4),
                (4 * 160, 768, 320, False, "bfloat16", 8),
-               # a seq rank's frames (mesh.seq=2) of lrs3_1800's 2 clips
+               # a seq rank's frames (mesh.seq=2) of lrs3_audio's 32 clips
+               (32 * 80, 768, 320, False, "float32", 8),
+               # and of lrs3_1800's 2 clips
                (2 * 900, 768, 320, False, "bfloat16", 8)]
 # the case of each path's sync head, timed: the entry's own numbers are its
 # first path's
@@ -479,7 +380,8 @@ SYNC_PATHS = {"sync_ce_fwd": {"lrw_video": MONO_CASES[0], "lrw_landmark": MONO_C
                                     "lrw_dctcn": SPLIT_CASES[2],
                                     "lrw1000_dctcn": SPLIT_CASES[3],
                                     "lrs3_1800": SPLIT_CASES[4],
-                                    "lrs3_fsdp2": SPLIT_CASES[-2],
+                                    "lrs3_fsdp2": SPLIT_CASES[-3],
+                                    "lrs3_audio_sp2": SPLIT_CASES[-2],
                                     "lrs3_1800_sp2": SPLIT_CASES[-1]}}
 # paths whose sync head has another path's shape: the same row (a seq
 # rank's 8 x 80 frames of lrs3 are lrs3_fsdp2's 4 x 160 rows)
@@ -543,8 +445,8 @@ def check_sync(torch, dev, kind, later):
         if case not in timed:
             continue
         args = (x, wb, b, tok)
-        ms = cuda_ms(torch, lambda: fn(*args))
-        plain = cuda_ms(torch, lambda: cuda_sync.sync_ce_partials_plain(*args))
+        ms = time_ms(lambda: fn(*args), CUDA)
+        plain = time_ms(lambda: cuda_sync.sync_ce_partials_plain(*args), CUDA)
         b16, tok_l = b.to(torch.bfloat16), tok.reshape(-1).long()
         lib = library_ms(torch, lambda: torch.nn.functional.cross_entropy(
             torch.addmm(b16, x.to(torch.bfloat16), wb).reshape(n * s, v).float(), tok_l,
@@ -561,7 +463,7 @@ def check_sync(torch, dev, kind, later):
                                     "bound_by": by, "library_ms": lib}
 
         def profiled(n=n, d=d, args=args, row=row):
-            own_ms, own_calls, dev_calls, src, all_ms = device_ms(torch, lambda: fn(*args),
+            own_ms, own_calls, dev_calls, src, all_ms = device_ms(lambda: fn(*args),
                                                                   (own,))
             log(f"{name} [{n}, {d}]: device_ms {all_ms:.5f}, its own kernel {own_ms:.5f} "
                 f"({src}; {own_calls} own and {dev_calls} device kernels a call)")
@@ -650,8 +552,8 @@ def check_bn(torch, dev, later):
             if not timed:
                 measured[kind, n, c, strips] = {"max_abs_err": err}
                 continue
-            ms = cuda_ms(torch, lambda: kern(*args))
-            plain_t = cuda_ms(torch, lambda: plain(*args))
+            ms = time_ms(lambda: kern(*args), CUDA)
+            plain_t = time_ms(lambda: plain(*args), CUDA)
             if kind == "fwd":
                 lib = library_ms(torch, lambda: torch.batch_norm_stats(x, 1e-5),
                                  "batch_norm_stats")
@@ -661,7 +563,8 @@ def check_bn(torch, dev, later):
                     gy, x, mean, inv, None, True, False, False), "batch_norm_backward_reduce")
                 nbytes, flops = 2 * n * c * 2 + 4 * c * 4, 5 * n * c
                 if (n, c) == conformer:
-                    retime = (lambda kern=kern, args=args: cuda_ms(torch, lambda: kern(*args)))
+                    retime = (lambda kern=kern, args=args:
+                              time_ms(lambda: kern(*args), CUDA))
             bound, by = bound_ms(flops, PEAK_F32_FLOPS, nbytes)
             log(f"  kernel_ms {ms:.5f}  plain_ms {plain_t:.5f}  library_ms {lib}  "
                 f"bound_ms {bound:.5f} ({by})")
@@ -759,7 +662,7 @@ def check_bn_past_int32(torch, dev):
                     for a, e, m in zip(got, want, mags))
         again = kern(*args)
         same = all(torch.equal(a.double(), b) for a, b in zip(again, got))
-        ms = cuda_ms(torch, lambda: kern(*args), iters=5, warmup=1)
+        ms = time_ms(lambda: kern(*args), CUDA, iters=5, warmup=1)
         # as check_bn counts them: each input read once, the sums written once
         bound, by = (bound_ms(3 * n * c, PEAK_F32_FLOPS, n * c * 2 + 2 * c * 4) if kind == "fwd"
                      else bound_ms(5 * n * c, PEAK_F32_FLOPS, 2 * n * c * 2 + 4 * c * 4))
@@ -784,7 +687,7 @@ def profile_bn(torch, dev, name, n, c, kind, kern, row):
     # tools/bn_shapes.py --root may time in an older tree
     own = (("stats_fwd_fused", "stats_fwd_partial", "sum_strips") if kind == "fwd"
            else ("stats_bwd_fused",))
-    dev_ms, own_calls, dev_calls, src, _ = device_ms(torch, lambda: kern(*args), own)
+    dev_ms, own_calls, dev_calls, src, _ = device_ms(lambda: kern(*args), own)
     log(f"{name} [{n}, {c}]: device_ms {dev_ms:.5f} ({src}; {own_calls} own and {dev_calls} "
         "device kernels a call)")
     if dev_calls not in (None, 1):
@@ -891,31 +794,6 @@ def relu_flips(cpu_in, gpu_in):
     return skip, flips, worst, seen
 
 
-def uint8_clips(np, cfg, seed):
-    """word_batch with uint8 clips [B, T, crop, crop * 112 / 96, 1], the
-    shape of the LRW pipeline's frames."""
-    from syncvsr_tpu_torch.data.synthetic import word_batch
-
-    batch = word_batch(cfg, seed=seed)
-    b, t, h = cfg.data.batch_size, cfg.data.num_frames, cfg.data.crop_size
-    rng = np.random.RandomState(seed + 1)
-    batch["inputs"] = rng.randint(0, 256, (b, t, h, h * 112 // 96, 1)).astype(np.uint8)
-    return batch
-
-
-def uint8_sentences(np, cfg, frames, label_len, source, seed):
-    """sentence_batch with uint8 clips [B, T, source, source, 1], the face
-    crops of the LRS3 preprocessing (RandomResizedCrop to the crop size in
-    the step)."""
-    from syncvsr_tpu_torch.data.synthetic import sentence_batch
-
-    batch = sentence_batch(cfg, num_frames=frames, label_len=label_len, seed=seed)
-    rng = np.random.RandomState(seed + 1)
-    batch["videos"] = rng.randint(
-        0, 256, (cfg.data.batch_size, frames, source, source, 1)).astype(np.uint8)
-    return batch
-
-
 def with_infeasible_row(batch):
     """The sentence batch with its last clip cut to one frame fewer than its
     labels: a row with no CTC alignment, whose loss is optax's log-epsilon
@@ -934,16 +812,6 @@ def with_attention_mask(np, batch, seed):
     for i in range(0, b, 5):
         am[i, t - rng.randint(1, 5):] = 0.0
     return dict(batch, attention_mask=am)
-
-
-def landmark_clips(cfg, seed):
-    """word_batch (f32 landmark features [B, T, 1434]) with the loader's pad
-    sentinel, -100, in the last 3 frames of every 8th clip."""
-    from syncvsr_tpu_torch.data.synthetic import word_batch
-
-    batch = word_batch(cfg, seed=seed)
-    batch["inputs"][::8, -3:] = -100.0
-    return batch
 
 
 # the paths, in the order the phases run them, and the kernels each runs
@@ -1003,7 +871,7 @@ def check_reference(torch, np, path):
     if path == "lrw_video":
         cfg = config.lrw_video_config().override(
             **common, **word, **{"model.frontend.resnet_width": 16})
-        batch = uint8_clips(np, cfg, seed=3)
+        batch = uint8_clips(cfg, seed=3)
         aug = build_word_aug(cfg.data)
         keys = word_keys
     elif path == "lrw_landmark":
@@ -1018,7 +886,7 @@ def check_reference(torch, np, path):
         # (two column passes); no word boundary
         cfg = config.lrw1000_config().override(
             **common, **word, **{"model.frontend.resnet_width": 16})
-        batch = uint8_clips(np, cfg, seed=3)
+        batch = uint8_clips(cfg, seed=3)
         aug = build_word_aug(cfg.data)
         keys = word_keys
     elif path == "lrw_dctcn":
@@ -1029,7 +897,7 @@ def check_reference(torch, np, path):
                          "model.encoder.tcn_growth_rates": (384,),
                          "model.frontend.resnet_width": 16, "data.batch_size": 4,
                          "data.num_frames": 8})
-        batch = with_attention_mask(np, uint8_clips(np, cfg, seed=3), 3)
+        batch = with_attention_mask(np, uint8_clips(cfg, seed=3), 3)
         aug = build_word_aug(cfg.data)
         keys = word_keys
     elif path == "lrw1000_dctcn":
@@ -1041,7 +909,7 @@ def check_reference(torch, np, path):
                                           "model.encoder.tcn_growth_rates": (384,),
                                           "model.frontend.resnet_width": 16,
                                           "data.batch_size": 4, "data.num_frames": 8})
-        batch = with_attention_mask(np, uint8_clips(np, cfg, seed=3), 3)
+        batch = with_attention_mask(np, uint8_clips(cfg, seed=3), 3)
         aug = build_word_aug(cfg.data)
         keys = word_keys
     elif path == "lrs3":
@@ -1049,7 +917,7 @@ def check_reference(torch, np, path):
         # 16 frames, clips of >= 8 and labels of <= 4, but the last clip is
         # cut below its label count: the CTC recursion of infeasible rows
         # runs on the card and on the CPU
-        batch = with_infeasible_row(uint8_sentences(np, cfg, 16, 4, 40, seed=3))
+        batch = with_infeasible_row(uint8_sentences(cfg, 16, 4, 40, seed=3))
         aug = build_sentence_aug(cfg.data)
         keys = sentence_keys
     elif path == "lrs3_1800":
@@ -1059,7 +927,7 @@ def check_reference(torch, np, path):
         # 128 frames (T > 256)
         cfg = config.lrs3_config().override(
             **common, **sentence, **{"model.remat": True, "optim.accum_steps": 2})
-        batch = uint8_sentences(np, cfg, 320, 48, 40, seed=3)
+        batch = uint8_sentences(cfg, 320, 48, 40, seed=3)
         aug = f32_sentence_aug(torch, cfg.data)
         keys = sentence_keys
     elif path == "lrs3_instep":
@@ -1069,7 +937,7 @@ def check_reference(torch, np, path):
         # same tokens on both sides
         cfg = config.lrs3_config().override(**common, **sentence, **{
             "model.codec.in_step": True, "model.codec.ckpt": CODECS["separated"]})
-        batch = instep_batch(np, with_infeasible_row(uint8_sentences(np, cfg, 16, 4, 40,
+        batch = instep_batch(np, with_infeasible_row(uint8_sentences(cfg, 16, 4, 40,
                                                                      seed=3)), seed=3)
         aug = instep_aug(cfg, build_sentence_aug(cfg.data))
         keys = sentence_keys
@@ -1163,7 +1031,7 @@ def train_full_width(torch, np, path, profile_dir=None):
     near_ln = {}
     if path == "lrw_video":
         cfg = lrw_video_cfg()
-        batch_np = uint8_clips(np, cfg, seed=0)
+        batch_np = uint8_clips(cfg, seed=0)
         frames, video = cfg.data.num_frames, "inputs"
         aug, transform = image.build_word_aug(cfg.data), image.build_eval_transform(cfg.data)
         near_ln["loss_word"] = cfg.model.labels
@@ -1171,7 +1039,7 @@ def train_full_width(torch, np, path, profile_dir=None):
                     "bn_stats_fwd": 20, "bn_stats_bwd": 20}
     elif path == "lrs3":
         cfg = lrs3_cfg()
-        batch_np = uint8_sentences(np, cfg, LRS3_FRAMES, LRS3_LABEL_LEN, LRS3_SOURCE, seed=0)
+        batch_np = uint8_sentences(cfg, LRS3_FRAMES, LRS3_LABEL_LEN, LRS3_SOURCE, seed=0)
         frames, video = LRS3_FRAMES, "videos"
         aug = image.build_sentence_aug(cfg.data)
         transform = image.build_sentence_eval_transform(cfg.data)
@@ -1180,7 +1048,7 @@ def train_full_width(torch, np, path, profile_dir=None):
                     "bn_stats_fwd": 32, "bn_stats_bwd": 32}
     elif path == "lrw1000":
         cfg = lrw1000_cfg()
-        batch_np = uint8_clips(np, cfg, seed=0)
+        batch_np = uint8_clips(cfg, seed=0)
         frames, video = cfg.data.num_frames, "inputs"
         aug, transform = image.build_word_aug(cfg.data), image.build_eval_transform(cfg.data)
         near_ln["loss_word"] = cfg.model.labels
@@ -1188,7 +1056,7 @@ def train_full_width(torch, np, path, profile_dir=None):
                     "bn_stats_fwd": 20, "bn_stats_bwd": 20}
     elif path == "lrw_dctcn":
         cfg = lrw_dctcn_cfg()
-        batch_np = with_attention_mask(np, uint8_clips(np, cfg, seed=0), 0)
+        batch_np = with_attention_mask(np, uint8_clips(cfg, seed=0), 0)
         frames, video = cfg.data.num_frames, "inputs"
         aug, transform = image.build_word_aug(cfg.data), image.build_eval_transform(cfg.data)
         near_ln["loss_word"] = cfg.model.labels
@@ -1197,7 +1065,7 @@ def train_full_width(torch, np, path, profile_dir=None):
                     "bn_stats_fwd": 20, "bn_stats_bwd": 20}
     elif path == "lrw1000_dctcn":
         cfg = lrw1000_dctcn_cfg()
-        batch_np = with_attention_mask(np, uint8_clips(np, cfg, seed=0), 0)
+        batch_np = with_attention_mask(np, uint8_clips(cfg, seed=0), 0)
         frames, video = cfg.data.num_frames, "inputs"
         aug, transform = image.build_word_aug(cfg.data), image.build_eval_transform(cfg.data)
         near_ln["loss_word"] = cfg.model.labels
@@ -1334,7 +1202,7 @@ def train_1800(torch, np, path, profile_dir=None):
     from syncvsr_tpu_torch.ops import image
 
     windows, steps = 2, 3
-    batch_np = uint8_sentences(np, lrs3_1800_cfg(), LRS3_1800_FRAMES, LRS3_1800_LABEL_LEN,
+    batch_np = uint8_sentences(lrs3_1800_cfg(), LRS3_1800_FRAMES, LRS3_1800_LABEL_LEN,
                                LRS3_SOURCE, seed=0)
     dev = torch.device("cuda")
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
@@ -1551,7 +1419,7 @@ def train_instep(torch, np, path, profile_dir=None):
                                  "model.codec.ckpt": CODECS["random"]})
     dev = torch.device("cuda")
     held = torch.cuda.memory_allocated()
-    batch_np = instep_batch(np, uint8_sentences(np, cfg, LRS3_FRAMES, LRS3_LABEL_LEN,
+    batch_np = instep_batch(np, uint8_sentences(cfg, LRS3_FRAMES, LRS3_LABEL_LEN,
                                                 LRS3_SOURCE, seed=0), seed=0)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
     tokenize = instep_tokenizer(cfg, dev)
@@ -1608,7 +1476,7 @@ def train_instep(torch, np, path, profile_dir=None):
     state, _ = plain_step(state, tokens)
     torch.cuda.synchronize()
     dt_plain, windows_plain, _ = timed(plain_step, tokens)
-    codec = cuda_ms(torch, lambda: tokenize(batch), iters=10)
+    codec = time_ms(lambda: tokenize(batch), CUDA, iters=10)
     log(f"  without the codec (its tokens made once before): {dt_plain * 1e3:.2f} ms/step "
         f"(windows {', '.join(f'{w * 1e3:.2f}' for w in windows_plain)}); the codec alone "
         f"{codec:.3f} ms a call (CUDA events, 10 calls), the step's difference "
@@ -1628,7 +1496,7 @@ def train_instep(torch, np, path, profile_dir=None):
                "codec_bound_ms": flops / PEAK_F32_FLOPS * 1e3, "token_agreement": rates}
 
     def window():
-        conv_ms, _, calls, src, all_ms = device_ms(torch, lambda: tokenize(batch), ("conv",),
+        conv_ms, _, calls, src, all_ms = device_ms(lambda: tokenize(batch), ("conv",),
                                                    iters=10)
         summary["codec_device_ms"] = all_ms
         log(f"{path}: the codec's device time {all_ms:.3f} ms a call ({src}; {calls} device "
@@ -1648,8 +1516,8 @@ def time_stem_conv(torch, model, audio):
     x = audio[..., None].to(stem.dtype)
     y = stem(x)
     gy = torch.randn_like(y)
-    fwd = cuda_ms(torch, lambda: stem(x))
-    fwd_wgrad = cuda_ms(torch, lambda: torch.autograd.grad(stem(x), stem.weight, gy))
+    fwd = time_ms(lambda: stem(x), CUDA)
+    fwd_wgrad = time_ms(lambda: torch.autograd.grad(stem(x), stem.weight, gy), CUDA)
     c_out, _, k = stem.weight.shape
     bound, by = bound_ms(2 * y.numel() * k, PEAK_BF16_FLOPS,
                          (x.numel() + y.numel()) * x.element_size())
@@ -1659,61 +1527,26 @@ def time_stem_conv(torch, model, audio):
     return {"forward_ms": fwd, "forward_weight_grad_ms": fwd_wgrad, "forward_bound_ms": bound}
 
 
-# device-time groups of the profile, matched in order on the kernel's name
-KERNEL_GROUPS = (
-    ("port kernels", ("sync_ce_kernel", "sync_ce_split_kernel", "stats_fwd_fused",
-                      "stats_bwd_fused")),
-    ("convolution", ("conv", "cudnn", "implicit", "fprop", "dgrad", "wgrad")),
-    ("matmul", ("gemm", "cutlass", "xmma", "sm90_")),
-    ("elementwise", ("elementwise", "vectorized", "unrolled")),
-    ("reduction", ("reduce",)),
-)
-
-
 def profile_steps(torch, state, step, batch, out_dir, path, step_s, n=3):
-    """``n`` train steps under torch.profiler: device time by kernel group
-    and the top kernels, beside the unprofiled step time ``step_s`` (the
-    device's idle share is 1 - device time / step time). The full table goes
-    to ``out_dir/profile_<path>.txt``. One step first, unprofiled, lets the
-    allocator take back the blocks of the step's sizes after other work."""
+    """``n`` train steps under torch.profiler (``benchmark.profile_window``):
+    device time by kernel group and the top kernels, beside the unprofiled
+    step time ``step_s`` (the device's idle share is 1 - device time / step
+    time). The full table goes to ``out_dir/profile_<path>.txt``."""
     import os
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    state, _ = step(state, batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            state, _ = step(state, batch)
-        torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    sort_key = ("self_device_time_total" if hasattr(avgs[0], "self_device_time_total")
-                else "self_cuda_time_total")
-    kernels = [(e.key, getattr(e, sort_key) / 1e3 / n, e.count // n) for e in avgs
-               if e.device_type == DeviceType.CUDA and getattr(e, sort_key) > 0]
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"profile_{path}.txt"), "w") as f:
-        f.write(avgs.table(sort_by=sort_key, row_limit=80, max_name_column_width=90))
-        f.write("\nby host time:\n")
-        f.write(avgs.table(sort_by="self_cpu_time_total", row_limit=40,
-                           max_name_column_width=90))
-    total = sum(ms for _, ms, _ in kernels)
-    if not kernels:
+    prof = profile_window(lambda: step(state, batch), torch.device("cuda"), n,
+                          os.path.join(out_dir, f"profile_{path}.txt"))
+    total = prof["ms"]
+    if not prof["kernels"]:
         log(f"profile {path}: no device time was traced")
         return
-    groups = {}
-    for name, ms, calls in kernels:
-        low = name.lower()
-        g = next((g for g, keys in KERNEL_GROUPS if any(k in low for k in keys)), "other")
-        ms0, c0 = groups.get(g, (0.0, 0))
-        groups[g] = (ms0 + ms, c0 + calls)
     log(f"profile {path} ({n} steps): device time {total:.2f} ms/step in "
-        f"{sum(c for _, _, c in kernels)} launches/step; unprofiled step "
+        f"{prof['launches']:.0f} launches/step; unprofiled step "
         f"{step_s * 1e3:.2f} ms, so the device idles {1 - total / (step_s * 1e3):.1%} of it")
-    for g, (ms, calls) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        log(f"  {g:<14} {ms:9.3f} ms/step {ms / total:6.1%}  {calls} launches/step")
-    for name, ms, calls in sorted(kernels, key=lambda k: -k[1])[:25]:
-        log(f"  {ms:9.3f} ms/step  x{calls:<4} {name[:110]}")
+    for g, (ms, calls) in sorted(prof["groups"].items(), key=lambda kv: -kv[1][0]):
+        log(f"  {g:<14} {ms:9.3f} ms/step {ms / total:6.1%}  {calls:.0f} launches/step")
+    for name, ms, calls in prof["kernels"][:25]:
+        log(f"  {ms:9.3f} ms/step  x{calls:<4.0f} {name[:110]}")
 
 
 # ---- decoding (no kernel of K1-K4 runs here: eval BatchNorms use their
@@ -2010,8 +1843,8 @@ def cli_phase(steps):
                                     "step_phase_ms": steps["lrw1000_dctcn"]["step_ms"],
                                     "launches_per_step": per_step,
                                     "train_loss": losses(rec, "(c)")}
-        # (d) onwards run in concurrent chains (cli_files)
-        summary.update(cli_files(tmp, cli_sentence))
+        # (d) onwards run in concurrent chains (cli_files), the tools in one more
+        summary.update(cli_files(tmp, cli_sentence, tools_chain))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for path in ("lrw_video", "lrw1000_dctcn"):
@@ -2033,6 +1866,7 @@ FILES_VAL, FILES_TEST = [120, 260], [90, 150, 300, 420]
 FILES_MBF = 3600
 # (e) and (i) run lrs3's widths at this depth (the step phase runs its full depth)
 FILES_DEPTH = ["model.encoder.layers=2", "model.decoder.layers=1"]
+FILES_LAYERS = {a.split("=")[0]: int(a.split("=")[1]) for a in FILES_DEPTH}   # as overrides
 # vox2's tree: long clips windowed by a length histogram
 FILES_VOX2, FILES_VOX2_HIST = [300, 700, 1000, 1900, 2400, 600], [150, 400, 800]
 
@@ -2424,7 +2258,7 @@ def decode_full_width(torch, np, card, profile_dir=None):
     cfg = lrs3_cfg()
     b, dev = cfg.data.batch_size, torch.device("cuda")
     held = torch.cuda.memory_allocated()
-    raw = uint8_sentences(np, cfg, DECODE_FRAMES, DECODE_LABEL_LEN, LRS3_SOURCE, seed=0)
+    raw = uint8_sentences(cfg, DECODE_FRAMES, DECODE_LABEL_LEN, LRS3_SOURCE, seed=0)
     raw["lengths"] = (DECODE_FRAMES - 8 * np.arange(b)).astype(np.int32)
     batch = build_sentence_eval_transform(cfg.data)(
         {k: torch.from_numpy(val).to(dev) for k, val in raw.items()})
@@ -2806,7 +2640,7 @@ def parallel_worker(rank, world, port, out_path, ckpt_path, device="cuda"):
 
     def word_run(cfg, n, name, tol):
         """world 2 on each rank's rows, then (rank 0) world 1 on the whole."""
-        whole = uint8_clips(np, cfg, seed=0)
+        whole = uint8_clips(cfg, seed=0)
         aug = image.build_word_aug(cfg.data)
         batch = shard_batch(mesh, whole)
         state = make(cfg, batch, True)
@@ -2849,7 +2683,7 @@ def parallel_worker(rank, world, port, out_path, ckpt_path, device="cuda"):
     torch.backends.cudnn.deterministic = False
     lap("lrw_video_f32")
     # the preset's dropout: each rank its own masks, the state bitwise alike
-    whole = uint8_clips(np, full, seed=1)
+    whole = uint8_clips(full, seed=1)
     batch = shard_batch(mesh, whole)
     state = make(full, batch, True)
     probe = state.dropout_gen.get_state()
@@ -2868,11 +2702,12 @@ def parallel_worker(rank, world, port, out_path, ckpt_path, device="cuda"):
     torch.cuda.empty_cache()
     lap("lrw_video_dropout")
 
-    # (c) lrs3 at full width, FSDP against data parallel, 2 steps each
+    # (c) lrs3 at full width and FILES_DEPTH, FSDP against data parallel, 2
+    # steps each
     cfg = lrs3_cfg().override(**{"model.encoder.mlp_dropout": 0.0,
                                  "model.encoder.msa_dropout": 0.0,
-                                 "model.decoder.dropout": 0.0})
-    whole = uint8_sentences(np, cfg, LRS3_FRAMES, LRS3_LABEL_LEN, LRS3_SOURCE, seed=0)
+                                 "model.decoder.dropout": 0.0, **FILES_LAYERS})
+    whole = uint8_sentences(cfg, LRS3_FRAMES, LRS3_LABEL_LEN, LRS3_SOURCE, seed=0)
     batch = shard_batch(mesh, whole)
     aug = image.build_sentence_aug(cfg.data)
     runs = {}
@@ -2930,8 +2765,8 @@ def parallel_phase(torch, np, summary):
     of 96 (48 clips a rank) against world 1 (bf16), the same at f32 on a
     2-layer 64-wide model against world 1 (f32 tolerances), 3 steps with
     the preset's dropout (the ranks' states bitwise equal, their dropout
-    draws not); ``lrs3`` at full width on 8 x 160 frames (4 a rank) with
-    FSDP against data parallel: metrics and parameters, each rank's
+    draws not); ``lrs3`` at full width and ``FILES_DEPTH`` on 8 x 160
+    frames (4 a rank) with FSDP against data parallel: metrics and parameters, each rank's
     resident bytes, and FSDP's checkpoint at one process. Two ranks on one
     card check correctness and per-rank memory; their step times are not
     scaling. Returns the phase's summary."""
@@ -2981,8 +2816,9 @@ def check_parallel(r0, r1):
     if not (drop["state_bitwise_equal"] and drop["dropout_draws_differ"]):
         raise AssertionError(f"parallel (b): under dropout {drop}")
     c = r0["lrs3_fsdp"]
-    sent_steps = {"sync_ce_fwd": 0.0, "sync_ce_split_fwd": 1.0, "bn_stats_fwd": 32.0,
-                  "bn_stats_bwd": 32.0}
+    bn = float(sum(k for _, _, k in bn_shapes()["lrs3_fsdp2"]))   # 20 + a layer's
+    sent_steps = {"sync_ce_fwd": 0.0, "sync_ce_split_fwd": 1.0, "bn_stats_fwd": bn,
+                  "bn_stats_bwd": bn}
     for r in (r0, r1):
         for kind in ("fsdp", "dp"):
             if r["lrs3_fsdp"][kind]["launches_per_step"] != sent_steps:
@@ -3135,11 +2971,11 @@ def tensor_worker(rank, world, port, out_path, job, device="cuda"):
     if job == "ab":
         # (a) lrs3 at full width: 8 x 160 frames, 12 x 768 Conformer, 6 x 768 decoder
         cfg = lrs3_cfg()
-        whole = uint8_sentences(np, cfg, LRS3_FRAMES, LRS3_LABEL_LEN, LRS3_SOURCE, seed=0)
+        whole = uint8_sentences(cfg, LRS3_FRAMES, LRS3_LABEL_LEN, LRS3_SOURCE, seed=0)
         run(cfg, whole, image.build_sentence_aug(cfg.data), 2, "lrs3_tp2", {}, BF16_TOL)
         # (b) lrw_video at full width, 96 clips
         cfg = lrw_video_cfg()
-        run(cfg, uint8_clips(np, cfg, seed=0), image.build_word_aug(cfg.data), 2,
+        run(cfg, uint8_clips(cfg, seed=0), image.build_word_aug(cfg.data), 2,
             "lrw_video_tp2", {}, BF16_TOL)
     else:
         # (d) the small f32 model on (data=2, model=2) with FSDP; deterministic
@@ -3151,7 +2987,7 @@ def tensor_worker(rank, world, port, out_path, job, device="cuda"):
             "model.frontend.resnet_width": 16, "model.dtype": "float32",
             "data.batch_size": 8})
         torch.backends.cudnn.deterministic = True
-        run(small, uint8_clips(np, small, seed=0), image.build_word_aug(small.data), 3,
+        run(small, uint8_clips(small, seed=0), image.build_word_aug(small.data), 3,
             "small_grid", {"fsdp": True, "fsdp_min_size": TP_MIN_SIZE_SMALL,
                            "min_dim": TP_MIN_DIM_SMALL}, F32_TOL)
     dist.destroy_process_group()
@@ -3276,8 +3112,7 @@ def tensor_cli(torch, np):
         held = int(out.stdout.split("[train] state a rank holds: params ")[1].split(" B")[0])
         path = ckpt.latest_checkpoint(ck)
         records = train_records(ck)
-        cfg = lrs3_cfg().override(**{a.split("=")[0]: int(a.split("=")[1])
-                                     for a in FILES_DEPTH})
+        cfg = lrs3_cfg().override(**FILES_LAYERS)
         dev = torch.device("cuda")
         batch = {"videos": torch.zeros((1, 4, 88, 88, 1), device=dev),
                  "lengths": torch.full((1,), 4, device=dev)}
@@ -3358,12 +3193,14 @@ def tensor_phase(torch, np, summary):
 
 
 # the seq phase: sequence parallel (mesh.seq=2), the processes sharing the card
-SEQ_TIMEOUT = 420   # seconds the processes of (a)+(b), and of (d), may take
+SEQ_TIMEOUT = 540   # seconds the processes of (a)+(b)+(e), and of (d), may take
 # lrs3's K1-K4 launches a step at seq=2: K2 on a rank's frames (the head is
 # whole), each BatchNorm once (no remat)
 SEQ_SENTENCE = {"sync_ce_fwd": 0, "sync_ce_split_fwd": 1, "bn_stats_fwd": 32,
                 "bn_stats_bwd": 32}
 SEQ_SMALL_FRAMES = 32    # (d)'s small sentence model: 16 frames a rank
+# the full-width runs of (a), (b) and (e), two ranks each
+SEQ_AB = ("lrs3_1800_sp2", "lrs3_sp2", "lrs3_audio_sp2")
 # (d)'s f32 tolerances: tests/test_spmd.py's for its (data=4, seq=2) step,
 # metrics rtol 1e-5 and params rtol 1e-4 / atol 1e-5 (splitting time
 # re-associates f32 reductions, here the stem conv's weight gradient summed
@@ -3456,9 +3293,9 @@ def seq_worker(rank, world, port, out_path, job, device="cuda"):
     def run(cfg, whole, aug, n, name, mesh, tol, rule=None):
         """The meshed steps on this rank's rows and frames, then (rank 0)
         world 1 on the global batch, and the comparison."""
-        batch = shard_batch(mesh, whole)
         base = peak_from()
         model = build_model(cfg, device=dev)
+        batch = shard_batch(mesh, whole, model.frontend.frame)   # a waveform by frames
         state = create_train_state(cfg, model, batch, device=dev)
         seed_dropout(state, mesh)
         if rule:
@@ -3507,14 +3344,21 @@ def seq_worker(rank, world, port, out_path, job, device="cuda"):
         mesh = create_mesh(seq=2, device=dev)
         # (a) lrs3_1800: 2 x 1800 frames, full width and depth, no remat
         cfg = lrs3_1800_cfg(remat=False)
-        whole = uint8_sentences(np, cfg, LRS3_1800_FRAMES, LRS3_1800_LABEL_LEN, LRS3_SOURCE,
+        whole = uint8_sentences(cfg, LRS3_1800_FRAMES, LRS3_1800_LABEL_LEN, LRS3_SOURCE,
                                 seed=0)
         run(cfg, whole, image.build_sentence_aug(cfg.data), 2, "lrs3_1800_sp2", mesh,
             BF16_TOL)
         # (b) lrs3 at 8 x 160 frames
         cfg = lrs3_cfg()
-        whole = uint8_sentences(np, cfg, LRS3_FRAMES, LRS3_LABEL_LEN, LRS3_SOURCE, seed=0)
+        whole = uint8_sentences(cfg, LRS3_FRAMES, LRS3_LABEL_LEN, LRS3_SOURCE, seed=0)
         run(cfg, whole, image.build_sentence_aug(cfg.data), 2, "lrs3_sp2", mesh, BF16_TOL)
+        # (e) lrs3_audio at 32 x 102400 samples: each rank takes 51200 (its
+        # 80 frames), ResNet1D's convs with halos at every stage
+        from syncvsr_tpu_torch.data.synthetic import sentence_batch
+
+        cfg = lrs3_audio_cfg()
+        whole = sentence_batch(cfg, num_frames=AUDIO_FRAMES, label_len=AUDIO_LABEL_LEN, seed=0)
+        run(cfg, whole, None, 2, "lrs3_audio_sp2", mesh, BF16_TOL)
     else:
         # (d) small f32 models, deterministic cuDNN as in the tensor phase (d)
         if cuda:
@@ -3522,7 +3366,7 @@ def seq_worker(rank, world, port, out_path, job, device="cuda"):
         data_seq = create_mesh(data=2, seq=2, device=dev)
         seq_model = create_mesh(seq=2, model=2, device=dev)
         cfg = small_sentence_cfg()
-        whole = uint8_sentences(np, cfg, SEQ_SMALL_FRAMES, 8, 64, seed=0)
+        whole = uint8_sentences(cfg, SEQ_SMALL_FRAMES, 8, 64, seed=0)
         aug = image.build_sentence_aug(cfg.data)
         run(cfg, whole, aug, 2, "small_data_seq_fsdp", data_seq, SEQ_F32_TOL,
             {"fsdp": True, "fsdp_min_size": TP_MIN_SIZE_SMALL})
@@ -3530,7 +3374,7 @@ def seq_worker(rank, world, port, out_path, job, device="cuda"):
             {"min_dim": TP_MIN_DIM_SMALL})
         for frames in (40, 29):
             cfg = small_word_cfg(frames)
-            run(cfg, uint8_clips(np, cfg, seed=0), image.build_word_aug(cfg.data), 2,
+            run(cfg, uint8_clips(cfg, seed=0), image.build_word_aug(cfg.data), 2,
                 f"small_word{frames}_seq_model", seq_model, SEQ_F32_TOL,
                 {"min_dim": TP_MIN_DIM_SMALL})
     dist.destroy_process_group()
@@ -3625,8 +3469,7 @@ def seq_cli(torch, np):
             raise AssertionError("seq (c): the driver did not make a seq axis of 2")
         path = ckpt.latest_checkpoint(ck)
         records = train_records(ck)
-        cfg = lrs3_cfg().override(**{a.split("=")[0]: int(a.split("=")[1])
-                                     for a in FILES_DEPTH})
+        cfg = lrs3_cfg().override(**FILES_LAYERS)
         dev = torch.device("cuda")
         batch = {"videos": torch.zeros((1, 4, 88, 88, 1), device=dev),
                  "lengths": torch.full((1,), 4, device=dev)}
@@ -3666,8 +3509,8 @@ def seq_phase(torch, np, summary):
     ``TP_TOL``, the parameters at ``BF16_TOL`` after 2 steps), K2/K3/K4 on
     a rank's frames, a rank's peak device memory beside world 1's; (c) the
     train driver under ``torch.distributed.run`` with ``mesh.seq=2`` over a
-    bucket schedule from files and its checkpoint at one process; (d) four
-    processes: a small f32 ``lrs3`` model as (data=2, seq=2) with FSDP and
+    bucket schedule from files and its checkpoint at one process, while
+    (d) runs in four processes: a small f32 ``lrs3`` model as (data=2, seq=2) with FSDP and
     as (seq=2, model=2), and a small ``lrw_video`` model at 40 and 29
     frames (the fallback) as (seq=2, model=2), against world 1
     (``SEQ_F32_TOL``). Step times of ranks sharing a card check correctness
@@ -3676,10 +3519,21 @@ def seq_phase(torch, np, summary):
     out, launches = {}, {k: 0 for k in counters()}
     ranks, out["ab_seconds"] = run_workers(torch, seq_worker, 2, "ab", SEQ_TIMEOUT)
     log(f"seq (a), (b): seconds {ranks[0]['seconds']}")
-    for name in ("lrs3_1800_sp2", "lrs3_sp2"):
+    for name in SEQ_AB:
         out[name] = check_seq_run(ranks, name, SEQ_SENTENCE)
-    out["c"] = seq_cli(torch, np)
-    ranks4, out["d_seconds"] = run_workers(torch, seq_worker, 4, "d", SEQ_TIMEOUT)
+    audio = out["lrs3_audio_sp2"]
+    if not (audio["peak_share"] and audio["peak_share"] < 1.0):
+        raise AssertionError(f"seq (e): a rank's peak {audio['peak_bytes']} B is not below "
+                             f"world 1's {audio['world1_peak_bytes']} B")
+    if audio["frames"] != [0, AUDIO_FRAMES // 2]:
+        raise AssertionError(f"seq (e): rank 0 held frames {audio['frames']} of the waveform")
+    from concurrent.futures import ThreadPoolExecutor
+
+    # (c) beside (d): (d)'s small models leave the card and the host room
+    with ThreadPoolExecutor(1) as pool:
+        c = pool.submit(seq_cli, torch, np)
+        ranks4, out["d_seconds"] = run_workers(torch, seq_worker, 4, "d", SEQ_TIMEOUT)
+        out["c"] = c.result()
     log(f"seq (d): seconds {ranks4[0]['seconds']}")
     small = ("small_data_seq_fsdp", "small_seq_model", "small_word40_seq_model",
              "small_word29_seq_model")
@@ -3687,13 +3541,13 @@ def seq_phase(torch, np, summary):
         out[name] = check_seq_run(ranks4, name)
     if out["small_word29_seq_model"]["frames"] is not None:
         raise AssertionError("seq (d): 29 frames were split over seq=2")
-    for rs, names in ((ranks, ("lrs3_1800_sp2", "lrs3_sp2")), (ranks4, small)):
+    for rs, names in ((ranks, SEQ_AB), (ranks4, small)):
         for r in rs:
             for name in names:
                 for k, v in r[name]["launches_per_step"].items():
                     launches[k] += int(round(v * 2))
     out["launches"] = launches
-    out["per_step"] = {p: out[p]["launches_per_step"] for p in ("lrs3_1800_sp2", "lrs3_sp2")}
+    out["per_step"] = {p: out[p]["launches_per_step"] for p in SEQ_AB}
     out["seconds"] = time.perf_counter() - t0
     a = out["lrs3_1800_sp2"]
     log(f"seq: {out['seconds']:.1f} s in all; lrs3_1800 at seq=2: a rank's peak "
@@ -3702,6 +3556,124 @@ def seq_phase(torch, np, summary):
         f"{a['step_ms_ranks_one_card']:.2f} ms (lrs3_1800), "
         f"{out['lrs3_sp2']['step_ms_ranks_one_card']:.2f} ms (lrs3): two ranks sharing one "
         "card over gloo, which stages through the host: correctness and memory, not scaling")
+    return out
+
+
+# the tools phase: each measurement tool (syncvsr_tpu_torch/tools/) once on
+# the card at toy widths (``--tiny``), all in one process (a chain of the CLI
+# phase; every mode runs in tests/test_torch_tools.py on the CPU), and, with
+# ``--tools-full``, every mode at full size, a process each, one at a time,
+# alone, for their numbers. ``profile_step`` comes last: a process that
+# torch.profiler has traced pays more host time a launch afterwards
+TOOL_RUNS = [
+    ("bench_loader", ["--tiny", "--threads", "2"]),
+    ("bench_decode", ["beam", "--tiny", "--frames", "40"]),
+    ("bench_beam_parts", ["100", "40", "--steps", "10", "--tiny"]),
+    ("bench_stem", ["--tiny", "--iters", "3"]),
+    ("bench_bn", ["micro", "--tiny", "--iters", "5"]),
+    ("bench_aux_workloads", ["--tiny", "--steps", "2"]),
+    ("bisect_bs16", ["att", "2", "--tiny", "--steps", "2"]),
+    ("profile_step", ["lrs3", "--tiny", "--steps", "2"]),
+]
+TOOL_RUNS_FULL = [
+    ("bench_loader", []), ("bench_loader", ["--sentence"]),
+    ("bench_decode", ["beam"]), ("bench_decode", ["greedy"]),
+    ("bench_decode", ["train1800"]), ("bench_decode", ["testset"]),
+    ("bench_decode", ["trained"]), ("bench_beam_parts", []), ("bench_stem", []),
+    ("profile_step", ["lrw"]), ("profile_step", ["lrs3"]),
+    ("bench_bn", ["micro"]), ("bench_bn", ["step"]), ("bench_aux_workloads", []),
+] + [("bisect_bs16", [v]) for v in ("frontend", "encoder", "model", "ctc", "att", "sync",
+                                      "dec", "lsm", "modelmetrics", "full")]
+TOOLS_TIMEOUT = 600   # seconds a tool may take
+# runs each (name, arguments) of argv[1] (JSON) through the tool's ``main``,
+# its standard output captured: one JSON list of {seconds, stdout, error}
+TOOLS_RUNNER = """
+import contextlib, importlib, io, json, sys, time, traceback
+done = []
+for name, args in json.loads(sys.argv[1]):
+    buf, err, t0 = io.StringIO(), None, time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            importlib.import_module("syncvsr_tpu_torch.tools." + name).main(args)
+    except Exception:
+        err = traceback.format_exc()
+    done.append({"seconds": time.perf_counter() - t0, "stdout": buf.getvalue(), "error": err})
+print(json.dumps(done))
+"""
+
+
+def run_tools(runs):
+    """The tools of ``runs`` in one process (``TOOLS_RUNNER``) from the
+    repository's root: each run's (seconds, JSON line), which must come
+    from the card (``device`` cuda, the card's name and power limit), or
+    raises with the end of its output."""
+    import os
+
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    cmd = [sys.executable, "-c", TOOLS_RUNNER, json.dumps(runs)]
+    out = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
+                         timeout=TOOLS_TIMEOUT * len(runs))
+    try:
+        done = json.loads(out.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        tail = "\n".join((out.stdout + out.stderr).strip().splitlines()[-12:])
+        raise AssertionError(f"tools: {[r[0] for r in runs]} -> exit {out.returncode}:\n{tail}")
+    got = []
+    for (name, args), d in zip(runs, done):
+        lines = d["stdout"].strip().splitlines()
+        try:
+            line = json.loads(lines[-1])
+        except (IndexError, ValueError):
+            line = None
+        if (d["error"] or not isinstance(line, dict) or line.get("tool") != name
+                or not str(line.get("device")).startswith("cuda") or not line.get("card")):
+            tail = "\n".join((d["stdout"] + (d["error"] or "")).strip().splitlines()[-12:])
+            raise AssertionError(f"tools: {' '.join([name] + args)} in {d['seconds']:.1f} s, "
+                                 f"no JSON line from the card:\n{tail}")
+        got.append((d["seconds"], line))
+    return got
+
+
+def tools_chain(tmp):
+    """The ``tools`` phase as one more chain of the CLI phase
+    (``cli_files``): ``TOOL_RUNS`` in one process, beside the CLIs' chains
+    (their processes wait on the host most of the time)."""
+    return {"tools": tools_phase(TOOL_RUNS, together=True)}
+
+
+def tools_phase(runs, together):
+    """The ``tools`` phase: every measurement tool of the port once on the
+    card (``runs``), in one process if ``together``, else a process each,
+    one at a time, each line parsed and checked (``run_tools``);
+    ``bench_aux_workloads``' steps must launch K1 once a ``lrw_landmark``
+    step, and K2 (at full size; K1 at toy widths) once and K3/K4 under
+    every BatchNorm a ``lrs3_audio`` step. Returns {run: {"seconds",
+    "line"}}."""
+    t0 = time.perf_counter()
+    done = (run_tools(runs) if together
+            else [got for run in runs for got in run_tools([run])])
+    out = {}
+    for (name, args), (dt, line) in zip(runs, done):
+        key = " ".join([name] + args)
+        out[key] = {"seconds": dt, "line": line}
+        log(f"tools {key}: {dt:.1f} s: {json.dumps(line)}")
+        if name == "bench_aux_workloads":
+            # each path's kernels a step: K1 (the toy heads are under K2's
+            # 4 MiB) or K2 at full size, and K3/K4 under every BatchNorm
+            # (ResNet1D's 20 and the Conformer's, one a layer)
+            full = "--tiny" not in args
+            bn = 32 if full else 21
+            want = {"lrw_landmark": {"sync_ce_fwd": 1, "sync_ce_split_fwd": 0,
+                                     "bn_stats_fwd": 0, "bn_stats_bwd": 0},
+                    "lrs3_audio": {"sync_ce_fwd": int(not full), "sync_ce_split_fwd": int(full),
+                                   "bn_stats_fwd": bn, "bn_stats_bwd": bn}}
+            for path, counts in want.items():
+                if line[path]["launches_per_step"] != counts:
+                    raise AssertionError(f"tools {key}: {path} launched "
+                                         f"{line[path]['launches_per_step']} a step")
+    log(f"tools: {len(runs)} runs in {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -3717,6 +3689,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="after each train phase, profile 3 steps and write the table to DIR")
+    ap.add_argument("--tools-full", action="store_true",
+                    help="only build the kernels and run each measurement tool at full size, "
+                         "one at a time (TOOL_RUNS_FULL); no ok line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3740,6 +3715,9 @@ def main():
     log(f"build: {lib} in {time.perf_counter() - mark[0]:.1f} s\n{build_log}")
     kernels.library()
     lap("build")
+    if args.tools_full:
+        log(f"tools (full size): {json.dumps(tools_phase(TOOL_RUNS_FULL, False))} on {card}")
+        return 0
 
     # the fairseq checkpoints of the in-step codec, removed at exit
     codec_dir = tempfile.mkdtemp(prefix="syncvsr_codec_")
@@ -3780,6 +3758,7 @@ def main():
     lap("decode")
     torch.cuda.empty_cache()      # room for the CLI processes on the card
     summary["cli"] = cli_phase(summary)
+    summary["tools"] = summary["cli"].pop("tools")
     lap("cli")
     summary["parallel"] = parallel_phase(torch, np, summary)
     lap("parallel")
@@ -3815,6 +3794,7 @@ def main():
     log(f"parallel: {json.dumps(summary['parallel'])}")
     log(f"tensor: {json.dumps(summary['tensor'])}")
     log(f"seq: {json.dumps(summary['seq'])}")
+    log(f"tools: {json.dumps(summary['tools'])}")
     log(f"summary: {json.dumps(summary)} on {card}")
     log(json.dumps({"kernels": entries}))
     log(card)

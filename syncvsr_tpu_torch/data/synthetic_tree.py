@@ -1,5 +1,6 @@
 """Synthetic dataset trees on disk, in the layouts the loaders read: LRS
-sentence pkls (``data/lrs.py``) and LRW landmark ``.npy`` clips
+sentence pkls (``data/lrs.py``), LRW video pkls
+(``data/lrw.py::LRWVideoDataset``) and LRW landmark ``.npy`` clips
 (``data/lrw.py::LRWLandmarkDataset``). The tests and ``chip_smoke.py`` train
 and evaluate from them. Seeded with numpy: a tree is the same bytes for the
 same arguments.
@@ -91,6 +92,39 @@ def write_landmark_tree(root: str, words: Sequence[str], splits: Sequence[str], 
                 clip[rng.rand(frames, 478) < 0.02] = np.nan
                 np.save(os.path.join(d, f"{word}_{i:05d}.npy"), clip)
                 rows.append((f"{split}/{word}_{i:05d}", int(rng.randint(5, frames))))
+    with open(os.path.join(root, "durations.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["id", "length"])
+        w.writerows(rows)
+    return root
+
+
+def write_lrw_tree(root: str, splits: Dict[str, int], frames: int = 29, size=(96, 112),
+                   vocab: int = 320, word: str = "ABOUT", seed: int = 0) -> str:
+    """``<root>/<WORD>/<split>/<WORD>_<i>.pkl``, ``splits[split]`` LRW video
+    clips a split at the preprocessing's geometry (``frames`` grayscale
+    JPEGs of ``size`` (h, w), 96 x 112 by default: a blurred pattern plus
+    noise, so the decode costs what a lip crop costs), ``vq_tokens`` [1,
+    frames * 4 + 4, 2], and ``durations.csv``; returns ``root``."""
+    import cv2
+    import torch
+
+    rng = np.random.RandomState(seed)
+    base = cv2.GaussianBlur(rng.randint(0, 256, size, np.uint8), (0, 0), 3)
+    rows = []
+    for split, n_clips in splits.items():
+        d = os.path.join(root, word, split)
+        os.makedirs(d, exist_ok=True)
+        for i in range(n_clips):
+            jpgs = []
+            for _ in range(frames):
+                img = np.clip(base.astype(np.int16) + rng.randint(-20, 20, size), 0,
+                              255).astype(np.uint8)
+                jpgs.append(cv2.imencode(".jpg", img)[1].tobytes())
+            tokens = torch.from_numpy(rng.randint(0, vocab, (1, frames * 4 + 4, 2)))
+            torch.save({"video": jpgs, "vq_tokens": tokens},
+                       os.path.join(d, f"{word}_{i:05d}.pkl"))
+            rows.append((f"{split}/{word}_{i:05d}", 11))
     with open(os.path.join(root, "durations.csv"), "w", newline="") as f:
         w = csv.writer(f)
         w.writerow(["id", "length"])

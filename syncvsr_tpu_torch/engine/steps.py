@@ -43,7 +43,8 @@ def build_train_step(aug_fn: Optional[Callable] = None,
     for the forward), and every rank applies the update to what it holds
     (the model ranks to their own columns). On a mesh with a seq axis the
     step first splits the time of a batch of the data index's rows
-    (``mesh.split_time``; a ``shard_batch`` batch is split already), runs
+    (``mesh.split_time`` in the frontend's input frames; a ``shard_batch``
+    batch is split already), runs
     the forward and backward with that slice current
     (``parallel/sequence.py``), and sums the gradients over the data x seq
     ranks (one all-reduce; under FSDP one more over the seq ranks after the
@@ -53,7 +54,7 @@ def build_train_step(aug_fn: Optional[Callable] = None,
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
         layout = state.fsdp
-        batch = split_time(mesh, batch)
+        batch = split_time(mesh, batch, state.model.frontend.frame if seq else 1)
         with collectives.data_parallel(mesh), sequence.batch(getattr(batch, "time", None)):
             if layout is not None:
                 layout.gather()
@@ -92,11 +93,12 @@ def build_eval_step(mesh: Optional[Mesh] = None) -> Callable:
     global batch's, as the JAX package's step returns them; on a mesh with
     a seq axis the forward runs on the rank's time slice, as the train
     step's."""
+    seq = mesh is not None and mesh.seq > 1
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, Any]):
         layout = state.fsdp
-        batch = split_time(mesh, batch)
+        batch = split_time(mesh, batch, state.model.frontend.frame if seq else 1)
         with collectives.data_parallel(mesh), sequence.batch(getattr(batch, "time", None)):
             if layout is not None:
                 layout.gather()

@@ -12,10 +12,12 @@ modality to a [B, T, D] sequence:
 ``build_frontend`` picks one by ``frontend.kind``, as the JAX function does.
 
 In the time-split region of a sequence-parallel step
-(``parallel/sequence.py``) each rank runs the video and landmark frontends
-on its frames: the stem conv, the only temporal op, reads a 2-frame halo,
-and the trunk's BatchNorms reduce over data x seq. The audio frontend
-raises there.
+(``parallel/sequence.py``) each rank runs its frontend on its frames: the
+video stem conv, the only temporal op, reads a 2-frame halo; ResNet1D runs
+on the rank's samples (the step splits a waveform at the boundaries of
+its ``frame``, 640 samples: ``mesh.split_time``), each of its convs with
+a halo at its own stage (``resnet.Conv1d``), and its output is the rank's
+frames. The BatchNorms reduce over data x seq.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ Tensor = torch.Tensor
 
 
 class Conv3DResNetFrontend(nn.Module):
+    frame = 1   # input elements (video frames) an output frame
+
     def __init__(self, stem_channels: int = 64, width: int = 64, relu_type: str = "swish",
                  stem_act: str = "gelu", fold_threshold: int = 256,
                  dtype: torch.dtype = torch.float32):
@@ -78,6 +82,8 @@ class LandmarkFrontend(nn.Module):
     """[B, T, F] landmarks (the -100 pad sentinel already zeroed by the
     word model) -> [B, T, dim] in ``dtype``."""
 
+    frame = 1
+
     def __init__(self, features: int, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.out_dim = dim
@@ -91,6 +97,8 @@ class Conv1DResNetFrontend(nn.Module):
     """Raw 16 kHz waveform [B, S] or [B, S, 1], cut to a multiple of 640
     samples (one video frame) and cast to ``dtype`` -> ResNet1D features."""
 
+    frame = 640   # input samples an output frame (every stride and the pool)
+
     def __init__(self, width: int = 64, relu_type: str = "swish",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -99,15 +107,9 @@ class Conv1DResNetFrontend(nn.Module):
         self.out_dim = self.resnet1d.out_dim
 
     def forward(self, audio: Tensor, train: bool = False) -> Tensor:
-        if sequence.active() is not None:
-            raise NotImplementedError(
-                "mesh.seq > 1 with the Conv1D audio frontend: a waveform split over "
-                "the seq ranks needs a halo at every strided conv of ResNet1D, which "
-                "is not ported (a waveform whose length does not divide mesh.seq "
-                "stays whole and runs)")
         if audio.dim() == 2:
             audio = audio[..., None]
-        s = audio.shape[1] // 640 * 640
+        s = audio.shape[1] // self.frame * self.frame
         return self.resnet1d(audio[:, :s].to(self.dtype), train)
 
 

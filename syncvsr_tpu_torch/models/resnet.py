@@ -24,7 +24,7 @@ from syncvsr_tpu_torch.models.layers import (
     variance_scaling_fan_out_,
 )
 from syncvsr_tpu_torch.ops.cuda_bn import FastBatchNorm
-from syncvsr_tpu_torch.parallel import tensor
+from syncvsr_tpu_torch.parallel import sequence, tensor
 
 Tensor = torch.Tensor
 
@@ -125,7 +125,13 @@ class Conv1d(nn.Module):
     transpose: oneDNN's backward of that 2-D form corrupts the heap there
     (PyTorch 2.13 CPU, seen from a chain of two blocks). Split over the
     model axis (on O), each rank gives its output channels (a depthwise
-    conv from its channels of the input), gathered before the bias."""
+    conv from its channels of the input), gathered before the bias. In the
+    time-split region of a sequence-parallel step (``parallel/sequence.py``:
+    ResNet1D on a rank's samples, each slice a whole number of frames, so
+    of every stride) the whole clip's SAME padding is a halo of the
+    neighbours' samples, zero at the clip's ends only: (38, 38) for the
+    k = 80 stride-4 stem, (1, 1) for a k = 3 stride-1 conv, (0, 1) for a
+    k = 3 stride-2 conv (so only the last rank pads)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  dtype: torch.dtype = torch.float32, dilation: int = 1, groups: int = 1,
@@ -141,7 +147,13 @@ class Conv1d(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         k = (self.weight.shape[-1] - 1) * self.dilation + 1
-        lo, hi = same_padding(x.shape[1], k, self.stride)
+        ts = sequence.active()
+        if ts is None:
+            lo, hi = same_padding(x.shape[1], k, self.stride)
+        else:   # a rank's whole frames: its samples split at every stride
+            lo, hi = same_padding(x.shape[1] * ts.mesh.seq, k, self.stride)
+            if lo or hi:
+                x, lo, hi = sequence.halo(x, lo, hi), 0, 0
         x = x.to(self.dtype)
         w = self.weight.to(self.dtype)
         b = self.bias.to(self.dtype) if hasattr(self, "bias") else None

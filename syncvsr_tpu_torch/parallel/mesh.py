@@ -15,7 +15,11 @@ as ``jax.make_array_from_process_local_data`` lays processes out along
 whose length divides ``seq`` is split over the seq ranks too (JAX's
 ``batch_shardings``): seq index s holds frames [s*T/seq, (s+1)*T/seq);
 an indivisible leaf (LRW's T = 29) stays whole and the seq ranks repeat
-its rows.
+its rows. A raw waveform (``lrs3_audio``'s float [B, S] ``videos``) splits at
+frame boundaries instead, where its S // 640 frames divide ``seq`` (the
+step passes the frontend's input frame, ``frontend.frame``; JAX splits a
+waveform where S divides, which can leave a slice a fraction of a frame):
+the ranks' results are the same either way.
 
 ``state_shardings`` is the JAX package's rule on the flax layout of each
 leaf (``bridge.flax_perm``): on a mesh with ``model > 1`` a leaf of rank
@@ -182,33 +186,39 @@ class ShardedBatch(dict):
     time = None
 
 
-def batch_shardings(mesh: Mesh, batch: Dict[str, Any]) -> Dict[str, Tuple[str, ...]]:
+def batch_shardings(mesh: Mesh, batch: Dict[str, Any],
+                    frame: int = 1) -> Dict[str, Tuple[str, ...]]:
     """The JAX package's ``batch_shardings`` rule, as each key's spec: the
     leading axis over ``data``; a time-like leaf (``SEQ_KEYS``) of rank
-    >= 2 also splits axis 1 over ``seq`` where the mesh has one and the
-    length divides it (an indivisible leaf falls back to data only)."""
+    >= 2 also splits axis 1 over ``seq`` where the mesh has one and its
+    length, counted in frames of ``frame`` elements, divides it (an
+    indivisible leaf falls back to data only). ``frame`` is the model's
+    input frame (``frontend.frame``): 1 for clips and landmarks, 640
+    samples for a raw waveform, which so splits at frame boundaries only
+    (JAX counts a waveform in samples)."""
     def spec(key, x):
         if (mesh.seq > 1 and key in SEQ_KEYS and getattr(x, "ndim", 0) >= 2
-                and x.shape[1] % mesh.seq == 0):
+                and (x.shape[1] // frame) % mesh.seq == 0):
             return ("data", "seq")
         return ("data",)
 
     return {k: spec(k, v) for k, v in batch.items()}
 
 
-def split_time(mesh: Optional[Mesh], batch: Dict[str, Any]) -> Dict[str, Any]:
+def split_time(mesh: Optional[Mesh], batch: Dict[str, Any], frame: int = 1) -> Dict[str, Any]:
     """This rank's time slice [s*T/seq, (s+1)*T/seq) of each seq-split leaf
-    (``batch_shardings``) of a batch of its data index's rows (as the
-    loaders give them), as a ``ShardedBatch`` whose ``time`` is that slice;
-    the batch itself on a mesh without a seq axis or when it is a
-    ``ShardedBatch`` already."""
+    (``batch_shardings``, its T in frames of ``frame`` elements) of a batch
+    of its data index's rows (as the loaders give them), as a
+    ``ShardedBatch`` whose ``time`` is that slice, in frames; the batch
+    itself on a mesh without a seq axis or when it is a ``ShardedBatch``
+    already. A split leaf keeps its slice's elements: the tail past its
+    last whole frame (which a waveform's frontend drops) goes."""
     if mesh is None or mesh.seq == 1 or isinstance(batch, ShardedBatch):
         return batch
     from syncvsr_tpu_torch.parallel.sequence import TimeSlice
 
-    specs = batch_shardings(mesh, batch)
-    split = {k for k, sp in specs.items() if "seq" in sp}
-    totals = {batch[k].shape[1] for k in split}
+    split = [k for k, s in batch_shardings(mesh, batch, frame).items() if "seq" in s]
+    totals = {batch[k].shape[1] // frame for k in split}
     if len(totals) > 1:
         raise ValueError(f"time-split leaves of unequal lengths: "
                          f"{ {k: batch[k].shape[1] for k in split} }")
@@ -220,21 +230,24 @@ def split_time(mesh: Optional[Mesh], batch: Dict[str, Any]) -> Dict[str, Any]:
         time = TimeSlice(mesh, mesh.seq_index * length, length, total)
     for k, v in batch.items():
         v = torch.as_tensor(v)
-        out[k] = v.narrow(1, time.start, time.length).contiguous() if k in split else v
+        if k in split:
+            v = v.narrow(1, time.start * frame, time.length * frame).contiguous()
+        out[k] = v
     out.time = time
     return out
 
 
-def shard_batch(mesh: Mesh, batch: Dict[str, Any]) -> Dict[str, Tensor]:
+def shard_batch(mesh: Mesh, batch: Dict[str, Any], frame: int = 1) -> Dict[str, Tensor]:
     """This rank's part of a global batch (numpy arrays or tensors), as
     tensors on its device: rows [d*b, (d+1)*b) (d its data index), then on
     a mesh with a seq axis the time slice of each seq-split leaf
-    (``split_time``: a ``ShardedBatch``). (The loaders give each process
-    its rows already: the driver moves them and the step splits time.)"""
+    (``split_time`` with the model's input ``frame``: a ``ShardedBatch``).
+    (The loaders give each process its rows already: the driver moves them
+    and the step splits time.)"""
     b = host_local_batch(len(next(iter(batch.values()))), mesh)
     rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
     out = {k: torch.as_tensor(v[rows]).to(mesh.device) for k, v in batch.items()}
-    return split_time(mesh, out)
+    return split_time(mesh, out, frame)
 
 
 def seed_dropout(state, mesh: Mesh) -> None:

@@ -17,7 +17,8 @@ included, every timing taken before the first profiler window),
 ``device_ms`` (the kernel's own device time from a torch.profiler window
 over 20 calls, with its kernels a call), the library call's ``ms`` and
 device time (``torch.batch_norm_stats`` /
-``torch.batch_norm_backward_reduce``) and the bound (bytes at 3.35 TB/s),
+``torch.batch_norm_backward_reduce``) and the bound (``tools/bench_bn.py``'s
+calls, which bench_bn's ``micro`` times at ``lrw_video``'s shapes),
 then the sums per step of each path. Then K1 at ``lrw_video``'s sync head
 ([2784, 513] x [513, 8 x 320], bf16): ``ms``, its own kernel's device time
 and that of all the call's device kernels (the features' pad copy
@@ -31,13 +32,11 @@ strips beside the count the wrapper picks.
 
 import argparse
 import os
-import subprocess
 import sys
 
 # the kernels' device function names, old and new
 OWN = {"K3": ("stats_fwd", "sum_strips"), "K4": ("stats_bwd", "sum_strips"),
        "K1": ("sync_ce_kernel",), "K2": ("sync_ce_split_kernel",)}
-PEAK_BYTES = 3.35e12
 # K3/K4 grids for --sweep: 1, 2, 3, 4, 6 and 8 blocks a SM of the H100's 132
 SWEEP_STRIPS = (132, 264, 396, 528, 792, 1056)
 K1_SHAPE = (29 * 96, 513, 8, 320)   # lrw_video: rows, D, slots, V
@@ -53,53 +52,27 @@ def main():
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     import chip_smoke
     import syncvsr_tpu_torch
     from syncvsr_tpu_torch.ops import cuda_bn, cuda_sync
+    from syncvsr_tpu_torch.tools import bench_bn
     from syncvsr_tpu_torch.utils import kernels
+    from syncvsr_tpu_torch.utils.benchmark import card_line, device_ms, time_ms
 
     if not torch.cuda.is_available():
         print("no CUDA device: this script runs only on a GPU")
         return 1
     assert os.path.abspath(syncvsr_tpu_torch.__file__).startswith(root)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     kernels.library()
     dev = torch.device("cuda")
     label = args.label or root
-    cuda_ms = lambda fn: chip_smoke.cuda_ms(torch, fn)   # noqa: E731
-
-    def device_ms(fn, names, iters=20):
-        """(own ms, own kernels, all ms, all kernels) a call."""
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        every = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                 and e.self_device_time_total > 0]
-        own = [e for e in every if any(k in e.key for k in names)]
-        return tuple(f(evs) / iters for evs in (own, every) for f in (
-            lambda evs: sum(e.self_device_time_total for e in evs) / 1e3,
-            lambda evs: sum(e.count for e in evs)))
 
     def show(what, row, extra=""):
         print(f"{label} {what}: " + " ".join(f"{k} {v:.5f}" for k, v in row.items()
                                              if v is not None) + extra, flush=True)
 
     g = torch.Generator(device=dev).manual_seed(1)
-
-    def bn_case(n, c):
-        x = (torch.randn(n, c, device=dev, generator=g) * 2 + 0.5).to(torch.bfloat16)
-        gy = torch.randn(n, c, device=dev, generator=g).to(torch.bfloat16)
-        mean = x.float().mean(0)
-        inv = torch.rsqrt(x.float().var(0, unbiased=False) + 1e-5)
-        return x, gy, mean, inv
 
     launches = {}
     for path, shapes in chip_smoke.bn_shapes().items():
@@ -109,16 +82,9 @@ def main():
     # that torch.profiler has traced can pay more host time a launch afterwards
     calls = []
     for (n, c), per_step in sorted(launches.items()):
-        x, gy, mean, inv = bn_case(n, c)
-        for name, kern, lib, nbytes in (
-                ("K3", lambda x=x: cuda_bn.bn_stats(x),
-                 lambda x=x: torch.batch_norm_stats(x, 1e-5), n * c * 2 + 2 * c * 4),
-                ("K4", lambda a=(gy, x, mean, inv): cuda_bn.bn_bwd_stats(*a),
-                 lambda a=(gy, x, mean, inv): torch.batch_norm_backward_reduce(
-                     *a, None, True, False, False),
-                 2 * n * c * 2 + 4 * c * 4)):
-            row = {"ms": cuda_ms(kern), "device_ms": None, "library_ms": cuda_ms(lib),
-                   "library_device_ms": None, "bound_ms": nbytes / PEAK_BYTES * 1e3}
+        for name, kern, lib, (bound, _) in bench_bn.bn_calls(n, c, dev, g):
+            row = {"ms": time_ms(kern, dev), "device_ms": None, "library_ms": time_ms(lib, dev),
+                   "library_device_ms": None, "bound_ms": bound}
             calls.append((name, n, c, per_step, kern, lib, row))
 
     # K1 at lrw_video's sync head
@@ -136,14 +102,14 @@ def main():
             torch.addmm(b16, xb, wb).reshape(kn * ks, kv).float(), tok_l, ignore_index=-1,
             reduction="sum")
 
-    k1_row = {"ms": cuda_ms(lambda: cuda_sync.sync_ce_mono_partials(*k1_args)),
-              "library_ms": cuda_ms(k1_lib)}
+    k1_row = {"ms": time_ms(lambda: cuda_sync.sync_ce_mono_partials(*k1_args), dev),
+              "library_ms": time_ms(k1_lib, dev)}
 
     def sync_window(what, fn, args, lib, row, own_names):
-        own, own_n, every, every_n = device_ms(lambda: fn(*args), own_names)
+        own, own_n, every_n, _, every = device_ms(lambda: fn(*args), own_names)
         row.update(device_ms=every, own_device_ms=own,
-                   library_device_ms=device_ms(lib, ("",))[2])
-        show(what, row, f" ({own_n:.0f} own and {every_n:.0f} device kernels a call)")
+                   library_device_ms=device_ms(lib, ("",))[4])
+        show(what, row, f" ({own_n} own and {every_n} device kernels a call)")
 
     # K2 at each path's sync head (features in the path's dtype)
     k2_calls = []
@@ -160,8 +126,8 @@ def main():
                 ignore_index=-1, reduction="sum")
 
         k2_args = (x, w, b, t)
-        row = {"ms": cuda_ms(lambda a=k2_args: cuda_sync.sync_ce_split_partials(*a)),
-               "library_ms": cuda_ms(lib)}
+        row = {"ms": time_ms(lambda a=k2_args: cuda_sync.sync_ce_split_partials(*a), dev),
+               "library_ms": time_ms(lib, dev)}
         k2_calls.append((f"K2 {path} [{n}, {d}] {dtype} x [{d}, {s}x{v}]", k2_args, lib, row))
 
     def k1_window():
@@ -172,10 +138,10 @@ def main():
 
     totals = {}
     for name, n, c, per_step, kern, lib, row in calls:
-        row["device_ms"], kernels_a_call, _, _ = device_ms(kern, OWN[name])
-        row["library_device_ms"] = device_ms(lib, ("",))[2]
+        row["device_ms"], kernels_a_call = device_ms(kern, OWN[name])[:2]
+        row["library_device_ms"] = device_ms(lib, ("",))[4]
         show(f"{name} [{n}, {c}] per step {per_step}", row,
-             f" ({kernels_a_call:.0f} kernels a call)")
+             f" ({kernels_a_call} kernels a call)")
         for path, k in per_step.items():
             t = totals.setdefault((name, path), dict.fromkeys(row, 0.0))
             for key, val in row.items():
@@ -189,7 +155,7 @@ def main():
         # K3's and K4's device time at other strip counts than the wrapper's:
         # the evidence for fwd_geometry's and bwd_geometry's rules
         for (n, c) in sorted(launches):
-            x, gy, mean, inv = bn_case(n, c)
+            x, gy, mean, inv = bench_bn.bn_inputs(n, c, dev, g)
             for name, geometry, run in (
                     ("K3", cuda_bn.fwd_geometry,
                      lambda strips: cuda_bn.bn_stats(x, strips=strips)),

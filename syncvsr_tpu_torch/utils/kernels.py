@@ -3,9 +3,11 @@
 Every ``*.cu`` source is compiled by its own ``nvcc`` process, all started
 together, for ``sm_90a``; the objects are linked into one shared library
 with a plain C interface and loaded with ``ctypes``. The library lands in
-``build/syncvsr_tpu_torch/<hash>/`` at the repository root, keyed by a hash
-of the sources and flags, so a changed source rebuilds and an unchanged one
-is loaded as built. A failed build raises.
+``<root>/<hash>/``, keyed by a hash of the sources and flags, so a changed
+source rebuilds and an unchanged one is loaded as built; ``<root>`` is
+``compile_cache.build_root()`` (by default ``build/syncvsr_tpu_torch/`` at
+the repository root; ``SYNCVSR_COMPILE_CACHE`` moves it). A failed build
+raises.
 
 Nothing here runs at import time: the first kernel launch builds.
 """
@@ -21,8 +23,9 @@ import tempfile
 from pathlib import Path
 from typing import List, Optional, Tuple
 
+from syncvsr_tpu_torch.utils.compile_cache import build_root
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "syncvsr_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libsyncvsr_kernels.so"
@@ -74,13 +77,14 @@ def _digest() -> str:
 def build(force: bool = False) -> Tuple[Path, str]:
     """Compile the sources (in parallel) and link the library; returns its
     path and the compiler's output (empty when an earlier build is reused)."""
-    out_dir = BUILD_ROOT / _digest()
+    root = build_root()
+    out_dir = root / _digest()
     lib = out_dir / LIB_NAME
     if lib.exists() and not force:
         return lib, ""
     nvcc = _nvcc()
-    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix="build-", dir=BUILD_ROOT))
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="build-", dir=root))
     try:
         procs = []
         for src in _sources():

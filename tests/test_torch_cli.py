@@ -93,32 +93,33 @@ def test_train_pretrained_and_profile_window(tmp_path, capsys):
 
 
 def test_train_raises_for_what_is_not_ported(tmp_path, monkeypatch):
-    """The Conv1D audio frontend on a waveform split over the seq ranks is
-    not ported; a data, seq or model axis that does not fit the process
-    group, and ``train.distributed`` without a launcher's environment, are
-    errors (the multi-process driver is tests/test_torch_parallel.py's,
+    """A data, seq or model axis that does not fit the process group, and
+    ``train.distributed`` without a launcher's environment, are errors (the
+    multi-process driver is tests/test_torch_parallel.py's,
     tests/test_torch_tensor_parallel_cli.py's and
-    tests/test_torch_seq_parallel_grid.py's)."""
+    tests/test_torch_seq_parallel_grid.py's). The Conv1D audio frontend on
+    a waveform split over the seq ranks, which raised here before it was
+    ported, is split at frame boundaries (its steps:
+    tests/test_torch_seq_parallel_audio.py)."""
     import torch
 
     from syncvsr_tpu_torch.config import lrs3_audio_config
     from syncvsr_tpu_torch.data.synthetic import sentence_batch as t_sentence_batch
-    from syncvsr_tpu_torch.models import build_model
-    from syncvsr_tpu_torch.parallel import Mesh, collectives, sequence, split_time
+    from syncvsr_tpu_torch.models.frontend import Conv1DResNetFrontend
+    from syncvsr_tpu_torch.parallel import Mesh, split_time
 
-    acfg = lrs3_audio_config().override(**{
-        "model.encoder.layers": 1, "model.encoder.dim": 16, "model.encoder.heads": 2,
-        "model.decoder.layers": 1, "model.decoder.dim": 16, "model.decoder.heads": 2,
-        "model.frontend.resnet_width": 4, "data.batch_size": 1})
-    model = build_model(acfg, device="cpu")
+    acfg = lrs3_audio_config().override(**{"data.batch_size": 1})
     batch = {k: torch.from_numpy(v) for k, v in
              t_sentence_batch(acfg, num_frames=4, label_len=2).items()}
     seq2 = Mesh(size=2, rank=1, device=torch.device("cpu"), seq=2)
-    part = split_time(seq2, batch)   # a waveform of 4 * 640 samples splits
-    assert part.time.length == 2 * 640 and part["videos"].shape[1] == 2 * 640
-    with collectives.data_parallel(seq2), sequence.batch(part.time):
-        with pytest.raises(NotImplementedError, match="mesh.seq > 1 with the Conv1D audio"):
-            model(**part, det=True)
+    frame = Conv1DResNetFrontend.frame
+    part = split_time(seq2, batch, frame)   # a waveform of 4 * 640 samples splits by frames
+    assert (part.time.start, part.time.length, part.time.total) == (2, 2, 4)
+    assert torch.equal(part["videos"], batch["videos"][:, 2 * 640:4 * 640])
+    tail = split_time(seq2, dict(batch, videos=torch.zeros(1, 4 * 640 + 100)), frame)
+    assert tail.time.total == 4 and tail["videos"].shape[1] == 2 * 640
+    odd = split_time(seq2, dict(batch, videos=torch.zeros(1, 3 * 640)), frame)
+    assert odd.time is None and odd["videos"].shape[1] == 3 * 640
     cfg = ttrain.load_config(WORD_ARGS + [f"train.ckpt_dir={json.dumps(str(tmp_path))}"])
     for over, shape in (({"mesh.data": 2}, "2x1x1"), ({"mesh.model": 2}, "1x1x2"),
                         ({"mesh.seq": 2}, "1x2x1")):

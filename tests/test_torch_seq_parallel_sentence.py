@@ -12,9 +12,10 @@ processes on a (data=1, seq=2) mesh, each holding 8 of a clip's 16 frames.
   against the JAX package's one-device step at the world-1 parity test's
   1e-4. (At 16 frames the port's one-process step itself differs from
   JAX's by up to 7.4e-5 in the stem's first moment, beyond
-  ``tests/test_torch_sentence_step.py``'s tolerance at 10 frames, so
-  the state is held to the port's one process, which the seq ranks match
-  at ``tests/test_spmd.py``'s tolerances.)
+  ``tests/test_torch_sentence_step.py``'s tolerance at 10 frames: JAX's
+  f32 rounding, which both packages' float64 steps show, ROADMAP.md §3.
+  So the state is held to the port's one process, which the seq ranks
+  match at ``tests/test_spmd.py``'s tolerances.)
 * The same model with dropout and the port's own augmentation on, without
   and with ``model.remat``, against the port's one-process step: the seq
   ranks draw each mask and time mask at the whole clip's shape and keep

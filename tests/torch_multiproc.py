@@ -43,11 +43,12 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rows(mesh, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """The whole batch (one process) or this rank's rows, as CPU tensors."""
+def _rows(mesh, batch: Dict[str, np.ndarray], frame: int = 1) -> Dict[str, torch.Tensor]:
+    """The whole batch (one process) or this rank's rows (and frames of
+    ``frame`` elements), as CPU tensors."""
     if mesh is None:
         return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
-    return shard_batch(mesh, batch)
+    return shard_batch(mesh, batch, frame)
 
 
 def train_steps(job: Dict[str, Any], mesh=None) -> Dict[str, Any]:
@@ -71,7 +72,7 @@ def train_steps(job: Dict[str, Any], mesh=None) -> Dict[str, Any]:
     cfg = Config.from_dict(job["config"])
     model = build_model(cfg, device="cpu")
     load_flax(model, job["params"], job["batch_stats"])
-    batch = _rows(mesh, job["batch"])
+    batch = _rows(mesh, job["batch"], model.frontend.frame)
     if job.get("no_dropout"):   # the DenseTCN's fixed dropout
         for m in model.modules():
             if hasattr(m, "rate"):
@@ -182,7 +183,33 @@ def seq_ops(job: Dict[str, Any], mesh=None) -> Dict[str, Any]:
     return out
 
 
-JOBS = {"train": train_steps, "cli": cli, "seq_ops": seq_ops}
+def resnet1d(job: Dict[str, Any], mesh=None) -> Dict[str, Any]:
+    """A float64 ResNet1D of ``job["width"]`` (weights from seed 0) in
+    train mode on this rank's samples of the waveform ``job["audio"]``
+    [B, S] (``shard_batch``: frames of 640 samples where they divide seq,
+    else the whole) inside the time-split region: its frames' output, and
+    the gradients of <output, this rank's frames of ``job["cot"]``> with
+    respect to the rank's samples and each parameter."""
+    from syncvsr_tpu_torch.models.frontend import Conv1DResNetFrontend
+    from syncvsr_tpu_torch.models.resnet import ResNet1D
+    from syncvsr_tpu_torch.parallel import collectives, sequence
+
+    torch.manual_seed(0)
+    net = ResNet1D(job["width"], dtype=torch.float64).double()
+    batch = shard_batch(mesh, {"videos": torch.from_numpy(job["audio"])},
+                        Conv1DResNetFrontend.frame)
+    time = batch.time
+    x = batch["videos"].clone().requires_grad_(True)
+    with collectives.data_parallel(mesh), sequence.batch(time), sequence.region():
+        y = net(x[..., None], True)
+        t0 = time.start if time is not None else 0
+        (y * torch.from_numpy(job["cot"])[:, t0:t0 + y.shape[1]]).sum().backward()
+    return {"time": None if time is None else (time.start, time.length, time.total),
+            "y": y.detach().numpy(), "gx": x.grad.numpy(),
+            "gw": {n: p.grad.numpy() for n, p in net.named_parameters()}}
+
+
+JOBS = {"train": train_steps, "cli": cli, "seq_ops": seq_ops, "resnet1d": resnet1d}
 
 
 def _worker(rank: int, world: int, port: int, path: str) -> None:
