@@ -2,7 +2,10 @@
 the CPU, from bridged weights: flax's SAME padding, ResNet1D (eval and
 train mode, batch_stats) at an even and an odd length at every stride,
 the Conv1D-ResNet frontend, every output key, three train steps (params,
-Adam moments, batch_stats) and the bridge round trip. f32, dropout 0."""
+Adam moments, batch_stats) and the bridge round trip. f32, dropout 0; the
+JAX side jitted."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +26,7 @@ from syncvsr_tpu_torch.models.resnet import ResNet1D, same_padding
 from syncvsr_tpu_torch.utils.bridge import from_flax, to_flax
 from test_torch_step import _adam_moments
 from torch_parity import JitInit, audio_configs, close, to_np, torch_model, tt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 METRICS = ("loss", "loss_ctc", "loss_att", "loss_audio", "learning_rate", "grad_norm")
 FRAMES = 8       # 8 x 640 samples a clip
@@ -72,14 +76,14 @@ def test_resnet1d_matches_jax(samples):
     mod = JaxResNet1D(WIDTH)
     params, stats = _vars(mod, x)
     stats = _perturbed(stats, 1)
-    y_j = mod.apply({"params": params, "batch_stats": stats}, jnp.asarray(x))
+    y_j = jax.jit(mod.apply)({"params": params, "batch_stats": stats}, jnp.asarray(x))
     net = _load(ResNet1D(WIDTH), params, stats)
     with torch.no_grad():
         y = net(tt(x), train=False)
     assert y.shape == y_j.shape == (2, samples // 640, 8 * WIDTH)
     close(y, y_j, 1e-5, 1e-5, "eval")
-    yt_j, upd = mod.apply({"params": params, "batch_stats": stats}, jnp.asarray(x), train=True,
-                          mutable=["batch_stats"])
+    yt_j, upd = jax.jit(functools.partial(mod.apply, train=True, mutable=["batch_stats"]))(
+        {"params": params, "batch_stats": stats}, jnp.asarray(x))
     with torch.no_grad():
         yt = net(tt(x), train=True)
     close(yt, yt_j, 1e-5, 1e-5, "train")
@@ -98,7 +102,7 @@ def test_conv1d_frontend_matches_jax(rank):
     mod = JaxConv1DFrontend(width=WIDTH)
     params, stats = _vars(mod, x)
     stats = _perturbed(stats, 2)
-    y_j = mod.apply({"params": params, "batch_stats": stats}, jnp.asarray(x))
+    y_j = jax.jit(mod.apply)({"params": params, "batch_stats": stats}, jnp.asarray(x))
     fe = _load(Conv1DResNetFrontend(WIDTH), params, stats)
     with torch.no_grad():
         y = fe(tt(x))

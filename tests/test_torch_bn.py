@@ -17,6 +17,7 @@ from syncvsr_tpu_torch.ops.cuda_bn import (
     bn_stats_plain,
 )
 from torch_parity import close, tt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 def _bn_case(shape, seed):
@@ -45,8 +46,8 @@ def test_fast_bn_train_matches_jax(shape):
         y, mut = mod.apply(v, x, mutable=["batch_stats"])
         return jnp.sum(jnp.sin(y)), (y, mut)
 
-    (_, (y_j, mut_j)), (gv_j, gx_j) = jax.value_and_grad(
-        lambda v, x: loss(ref, v, x), argnums=(0, 1), has_aux=True)(variables, jnp.asarray(x))
+    (_, (y_j, mut_j)), (gv_j, gx_j) = jax.jit(jax.value_and_grad(
+        lambda v, x: loss(ref, v, x), argnums=(0, 1), has_aux=True))(variables, jnp.asarray(x))
     y_flax, _ = flax_bn.apply(variables, jnp.asarray(x), mutable=["batch_stats"])
 
     bn = FastBatchNorm(c)

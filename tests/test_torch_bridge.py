@@ -2,7 +2,6 @@
 bridge, import isolation from JAX, and the entry points' device rule."""
 
 import ast
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -20,6 +19,7 @@ from syncvsr_tpu_torch.engine import create_train_state
 from syncvsr_tpu_torch.models import build_model
 from syncvsr_tpu_torch.utils.bridge import flax_leaf, from_flax, to_flax
 from torch_parity import configs, jax_model_and_vars, sentence_configs, torch_model
+import torch_threads  # one torch thread a test process
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -81,7 +81,7 @@ def test_port_imports_no_jax():
         "('jax', 'jaxlib', 'flax', 'optax', 'syncvsr_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = torch_threads.env(PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -109,7 +109,7 @@ def test_chip_smoke_fails_without_the_card_or_the_port(where, tmp_path):
     if where == "alone":
         script = tmp_path / "chip_smoke.py"
         script.write_text((REPO / "chip_smoke.py").read_text())
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = {k: v for k, v in torch_threads.env().items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, str(script)], cwd=script.parent, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0

@@ -29,6 +29,7 @@ from syncvsr_tpu_torch.utils import msgpack as tmsgpack
 from syncvsr_tpu_torch.utils.bridge import to_flax
 from test_torch_step import _adam_moments
 from torch_parity import JitInit, close, configs, to_np, torch_model, tt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 def assert_trees_equal(got, want, what=""):

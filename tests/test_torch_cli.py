@@ -2,11 +2,9 @@
 ``.evaluate``) on the CPU (``device="cpu"``), against the JAX package's.
 The driver end to end on synthetic data and its ``resume=auto``; the word
 evaluation of one JAX-written checkpoint by both packages (equal metrics,
-f32: 1e-5 relative, sums in other orders); and the sentence decode modes
-(greedy, batched beam with and without a fused LM, forced alignment) on one
-JAX-written checkpoint, with equal hypotheses and alignments and scores
-within 1e-4 relative (the prefix scorer's scans agree to ~1e-4,
-``tests/test_torch_decode_beam.py``)."""
+f32: 1e-5 relative, sums in other orders); the LM checkpoint formats. The
+sentence decode modes on one JAX-written checkpoint are
+``test_torch_cli_decode.py``'s, with this file's arguments and helpers."""
 
 import json
 import os
@@ -19,7 +17,7 @@ import pytest
 
 from syncvsr_tpu import config as jcfg
 from syncvsr_tpu import evaluate as jevaluate
-from syncvsr_tpu.data.synthetic import sentence_batch, word_batch
+from syncvsr_tpu.data.synthetic import word_batch
 from syncvsr_tpu.engine import create_train_state as jax_create_train_state
 from syncvsr_tpu.models import build_model as jax_build_model
 from syncvsr_tpu.utils import checkpoint as jckpt
@@ -27,6 +25,7 @@ from syncvsr_tpu_torch import evaluate as tevaluate
 from syncvsr_tpu_torch import train as ttrain
 from syncvsr_tpu_torch.utils import checkpoint as tckpt
 from torch_parity import JitInit
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 WORD_ARGS = [
     "preset=lrw_landmark", "model.encoder.layers=2", "model.encoder.dim=32",
@@ -174,54 +173,6 @@ def _hypotheses(main, args, monkeypatch, capsys, **kw):
     summary = _run(main, args, monkeypatch, capsys, **kw)
     with open("hypotheses.jsonl") as f:
         return summary, [json.loads(line) for line in f]
-
-
-@pytest.fixture(scope="module")
-def sentence_ckpt(tmp_path_factory):
-    path = tmp_path_factory.mktemp("sent") / "best.msgpack"
-    return _jax_checkpoint(SENT_ARGS, path,
-                           lambda cfg: sentence_batch(cfg, num_frames=32), seed=1)
-
-
-@pytest.mark.parametrize("mode", [["decode=greedy"], ["decode=beam", "beam_size=4"],
-                                  ["decode=beam_batched", "beam_size=4"], ["decode=align"]],
-                         ids=["greedy", "beam", "beam_batched", "align"])
-def test_sentence_decode_matches_jax(sentence_ckpt, mode, tmp_path, monkeypatch, capsys):
-    monkeypatch.chdir(tmp_path)
-    args = SENT_ARGS + [f"ckpt={json.dumps(sentence_ckpt)}", 'decode_pad="bucket"'] + mode
-    want_sum, want = _hypotheses(jevaluate.main, args, monkeypatch, capsys)
-    got_sum, got = _hypotheses(tevaluate.main, args, monkeypatch, capsys, device="cpu")
-    assert len(got) == len(want) == 8
-    for g, w in zip(got, want):
-        assert set(g) == set(w)
-        for k in w:
-            if k == "score":
-                assert g[k] == pytest.approx(w[k], rel=1e-4)
-            else:
-                assert g[k] == w[k], k
-    assert got_sum == want_sum
-
-
-def test_beam_batched_lm_fusion_matches_jax(sentence_ckpt, tmp_path, monkeypatch, capsys):
-    """lm_ckpt (a JAX-written TransformerLM msgpack) fused at lm_weight 0.7:
-    the same hypotheses as JAX's, and other scores than without it."""
-    from syncvsr_tpu.models.lm import TransformerLM
-
-    monkeypatch.chdir(tmp_path)
-    lm = TransformerLM(vocab=13, layers=1, dim=16, heads=2, hidden=32, embed_dim=8)
-    params = lm.init(jax.random.PRNGKey(3), jnp.zeros((1, 4), jnp.int32))["params"]
-    jckpt.save_msgpack(str(tmp_path / "lm.msgpack"), {"params": jax.device_get(params)})
-    base = SENT_ARGS + [f"ckpt={json.dumps(sentence_ckpt)}", "decode=beam_batched",
-                        "beam_size=4", 'decode_pad="bucket"']
-    lm_args = [f"lm_ckpt={json.dumps(str(tmp_path / 'lm.msgpack'))}", "lm_weight=0.7",
-               "lm_layers=1", "lm_dim=16", "lm_heads=2", "lm_hidden=32", "lm_embed_dim=8"]
-    _, want = _hypotheses(jevaluate.main, base + lm_args, monkeypatch, capsys)
-    _, got = _hypotheses(tevaluate.main, base + lm_args, monkeypatch, capsys, device="cpu")
-    assert [g["hyp"] for g in got] == [w["hyp"] for w in want]
-    for g, w in zip(got, want):
-        assert g["score"] == pytest.approx(w["score"], rel=1e-4)
-    _, plain = _hypotheses(tevaluate.main, base, monkeypatch, capsys, device="cpu")
-    assert [p["score"] for p in plain] != [g["score"] for g in got]
 
 
 def test_lm_checkpoint_formats(tmp_path):

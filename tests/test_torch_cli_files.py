@@ -18,6 +18,7 @@ from syncvsr_tpu_torch import train as ttrain
 from syncvsr_tpu_torch.data.synthetic_tree import write_landmark_tree, write_lrs_tree
 from syncvsr_tpu_torch.tools import pack_dataset
 from syncvsr_tpu_torch.utils import checkpoint as tckpt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 pytest.importorskip("cv2")
 

@@ -33,6 +33,7 @@ from syncvsr_tpu_torch.ops import codec
 from syncvsr_tpu_torch.ops.image import build_sentence_eval_transform
 from syncvsr_tpu_torch.utils import checkpoint as tckpt
 from torch_parity import JitInit, close, sentence_configs, to_np, torch_model, tt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 # tests/test_codec_instep.py's geometry: 8 convs 8 wide, G = 2
 NARROW = [(8, 10, 5), (8, 8, 4), (8, 4, 2), (8, 4, 2), (8, 4, 2), (8, 1, 1), (8, 1, 1),
@@ -58,7 +59,8 @@ def test_vq_tokens_match_jax(ckpts, which, samples):
     tp, tg = codec.load_vq_codec(ckpts[which], "cpu")
     assert {k: tg[k] for k in jg} == jg
     wav = np.random.RandomState(2).randn(3, samples).astype(np.float32) * 0.1
-    want = np.asarray(jcodec.vq_tokens(jp, jnp.asarray(wav), strides=jg["strides"]))
+    want = np.asarray(jax.jit(lambda p, w: jcodec.vq_tokens(p, w, strides=jg["strides"]))(
+        jp, jnp.asarray(wav)))
     got = codec.vq_tokens(tp, tt(wav), strides=tg["strides"], **tg["features"])
     assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
@@ -78,7 +80,7 @@ def test_instep_hook_matches_jax(ckpts, frames, samples):
     batch = {"videos": np.zeros((2, frames, 8, 8, 1), np.float32),
              "lengths": np.array([frames, frames // 2], np.int32),
              "audio": rng.randn(2, samples).astype(np.float32) * 0.1}
-    want = jcodec.make_instep_tokenizer(jp, alignment=4, strides=jg["strides"])(
+    want = jax.jit(jcodec.make_instep_tokenizer(jp, alignment=4, strides=jg["strides"]))(
         {k: jnp.asarray(v) for k, v in batch.items()})
     got = codec.make_instep_tokenizer(tp, alignment=4, strides=tg["strides"],
                                       **tg["features"])({k: tt(v) for k, v in batch.items()})
@@ -115,7 +117,7 @@ def test_instep_train_step_matches_jax(ckpts):
     ev_t = build_sentence_eval_transform(cfg_t.data)
 
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    init = ev_j(tok_j(jb))
+    init = jax.jit(lambda b: ev_j(tok_j(b)))(jb)   # shapes for the init: jitted
     model_j = jax_build_model(cfg_j)
     state_j = jax_create_train_state(cfg_j, JitInit(model_j), init)
     model = torch_model(cfg_t, to_np(state_j.params), to_np(state_j.batch_stats))

@@ -11,6 +11,7 @@ from pathlib import Path
 import pytest
 
 from syncvsr_tpu_torch.utils import compile_cache, kernels
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -3,6 +3,8 @@ rel-shift, relative-position attention, the Conformer convolution module and
 encoder, the teacher-forced decoder) against the JAX package's flax modules
 from bridged weights, on the CPU, in f32."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +19,7 @@ from syncvsr_tpu_torch.models import decoder as td
 from syncvsr_tpu_torch.models import layers as tl
 from syncvsr_tpu_torch.utils.bridge import from_flax, to_flax
 from torch_parity import close, to_np, tt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 DIM, HEADS = 16, 2
 
@@ -110,8 +113,8 @@ def test_conformer_encoder_det_matches_jax():
     x = rng.randn(b, t, din).astype(np.float32)
     keep = _pad_mask(b, t, 7)
     mod = jc.ConformerEncoder(layers=2, dim=DIM, heads=HEADS, hidden=32)
-    v = to_np(mod.init(jax.random.PRNGKey(3), jnp.asarray(x), jnp.asarray(keep)))
-    want = mod.apply(v, jnp.asarray(x), jnp.asarray(keep), det=True)
+    v = to_np(jax.jit(mod.init)(jax.random.PRNGKey(3), jnp.asarray(x), jnp.asarray(keep)))
+    want = jax.jit(functools.partial(mod.apply, det=True))(v, jnp.asarray(x), jnp.asarray(keep))
     port = _load(tc.ConformerEncoder(din, 2, DIM, HEADS, 32), v)
     with torch.no_grad():
         got = port(tt(x), tt(keep), det=True)
@@ -127,8 +130,8 @@ def test_transformer_decoder_teacher_forced_matches_jax():
     keep = _pad_mask(b, t, 9)
     mod = jd.TransformerDecoder(vocab=vocab, layers=2, dim=DIM, heads=HEADS, hidden=24)
     args = (jnp.asarray(ys), jnp.asarray(ys_len), jnp.asarray(memory), jnp.asarray(keep))
-    v = to_np(mod.init(jax.random.PRNGKey(4), *args))
-    want = mod.apply(v, *args, det=True)
+    v = to_np(jax.jit(mod.init)(jax.random.PRNGKey(4), *args))
+    want = jax.jit(functools.partial(mod.apply, det=True))(v, *args)
     port = _load(td.TransformerDecoder(vocab, 2, DIM, HEADS, 24), v)
     with torch.no_grad():
         got = port(tt(ys), tt(ys_len), tt(memory), tt(keep), det=True)

@@ -34,6 +34,7 @@ from syncvsr_tpu_torch.data import packed as tpacked
 from syncvsr_tpu_torch.utils import metrics as tmetrics
 from syncvsr_tpu_torch.utils import profiling as tprofiling
 from tests.conftest import make_lrw_tree
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 cv2 = pytest.importorskip("cv2")
 REPO = Path(__file__).resolve().parents[1]

@@ -2,9 +2,11 @@
 "mstcn") against the JAX package, on the CPU, from bridged weights:
 ``SELayer1D``, the "prelu" activation, the flax-semantics BatchNorm, the
 DC-TCN and both TCNs (with and without the depthwise-pointwise split),
-batch mixup with an injected lambda, and the ``lrw_dctcn`` model's eval step
-(masked mean pooling) and train step (params and Adam moments). f32
-throughout; dropout 0 where a comparison runs in train mode."""
+batch mixup with an injected lambda, the TCNs' bridge and the ``lrw_dctcn``
+preset at full width; and the tiny ``lrw_dctcn`` model's configs and batch,
+which ``test_torch_dctcn_model.py`` (its eval and train steps against JAX's)
+and the multi-process files share. f32 throughout; dropout 0 where a
+comparison runs in train mode."""
 
 import functools
 
@@ -15,25 +17,20 @@ import numpy as np
 import pytest
 import torch
 
-import syncvsr_tpu.models.word as jword
-from syncvsr_tpu.engine import build_train_step as jax_build_train_step
-from syncvsr_tpu.engine import create_train_state as jax_create_train_state
-from syncvsr_tpu.models import build_model as jax_build_model
 from syncvsr_tpu.models import dense_tcn as jdt
 from syncvsr_tpu.models import layers as jl
 from syncvsr_tpu.models import tcn as jtcn
 from syncvsr_tpu.ops.cutmix import batch_mixup
 from syncvsr_tpu_torch import config as tcfg
-from syncvsr_tpu_torch.engine import build_eval_step, build_train_step, create_train_state
 from syncvsr_tpu_torch.models import dense_tcn as tdt
 from syncvsr_tpu_torch.models import layers as tl
 from syncvsr_tpu_torch.models import tcn as ttcn
-from syncvsr_tpu_torch.models import word as tword
 from syncvsr_tpu_torch.ops.cutmix import batch_mixup_apply, sample_mixup
 from syncvsr_tpu_torch.utils.bridge import from_flax, to_flax
 from test_torch_layers import _init, _load, _x
-from test_torch_step import _adam_moments, _compare
-from torch_parity import TINY, JitInit, close, to_np, torch_model, tt
+from test_torch_step import _compare
+from torch_parity import TINY, close, to_np, tt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 METRICS = ("loss", "loss_word", "loss_audio", "learning_rate", "grad_norm")
 # a DC-TCN small enough for the CPU: two blocks (2 and 1 layers) of growth
@@ -132,13 +129,16 @@ def _train_compare(jmod, tmod, x, seed, rtol=1e-4):
     statistics and every parameter's gradient to ``rtol`` of each leaf's
     largest (f32 sums in other orders through chained BatchNorms), but the
     conv biases whose true gradient is 0 (``_zero_gradient``): those hold
-    under 1e-5 of the largest gradient on both sides."""
-    variables = to_np(jmod.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False))
+    under 1e-5 of the largest gradient on both sides. The JAX side runs
+    jitted (un-jitted, flax runs it op by op)."""
+    init = jax.jit(functools.partial(jmod.init, train=False))
+    variables = to_np(init(jax.random.PRNGKey(0), jnp.asarray(x)))
     params = _randomise(variables["params"], seed)
     stats = variables["batch_stats"]
     _load_all(tmod, params, stats)
-    r = np.random.RandomState(seed).randn(*jmod.apply(
-        {"params": params, "batch_stats": stats}, jnp.asarray(x), train=False).shape)
+    evaluate = jax.jit(lambda v: jmod.apply(v, jnp.asarray(x), train=False))
+    r = np.random.RandomState(seed).randn(*jax.eval_shape(
+        evaluate, {"params": params, "batch_stats": stats}).shape)
     r = r.astype(np.float32)
 
     def loss(p):
@@ -146,7 +146,7 @@ def _train_compare(jmod, tmod, x, seed, rtol=1e-4):
                             mutable=["batch_stats"])
         return (y * r).sum(), (y, upd["batch_stats"])
 
-    (_, (y_j, stats_j)), g_j = jax.value_and_grad(loss, has_aux=True)(params)
+    (_, (y_j, stats_j)), g_j = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
     y = tmod(tt(x), True)
     (y * tt(r)).sum().backward()
     scale = float(np.abs(np.asarray(y_j)).max())
@@ -156,8 +156,7 @@ def _train_compare(jmod, tmod, x, seed, rtol=1e-4):
     grads = to_flax({n: p.grad for n, p in tmod.named_parameters()})[0]
     assert _compare_split(grads, to_np(g_j), rtol, rtol, 1e-5, "grad") > 0
     y_eval = tmod(tt(x), False)
-    y_eval_j = jmod.apply({"params": params, "batch_stats": to_np(stats_j)}, jnp.asarray(x),
-                          train=False)
+    y_eval_j = evaluate({"params": params, "batch_stats": to_np(stats_j)})
     close(y_eval, y_eval_j, rtol, rtol * float(np.abs(np.asarray(y_eval_j)).max()), "eval")
 
 
@@ -232,31 +231,6 @@ def _fixed_mixup(rng, videos, alpha):
     return videos + lam.astype(videos.dtype) * (jnp.roll(videos, 1, axis=0) - videos), lam
 
 
-@pytest.fixture(scope="module")
-def pair():
-    """The tiny lrw_dctcn model in both packages, the same weights; the JAX
-    DC-TCN's dropout (fixed at 0.2 there) is 0 here, and so is the port's."""
-    cfg_j, cfg_t = dctcn_configs()
-    batch = _batch(cfg_t)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jword, "DenseTCN", functools.partial(jdt.DenseTCN, dropout=0.0))
-        mp.setattr(jword, "batch_mixup", _fixed_mixup)
-        model_j = jax_build_model(cfg_j)
-        state_j = jax_create_train_state(cfg_j, JitInit(model_j),
-                                         {k: jnp.asarray(v) for k, v in batch.items()})
-        params, stats = to_np(state_j.params), to_np(state_j.batch_stats)
-        step_j = jax_build_train_step(donate=False)
-        state_j, m_j = step_j(state_j, {k: jnp.asarray(v) for k, v in batch.items()})
-        mu_j, nu_j = _adam_moments(state_j.opt_state)
-        after = {"params": to_np(state_j.params), "mu": to_np(mu_j), "nu": to_np(nu_j),
-                 "batch_stats": to_np(state_j.batch_stats),
-                 "metrics": {k: float(m_j[k]) for k in METRICS}}
-        out_j = jax.jit(lambda v, b: model_j.apply(v, **b, det=True))(
-            {"params": params, "batch_stats": stats},
-            {k: jnp.asarray(v) for k, v in batch.items()})
-    return cfg_t, batch, params, stats, after, {k: float(v) for k, v in out_j.items()}
-
-
 def _no_dropout(model):
     for m in model.modules():
         if isinstance(m, tdt.MultiKernelLayer):
@@ -264,77 +238,13 @@ def _no_dropout(model):
     return model
 
 
-def test_dctcn_model_eval_matches_jax(pair):
-    """Every output key of the eval step (mean pooling under the ragged
-    attention_mask, the sync slots' count): f32, 1e-5 relative."""
-    cfg_t, batch, params, stats, _, out_j = pair
-    model = torch_model(cfg_t, params, stats)
-    assert isinstance(model.encoder, tdt.DenseTCN) and not hasattr(model, "cls_token")
-    state = create_train_state(cfg_t, model, batch, device="cpu")
-    out = build_eval_step()(state, {k: tt(v) for k, v in batch.items()})
-    assert set(out) == set(out_j)
-    for k in out_j:
-        close(out[k], out_j[k], 1e-5, 1e-6, k)
-    # the mask matters: clip 2's padded frames do not enter its pooled mean
-    full = dict(batch, attention_mask=np.ones_like(batch["attention_mask"]))
-    out_full = build_eval_step()(state, {k: tt(v) for k, v in full.items()})
-    assert abs(float(out_full["loss_word"]) - float(out["loss_word"])) > 1e-6
-
-
-def test_dctcn_train_step_matches_jax(pair, monkeypatch):
-    """One train step with the mixup weight injected on both sides (so both
-    losses are lerped and the sync head runs twice): metrics, batch_stats,
-    Adam moments and params, with test_torch_step's tolerances. The conv
-    biases whose true gradient is 0 hold noise under 1e-6 of the largest
-    Adam moment (the audio step test's bound), and Adam turns that noise
-    into an update of either sign up to the rate: their params are held to
-    2x the rate."""
-    cfg_t, batch, params, stats, after, _ = pair
-    monkeypatch.setattr(tword, "sample_mixup", lambda gen, alpha: torch.tensor(LAM))
-    model = _no_dropout(torch_model(cfg_t, params, stats))
-    state = create_train_state(cfg_t, model, batch, device="cpu")
-    state, m = build_train_step()(state, {k: tt(v) for k, v in batch.items()})
-    for k in METRICS:
-        close(float(m[k]), after["metrics"][k], 1e-4, 1e-7, k)
-    sd = model.state_dict()
-    _compare(to_flax(sd)[1], after["batch_stats"], 1e-4, 1e-5, "batch_stats")
-    assert _compare_split(to_flax(dict(zip(state.names, state.mu)))[0], after["mu"], 1e-3,
-                          5e-4, 1e-6, "mu") > 0
-    _compare_split(to_flax(dict(zip(state.names, state.nu)))[0], after["nu"], 1e-3, 1e-3,
-                   1e-6, "nu")
-    lr = after["metrics"]["learning_rate"]
-    for (path, w), g in zip(jax.tree_util.tree_leaves_with_path(after["params"]),
-                            jax.tree_util.tree_leaves(to_flax(sd)[0])):
-        extra = 2 * lr if _zero_gradient(path) else 0.05 * lr
-        close(g, w, 1e-4, 1e-4 * float(np.abs(w).max()) + extra,
-              "params" + jax.tree_util.keystr(path))
-
-
-def test_dctcn_bridge_round_trip(pair):
-    """flax -> torch -> flax is bitwise and total over every new leaf: the
-    1-D conv kernels ([k, in, out]), SELayer1D's Dense_0/Dense_1 and the
-    flax BatchNorms' scale, bias, mean and var."""
-    cfg_t, _, params, stats, _, _ = pair
-    model = torch_model(cfg_t, params, stats)
-    back, back_stats = to_flax(model.state_dict())
-    for tree, got in ((params, back), (stats, back_stats)):
-        assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(tree)
-        for (path, w), g in zip(jax.tree_util.tree_leaves_with_path(tree),
-                                jax.tree_util.tree_leaves(got)):
-            np.testing.assert_array_equal(g, w, err_msg=jax.tree_util.keystr(path))
-    enc = params["encoder"]
-    assert enc["block0_layer0"]["conv0_2"]["conv"]["kernel"].shape == (7, 16, 4)
-    assert model.encoder.block0_layer0.conv0_2.conv.weight.shape == (4, 16, 7)
-    assert set(enc["block0_layer0"]["se_0"]) == {"Dense_0", "Dense_1"}
-    assert set(stats["encoder"]["final_bn"]) == {"mean", "var"}
-
-
 @pytest.mark.parametrize("dwpw", [False, True], ids=["conv", "dwpw"])
 def test_tcn_bridge_round_trip(dwpw):
     """The TCNs' leaves, the depthwise [k, 1, C] kernel among them, both ways."""
     x = _x((2, 5, 6), 12)
     jmod = jtcn.MultibranchTemporalConvNet(channels=(8, 8), kernel_sizes=(3, 5), dwpw=dwpw)
-    variables = to_np(jmod.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False))
+    init = jax.jit(functools.partial(jmod.init, train=False))
+    variables = to_np(init(jax.random.PRNGKey(0), jnp.asarray(x)))
     tmod = _load_all(ttcn.MultibranchTemporalConvNet(6, (8, 8), (3, 5), dwpw=dwpw),
                      variables["params"], variables["batch_stats"])
     back, back_stats = to_flax(tmod.state_dict())

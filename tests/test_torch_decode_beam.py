@@ -21,6 +21,7 @@ from syncvsr_tpu.models import decoder as jdec
 from syncvsr_tpu_torch.decode.ctc_prefix import LOGZERO, CTCPrefixScorer
 from syncvsr_tpu_torch.models import decoder as tdec
 from tests.torch_parity import tt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 # the modules (each package's ``decode`` exports a function of the same name)
 jbs = importlib.import_module("syncvsr_tpu.decode.beam_search")

@@ -10,6 +10,7 @@ from syncvsr_tpu.ops.ctc import ctc_forced_align as jax_align
 from syncvsr_tpu.ops.ctc import ctc_greedy_decode as jax_greedy
 from syncvsr_tpu_torch.ops.ctc import ctc_forced_align, ctc_greedy_decode
 from tests.torch_parity import tt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 def _logits(seed, b, t, v, blank_bias=0.0):

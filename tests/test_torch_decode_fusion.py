@@ -23,6 +23,7 @@ from tests.test_torch_decode_beam import (  # noqa: F401  (jax_pools is a fixtur
     tbs,
 )
 from tests.torch_parity import to_np, tt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 @pytest.mark.parametrize("early", [True, False], ids=["early_exit", "full_loop"])

@@ -1,8 +1,10 @@
 """The port's incremental decoder (``TransformerDecoder.step``,
 ``precompute_memory``, ``grow_cache``) and language models
 (``models/lm.py``) against the JAX package's, with the same weights through
-the bridge: step by step to 1e-5, and the port's steps against its own
-teacher-forced forward."""
+the bridge: step by step to 1e-5 (JAX's steps jitted), and the port's
+steps against its own teacher-forced forward."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +18,7 @@ from syncvsr_tpu_torch.models import decoder as tdec
 from syncvsr_tpu_torch.models import lm as tlm
 from syncvsr_tpu_torch.utils.bridge import from_flax, load_flax, to_flax
 from tests.torch_parity import close, to_np, tt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 VOCAB, DIM, HEADS, HIDDEN, LAYERS = 11, 32, 2, 24, 2
 
@@ -63,6 +66,7 @@ def test_decoder_step_matches_jax(decoders, shared):
         for pos in range(steps):
             logp, t_cache = tm.step(tt(ys[pos]), pos, t_cache, t_mem, t_mask, mem_kv=t_kv)
             t_out.append(logp.numpy())
+    step = jax.jit(functools.partial(jm.apply, method="step"))
     for u in range(b):
         rows = slice(u * w, (u + 1) * w)
         mem_u = jnp.broadcast_to(jnp.asarray(memory[u])[None], (w,) + memory[u].shape)
@@ -71,8 +75,8 @@ def test_decoder_step_matches_jax(decoders, shared):
               if shared else None)
         cache = jm.apply(variables, w, cap, method="init_cache")
         for pos in range(steps):
-            logp, cache = jm.apply(variables, jnp.asarray(ys[pos, rows]), jnp.asarray(pos),
-                                   cache, mem_u, mask_u, mem_kv=kv, method="step")
+            logp, cache = step(variables, jnp.asarray(ys[pos, rows]), jnp.asarray(pos),
+                               cache, mem_u, mask_u, mem_kv=kv)
             close(t_out[pos][rows], logp, 1e-5, 1e-5, f"utterance {u} step {pos}")
         for k in ("k", "v"):
             close(t_cache[k][rows], cache[k], 1e-5, 1e-5, f"cache {k}")
@@ -131,10 +135,11 @@ def test_lm_matches_jax(kind, kw):
         t_state = tm.init_cache(3, 8) if kind != "rnn" else tm.init_cache(3)
         j_state = jm.apply(variables, 3, *(() if kind == "rnn" else (8,)),
                            method="init_cache")
+        step = jax.jit(functools.partial(jm.apply, method="step"))
         for pos in range(5):
             t_logp, t_state = tm.step(tt(ys[:, pos]), pos, t_state)
-            j_logp, j_state = jm.apply(variables, jnp.asarray(ys[:, pos]), jnp.asarray(pos),
-                                       j_state, method="step")
+            j_logp, j_state = step(variables, jnp.asarray(ys[:, pos]), jnp.asarray(pos),
+                                   j_state)
             close(t_logp, j_logp, 1e-5, 1e-5, f"step {pos}")
     if kind == "transformer" and not kw:
         # the published shape: steps equal the teacher-forced forward

@@ -37,6 +37,7 @@ from tests.torch_parity import (
     torch_model,
     tt,
 )
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 FRAMES = 12
 BEAM = dict(beam_size=5, ctc_weight=0.1)

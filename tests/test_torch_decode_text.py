@@ -12,6 +12,7 @@ from syncvsr_tpu.data import tokenizer as jtok
 from syncvsr_tpu.utils import text as jtext
 from syncvsr_tpu_torch.data import tokenizer as ttok
 from syncvsr_tpu_torch.utils import text as ttext
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 SENTENCES = [
     "HELLO WORLD",

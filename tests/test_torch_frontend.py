@@ -1,6 +1,8 @@
 """PyTorch port: video stem, max-pool and the Conv3D-ResNet frontend (one
 train-mode forward and backward) against the JAX package, on the CPU."""
 
+import functools
+
 import flax.linen as nn
 import jax
 import jax.numpy as jnp
@@ -15,6 +17,7 @@ from syncvsr_tpu_torch.ops.maxpool import max_pool_3x3_s2
 from syncvsr_tpu_torch.ops.stem import stem_conv3d
 from syncvsr_tpu_torch.utils.bridge import from_flax, to_flax
 from torch_parity import close, to_np, tt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 @pytest.mark.parametrize("hw", [(16, 20), (15, 17)])
@@ -68,7 +71,8 @@ def test_frontend_train_step_matches_jax(fold_threshold):
     rng = np.random.RandomState(2)
     x = rng.randn(2, 4, 16, 16, 1).astype(np.float32)
     jmod = JaxFrontend(stem_channels=16, width=8, fold_threshold=fold_threshold)
-    variables = jmod.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False)
+    variables = jax.jit(functools.partial(jmod.init, train=False))(jax.random.PRNGKey(0),
+                                                                   jnp.asarray(x))
     params, stats = to_np(variables["params"]), to_np(variables["batch_stats"])
 
     def loss(p, v):

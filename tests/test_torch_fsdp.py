@@ -29,8 +29,11 @@ from test_torch_parallel import (
 from test_torch_sentence_step import FRAMES, _jax_sentence_aug, _uint8_batch
 from torch_multiproc import spawn, train_steps
 from torch_parity import configs, jax_aug_sample, sentence_configs, torch_model, tt, uint8_batch
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 MIN_SIZE = 256    # the JAX package's tests' fsdp_min_size at toy widths
+# seconds for the file's two-process group: 3x the most measured (14.1 s), at least 60
+SPAWN_TIMEOUT = 60
 
 
 def _sentence_case():
@@ -97,7 +100,8 @@ def fsdp_runs(tmp_path_factory):
     job = {"kind": "train", "config": cfg_t.to_dict(), "params": params,
            "batch_stats": stats, "batch": batch, "steps": STEPS, "aug": drawn,
            "aug_dtype": "float32"}
-    fsdp, dp = spawn([dict(job, fsdp=MIN_SIZE, save=str(tmp / "ck")), job], 2, tmp)
+    fsdp, dp = spawn([dict(job, fsdp=MIN_SIZE, save=str(tmp / "ck")), job], 2, tmp,
+                     timeout=SPAWN_TIMEOUT)
     one = train_steps(job)
     return cfg_t, init, want, fsdp, dp, one, tmp / "ck"
 

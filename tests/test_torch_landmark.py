@@ -4,6 +4,8 @@ landmark frontend, the -100 pad sentinel, every output key, three train
 steps (params and Adam moments) and the bridge round trip. f32, dropout and
 drop-path 0, CutMix off."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,7 @@ from syncvsr_tpu_torch.utils.bridge import to_flax
 from test_torch_layers import _init, _load, _x
 from test_torch_step import _adam_moments, _compare
 from torch_parity import JitInit, close, landmark_configs, to_np, torch_model, tt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 KEYS = ("loss", "loss_word", "loss_audio", "acc1", "acc5")
 METRICS = ("loss", "loss_word", "loss_audio", "learning_rate", "grad_norm")
@@ -57,7 +60,7 @@ def test_layernorm_gelu_encoder_matches_jax():
     mod = JaxEncoder(layers=2, dim=64, heads=2, hidden=256, use_rmsnorm=False,
                      use_glu=False, rope=True)
     params = _init(mod, jnp.asarray(x))
-    y_j = mod.apply({"params": params}, jnp.asarray(x), det=True)
+    y_j = jax.jit(functools.partial(mod.apply, det=True))({"params": params}, jnp.asarray(x))
     enc = _load(TransformerEncoder(64, 2, 64, 2, 256, use_rmsnorm=False, use_glu=False),
                 params)
     assert not hasattr(enc, "RMSNorm_0") and not hasattr(enc.block_0.ff, "wi_gate")

@@ -18,6 +18,7 @@ from syncvsr_tpu_torch.data import landmark_transforms as tlt
 from syncvsr_tpu_torch.data import lrw as tlrw
 from syncvsr_tpu_torch.data.synthetic_tree import write_landmark_tree
 from test_torch_data import assert_same
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 # name -> (constructor keyword arguments, p); p = None applies always
 TRANSFORMS = {

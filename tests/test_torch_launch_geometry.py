@@ -10,6 +10,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 

@@ -1,6 +1,8 @@
 """PyTorch port: RMSNorm, RoPE, GLU feed-forward, attention and the
 transformer encoder against the JAX package, on the CPU."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,10 +16,13 @@ from syncvsr_tpu_torch.models import layers as tl
 from syncvsr_tpu_torch.models.transformer import RotaryAttention, TransformerEncoder
 from syncvsr_tpu_torch.utils.bridge import from_flax
 from torch_parity import close, to_np, tt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 def _init(module, *args, **kw):
-    return to_np(module.init(jax.random.PRNGKey(0), *args, **kw)["params"])
+    """``module``'s params, its init jitted (un-jitted, flax runs it op by op)."""
+    init = jax.jit(functools.partial(module.init, **kw))
+    return to_np(init(jax.random.PRNGKey(0), *args)["params"])
 
 
 def _load(module, params):
@@ -88,7 +93,7 @@ def test_transformer_encoder_det():
     mod = JaxEncoder(layers=2, dim=64, heads=2, hidden=128, use_rmsnorm=True,
                      use_glu=True, rope=True)
     params = _init(mod, jnp.asarray(x))
-    y_j = mod.apply({"params": params}, jnp.asarray(x), det=True)
+    y_j = jax.jit(functools.partial(mod.apply, det=True))({"params": params}, jnp.asarray(x))
     enc = _load(TransformerEncoder(65, 2, 64, 2, 128), params)
     y = enc(tt(x), det=True)
     assert y.shape == (2, 9, 65)

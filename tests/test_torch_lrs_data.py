@@ -28,6 +28,7 @@ from syncvsr_tpu_torch.data import lrs as tlrs
 from syncvsr_tpu_torch.data.synthetic_tree import write_lrs_tree
 from syncvsr_tpu_torch.tools import index_lengths, pack_dataset
 from test_torch_data import assert_same
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 pytest.importorskip("cv2")
 # clip lengths (frames) over buckets of 8, 16 and 32 frames, two past

@@ -21,6 +21,7 @@ from syncvsr_tpu_torch.ops.sync_loss import regroup_tokens, sync_cross_entropy
 from syncvsr_tpu_torch.utils.bridge import to_flax
 from test_torch_step import _adam_moments, _compare
 from torch_parity import TINY, JitInit, close, to_np, torch_model, tt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 METRICS = ("loss", "loss_word", "loss_audio", "learning_rate", "grad_norm")
 # TINY's widths, but the preset's codec (640 tokens) and 6 frames
@@ -67,9 +68,9 @@ def test_sync_loss_at_v640_matches_jax(chunk):
     bias = (rng.randn(4 * 640) * 0.1).astype(np.float32)
     tok = rng.randint(0, 640, (b, t * 2 + 4, 2)).astype(np.int32)
     tok[0, :3] = -1
-    want, want_g = jax.value_and_grad(
+    want, want_g = jax.jit(jax.value_and_grad(
         lambda f, k, bb: jax_sync_ce(f, k, bb, jnp.asarray(tok), 2, 2, 640, chunk=chunk),
-        argnums=(0, 1, 2))(jnp.asarray(feats), jnp.asarray(kern), jnp.asarray(bias))
+        argnums=(0, 1, 2)))(jnp.asarray(feats), jnp.asarray(kern), jnp.asarray(bias))
     args = [tt(a).requires_grad_() for a in (feats, kern, bias)]
     got = sync_cross_entropy(*args, tt(tok), 2, 2, 640, chunk=chunk)
     got.backward()

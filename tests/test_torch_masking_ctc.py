@@ -13,6 +13,7 @@ from syncvsr_tpu.ops.ctc import ctc_loss as jax_ctc_loss
 from syncvsr_tpu_torch.ops import masking as tm
 from syncvsr_tpu_torch.ops.ctc import ctc_loss
 from torch_parity import close, tt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 VOCAB = 11
 
@@ -86,9 +87,9 @@ def test_label_smoothing_v2_matches_jax(smoothing, weighted, normalize, monkeypa
     v1 = port()
     monkeypatch.setenv("SYNCVSR_LSM_V2", "1")
     v2 = port()
-    want = jax.value_and_grad(lambda lg: jm.label_smoothing_kl(
+    want = jax.jit(jax.value_and_grad(lambda lg: jm.label_smoothing_kl(
         lg, jnp.asarray(targets), v, smoothing, -1, normalize,
-        None if w is None else jnp.asarray(w)))(jnp.asarray(logits))
+        None if w is None else jnp.asarray(w))))(jnp.asarray(logits))
     close(v2[0], want[0], 1e-5, 1e-5, "value")
     close(v2[1], want[1], 1e-5, 1e-6, "gradient")
     close(v2[0], v1[0].numpy(), 1e-5, 1e-5, "value against the logq form")
@@ -135,7 +136,7 @@ def test_ctc_loss_value_and_logit_grad_match_optax(weighted):
                             jnp.asarray(label_lengths), 0,
                             None if w is None else jnp.asarray(w))
 
-    want, want_g = jax.value_and_grad(jax_fn)(jnp.asarray(logits))
+    want, want_g = jax.jit(jax.value_and_grad(jax_fn))(jnp.asarray(logits))
     x = tt(logits).requires_grad_()
     got = ctc_loss(x, tt(logit_lengths), tt(labels), tt(label_lengths), 0,
                    None if w is None else tt(w))

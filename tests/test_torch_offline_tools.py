@@ -27,6 +27,7 @@ from syncvsr_tpu_torch.tools import roi as t_roi
 from syncvsr_tpu_torch.tools import train_spm as t_spm
 from syncvsr_tpu_torch.tools import transcribe as t_transcribe
 from test_train_spm import _corpus
+import torch_threads  # one torch thread a test process
 
 cv2 = pytest.importorskip("cv2")
 
@@ -169,7 +170,7 @@ def test_train_spm_cli_matches_the_original(tmp_path):
     inp = tmp_path / "input.txt"
     inp.write_text("\n".join(_corpus(seed=3)) + "\n", encoding="utf8")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, PYTHONPATH=repo)
+    env = torch_threads.env(PYTHONPATH=repo)
     for pkg in ("syncvsr_tpu_torch", "syncvsr_tpu"):
         proc = subprocess.run(
             [sys.executable, "-m", f"{pkg}.tools.train_spm", str(inp), "--model-prefix",

@@ -28,6 +28,7 @@ from syncvsr_tpu_torch.utils import msgpack as tmsgpack
 from syncvsr_tpu_torch.utils.bridge import from_flax, to_flax
 from test_torch_checkpoint import assert_trees_equal
 from torch_parity import JitInit, configs, landmark_configs, to_np, torch_model, tt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 RTOL, ATOL = 2e-5, 2e-6
 SMALL = {"model.frontend.input_features": 12, "optim.total_steps": 40,

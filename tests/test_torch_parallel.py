@@ -39,9 +39,20 @@ from syncvsr_tpu_torch.parallel import create_mesh, host_local_batch, shard_batc
 from syncvsr_tpu_torch.utils.bridge import to_flax
 from test_torch_step import _adam_moments
 from torch_multiproc import spawn, train_steps
-from torch_parity import JitInit, close, configs, jax_aug_sample, to_np, uint8_batch
+from torch_parity import (
+    JitInit,
+    close,
+    configs,
+    jax_aug_sample,
+    replicated,
+    to_np,
+    uint8_batch,
+)
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 STEPS = 3
+# seconds for the file's two-process group: 3x the most measured (15.7 s), at least 60
+SPAWN_TIMEOUT = 60
 RATIO, START = 0.4, 0.2     # the CutMix draw both packages are given
 AUG_KEY = jax.random.PRNGKey(7)
 
@@ -72,8 +83,8 @@ def jax_mesh_steps(cfg_j, batch, init, aug_fn=None, fsdp=None, steps=STEPS):
                                    {k: jnp.asarray(v) for k, v in init.items()})
     params, stats = to_np(state.params), to_np(state.batch_stats)
     mesh = jax_create_mesh(data=2, devices=jax.devices()[:2])
-    if fsdp:
-        state = jax_shard_state(mesh, state, fsdp=True, fsdp_min_size=fsdp)
+    state = (jax_shard_state(mesh, state, fsdp=True, fsdp_min_size=fsdp) if fsdp
+             else replicated(mesh, state))
     step = jax_build_train_step(mesh, donate=False, aug_fn=aug_fn, fsdp=bool(fsdp))
     def snapshot(state):
         mu, nu = _adam_moments(state.opt_state)
@@ -174,8 +185,22 @@ def word_case():
     return cfg_j, cfg_t, batch, init, jax_aug, drawn
 
 
+def dropout_job():
+    """The preset's dropout on, from the port's own initial weights."""
+    _, cfg_t = configs(**{"data.batch_size": 4, "model.encoder.mlp_dropout": 0.1,
+                          "model.encoder.msa_dropout": 0.1, "model.encoder.emb_dropout": 0.1})
+    params, stats = to_flax(build_model(cfg_t, device="cpu").state_dict())
+    batch = uint8_batch(cfg_t)
+    b, t, h = batch["inputs"].shape[:3]
+    drawn = {k: v.numpy() for k, v in jax_aug_sample(AUG_KEY, b, t, h, h + 4,
+                                                      cfg_t.data).items()}
+    return {"kind": "train", "config": cfg_t.to_dict(), "params": params,
+            "batch_stats": stats, "batch": batch, "steps": STEPS, "aug": drawn}
+
+
 @pytest.fixture(scope="module")
-def word_runs(tmp_path_factory):
+def two_process_runs(tmp_path_factory):
+    """The word case and the dropout case, in one two-process group."""
     cfg_j, cfg_t, batch, init, jax_aug, drawn = word_case()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jword, "temporal_cutmix", _fixed_cutmix)
@@ -184,22 +209,23 @@ def word_runs(tmp_path_factory):
            "batch_stats": stats, "batch": batch, "steps": STEPS, "aug": drawn,
            "cutmix": (RATIO, START)}
     one = train_steps(job)
-    two = spawn(job, 2, tmp_path_factory.mktemp("word"))
-    return want, one, two, job
+    two, dropout = spawn([job, dropout_job()], 2, tmp_path_factory.mktemp("word"),
+                         timeout=SPAWN_TIMEOUT)
+    return {"word": (want, one, two, job), "dropout": dropout}
 
 
-def test_word_dp_step_matches_one_process_and_jax(word_runs):
-    want, one, two, _ = word_runs
+def test_word_dp_step_matches_one_process_and_jax(two_process_runs):
+    want, one, two, _ = two_process_runs["word"]
     assert_ranks_equal(two)
     assert_spmd_close(two[0], one, WORD_METRICS)
     lr_sum = sum(m["learning_rate"] for m in want["metrics"])
     assert_jax_close(two[0], want, WORD_METRICS, lr_sum)
 
 
-def test_word_dp_shards_need_global_means(word_runs):
+def test_word_dp_shards_need_global_means(two_process_runs):
     """The case has teeth: rank 0's rows alone, with their own flip
     partners and means, give another loss and gradient."""
-    want, _, _, job = word_runs
+    want, _, _, job = two_process_runs["word"]
     half = dict(job, steps=1, batch={k: v[:2] for k, v in job["batch"].items()},
                 aug={k: v[:2] for k, v in job["aug"].items()})
     local = train_steps(half)["metrics"][0]
@@ -209,19 +235,11 @@ def test_word_dp_shards_need_global_means(word_runs):
 
 # --- dropout, draws, mesh ----------------------------------------------------
 
-def test_dropout_streams_differ_but_ranks_stay_in_sync(tmp_path):
-    """The preset's dropout on: each rank draws its own masks, and the
-    ranks still end with bitwise-equal parameters, statistics and moments."""
-    _, cfg_t = configs(**{"data.batch_size": 4, "model.encoder.mlp_dropout": 0.1,
-                          "model.encoder.msa_dropout": 0.1, "model.encoder.emb_dropout": 0.1})
-    params, stats = to_flax(build_model(cfg_t, device="cpu").state_dict())
-    batch = uint8_batch(cfg_t)
-    b, t, h = batch["inputs"].shape[:3]
-    drawn = {k: v.numpy() for k, v in jax_aug_sample(AUG_KEY, b, t, h, h + 4,
-                                                      cfg_t.data).items()}
-    job = {"kind": "train", "config": cfg_t.to_dict(), "params": params,
-           "batch_stats": stats, "batch": batch, "steps": STEPS, "aug": drawn}
-    two = spawn(job, 2, tmp_path)
+def test_dropout_streams_differ_but_ranks_stay_in_sync(two_process_runs):
+    """The preset's dropout on (``dropout_job``): each rank draws its own
+    masks, and the ranks still end with bitwise-equal parameters,
+    statistics and moments."""
+    two = two_process_runs["dropout"]
     assert_ranks_equal(two)
     assert two[0]["dropout_draw"] != two[1]["dropout_draw"]
 

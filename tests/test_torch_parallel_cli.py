@@ -15,6 +15,7 @@ from syncvsr_tpu_torch.utils import checkpoint as tckpt
 from test_torch_parallel import _leaves
 from torch_multiproc import cli, spawn
 from torch_parity import close
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 # test_torch_cli.py's word model (landmarks: no augmentation on the device,
 # CutMix on) and sentence model (a landmark frontend under the lrs3 stack)
@@ -34,18 +35,53 @@ SENT_ARGS = [
     'data.dataset="synthetic"', "data.batch_size=4"]
 
 
-def _cli(module, args, cwd, world=None, tmp=None):
-    """The driver at one process (in this process) or ``world``; rank 0's
-    summary."""
+# seconds for the file's two-process group: 3x the most measured (10.8 s), at least 60
+SPAWN_TIMEOUT = 60
+
+
+def cli_job(module, args, cwd):
+    """A driver run in ``cwd`` (made here), for ``torch_multiproc.cli``."""
     cwd.mkdir(parents=True, exist_ok=True)
-    job = {"kind": "cli", "module": module, "args": args, "cwd": str(cwd)}
-    if world is None:
-        return cli(job)
-    return spawn(job, world, tmp)[0]
+    return {"kind": "cli", "module": module, "args": args, "cwd": str(cwd)}
+
+
+def _cli(module, args, cwd):
+    """The driver at one process, in this process; its summary."""
+    return cli(cli_job(module, args, cwd))
+
+
+def _train_args(fsdp):
+    return WORD_ARGS + ["data.use_cutmix=false", "optim.total_steps=4", "optim.lr=1e-3",
+                        "train.log_every=2", "train.eval_every=4", "train.ckpt_every=4",
+                        f"mesh.fsdp={'true' if fsdp else 'false'}", "mesh.fsdp_min_size=256"]
+
+
+@pytest.fixture(scope="module")
+def two_rank_runs(tmp_path_factory):
+    """Each case's driver run at one process (here) and over two processes
+    (all four cases in one two-process group, one after the other): its
+    directory and the two summaries."""
+    dirs, one, jobs = {}, {}, []
+    for name, fsdp in (("dp", False), ("fsdp", True)):
+        d = dirs[name] = tmp_path_factory.mktemp(f"train_{name}")
+        for world in ("one", "two"):
+            job = cli_job("train", _train_args(fsdp)
+                          + [f"train.ckpt_dir={json.dumps(str(d / world))}"], d / f"cwd_{world}")
+            if world == "one":
+                one[name] = cli(job)
+            else:
+                jobs.append(job)
+    for mode in ("word", "greedy"):
+        d = dirs[mode] = tmp_path_factory.mktemp(f"evaluate_{mode}")
+        args = WORD_ARGS if mode == "word" else SENT_ARGS + ["decode=greedy"]
+        one[mode] = _cli("evaluate", args, d / "one")
+        jobs.append(cli_job("evaluate", args, d / "two"))
+    two = spawn(jobs, 2, tmp_path_factory.mktemp("spawn"), timeout=SPAWN_TIMEOUT)
+    return {name: (dirs[name], one[name], ranks[0]) for name, ranks in zip(dirs, two)}
 
 
 @pytest.mark.parametrize("fsdp", [False, True], ids=["dp", "fsdp"])
-def test_train_driver_two_ranks_matches_one(fsdp, tmp_path):
+def test_train_driver_two_ranks_matches_one(fsdp, two_rank_runs):
     """``python -m syncvsr_tpu_torch.train`` over two processes (gloo):
     rank 0 alone writes ``metrics.jsonl`` and the checkpoints; its eval
     metrics and its step checkpoint (gathered under FSDP) equal one
@@ -54,14 +90,8 @@ def test_train_driver_two_ranks_matches_one(fsdp, tmp_path):
     loaders give each rank strided rows, so the two runs' global batches
     hold the same clips in another order, and CutMix pairs each clip with
     its mirror in that order (the step tests above hold CutMix)."""
-    base = WORD_ARGS + ["data.use_cutmix=false", "optim.total_steps=4", "optim.lr=1e-3",
-                        "train.log_every=2", "train.eval_every=4", "train.ckpt_every=4",
-                        f"mesh.fsdp={'true' if fsdp else 'false'}", "mesh.fsdp_min_size=256"]
-    runs = {}
-    for name, world in (("one", None), ("two", 2)):
-        ck = tmp_path / name
-        runs[name] = _cli("train", base + [f"train.ckpt_dir={json.dumps(str(ck))}"],
-                          tmp_path / f"cwd_{name}", world, tmp_path)
+    tmp_path, *summaries = two_rank_runs["fsdp" if fsdp else "dp"]
+    runs = dict(zip(("one", "two"), summaries))
     assert set(runs["one"]) == set(runs["two"])
     for k, v in runs["one"].items():
         close(runs["two"][k], v, 1e-5, 1e-6, k)
@@ -82,14 +112,12 @@ def test_train_driver_two_ranks_matches_one(fsdp, tmp_path):
 
 
 @pytest.mark.parametrize("mode", ["word", "greedy"])
-def test_evaluate_two_ranks_matches_one(mode, tmp_path):
+def test_evaluate_two_ranks_matches_one(mode, two_rank_runs):
     """``python -m syncvsr_tpu_torch.evaluate`` over two processes: the
     word meter (global means, the global real-row count) and the greedy
     hypotheses (each rank's rows, gathered by rank 0 in the loader's order)
     equal one process's."""
-    args = WORD_ARGS if mode == "word" else SENT_ARGS + ["decode=greedy"]
-    one = _cli("evaluate", args, tmp_path / "one")
-    two = _cli("evaluate", args, tmp_path / "two", 2, tmp_path)
+    tmp_path, one, two = two_rank_runs[mode]
     assert set(one) == set(two)
     for k, v in one.items():
         if isinstance(v, float):

@@ -29,15 +29,16 @@ from test_torch_parallel import (
 from test_torch_sentence_step import FRAMES, _jax_sentence_aug, _uint8_batch
 from torch_multiproc import spawn, train_steps
 from torch_parity import close, jax_aug_sample, sentence_configs
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
-# --- lrs3 -----------------------------------------------------------------
+# seconds for the file's two-process group: 3x the most measured (6.1 s), at least 60
+SPAWN_TIMEOUT = 60
 
 
-@pytest.fixture(scope="module")
-def sentence_runs(tmp_path_factory):
+def sentence_case():
     """The tiny lrs3 model at lr 1e-4 (``test_torch_sentence_step``'s), a
     global batch of 4: rank 0's clips carry 1 and 3 labels and one short
-    clip, rank 1's 3 and 2."""
+    clip, rank 1's 3 and 2. The JAX steps, the job and one process's run."""
     cfg_j, cfg_t = sentence_configs(**{"optim.lr": 1e-4, "data.batch_size": 4})
     batch = _uint8_batch(cfg_t)
     batch["labels"][0, 1:] = -1
@@ -53,13 +54,38 @@ def sentence_runs(tmp_path_factory):
     job = {"kind": "train", "config": cfg_t.to_dict(), "params": params,
            "batch_stats": stats, "batch": batch, "steps": STEPS, "aug": drawn,
            "aug_dtype": "float32"}
-    one = train_steps(job)
-    two = spawn(job, 2, tmp_path_factory.mktemp("sentence"))
-    return want, one, two
+    return want, train_steps(job), job
 
 
-def test_sentence_dp_step_matches_one_process_and_jax(sentence_runs):
-    want, one, two = sentence_runs
+def dctcn_case():
+    """The tiny DC-TCN with mixup (lambda injected, the DenseTCN's dropout 0
+    on both sides), a global batch of 4: the JAX step, the job and one
+    process's run."""
+    cfg_j, cfg_t = dctcn_configs()
+    batch = dctcn_batch(cfg_t)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jword, "DenseTCN", functools.partial(jdt.DenseTCN, dropout=0.0))
+        mp.setattr(jword, "batch_mixup", _fixed_mixup)
+        params, stats, want = jax_mesh_steps(cfg_j, batch, batch, steps=1)
+    job = {"kind": "train", "config": cfg_t.to_dict(), "params": params,
+           "batch_stats": stats, "batch": batch, "steps": 1, "lam": LAM,
+           "no_dropout": True}
+    return want, train_steps(job), job
+
+
+@pytest.fixture(scope="module")
+def two_process_runs(tmp_path_factory):
+    """Both cases' references, and their two-process runs in one group."""
+    cases = {"sentence": sentence_case(), "dctcn": dctcn_case()}
+    outs = spawn([job for _, _, job in cases.values()], 2,
+                 tmp_path_factory.mktemp("sentence"), timeout=SPAWN_TIMEOUT)
+    return {name: (want, one, two) for (name, (want, one, _)), two in zip(cases.items(), outs)}
+
+
+# --- lrs3 -----------------------------------------------------------------
+
+def test_sentence_dp_step_matches_one_process_and_jax(two_process_runs):
+    want, one, two = two_process_runs["sentence"]
     assert_ranks_equal(two)
     assert_spmd_close(two[0], one, SENTENCE_METRICS)
     lr_sum = sum(m["learning_rate"] for m in want["metrics"])
@@ -79,24 +105,13 @@ def test_sentence_dp_step_matches_one_process_and_jax(sentence_runs):
 DCTCN_METRICS = ("loss", "loss_word", "loss_audio", "learning_rate", "grad_norm")
 
 
-def test_dctcn_dp_step_matches_jax(tmp_path):
-    """One train step of the tiny DC-TCN with mixup (lambda injected, the
-    DenseTCN's dropout 0 on both sides), a global batch of 4: the roll
+def test_dctcn_dp_step_matches_jax(two_process_runs):
+    """One train step of the tiny DC-TCN (``dctcn_case``): the roll
     brings rank 1's last clip to rank 0's first row and rank 0's last to
     rank 1's first. ``test_torch_dctcn.py``'s tolerances: the conv biases
     before a train-mode BatchNorm have a true gradient of 0 and hold noise
     that Adam turns into an update of either sign up to the rate."""
-    cfg_j, cfg_t = dctcn_configs()
-    batch = dctcn_batch(cfg_t)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jword, "DenseTCN", functools.partial(jdt.DenseTCN, dropout=0.0))
-        mp.setattr(jword, "batch_mixup", _fixed_mixup)
-        params, stats, want = jax_mesh_steps(cfg_j, batch, batch, steps=1)
-    job = {"kind": "train", "config": cfg_t.to_dict(), "params": params,
-           "batch_stats": stats, "batch": batch, "steps": 1, "lam": LAM,
-           "no_dropout": True}
-    one = train_steps(job)
-    two = spawn(job, 2, tmp_path)
+    want, one, two = two_process_runs["dctcn"]
     assert_ranks_equal(two)
     assert_spmd_close(two[0], one, DCTCN_METRICS)
     lr = want["metrics"][0]["learning_rate"]

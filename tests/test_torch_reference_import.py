@@ -29,6 +29,7 @@ from syncvsr_tpu_torch.utils import torch_convert as tconv
 from tests.test_codec_instep import _synthetic_fairseq_ckpt
 from tests.test_import_checkpoint import _lrw_released_sd
 from tests.test_lrw_ckpt_import import _timm_resnet18_sd, xt_state_dict
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 # the tiny lrs3 E2E: a 16-wide ResNet trunk, 2 x 32 Conformer, 2 x 32 decoder,
 # 11 labels (import_checkpoint's lrs mode takes the encoder's width for the

@@ -25,6 +25,7 @@ from syncvsr_tpu_torch.utils.bridge import to_flax
 from test_torch_sentence_step import METRICS, _compare, _uint8_batch
 from test_torch_step import _adam_moments
 from torch_parity import JitInit, close, landmark_configs, sentence_configs, to_np, torch_model, tt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 REMAT = {"model.remat": True, "optim.lr": 1e-4}
 DROPOUT_ON = {"model.encoder.mlp_dropout": 0.1, "model.encoder.msa_dropout": 0.1,

@@ -19,6 +19,7 @@ from syncvsr_tpu_torch.models import build_model
 from syncvsr_tpu_torch.models.e2e import SentenceVSRModel
 from syncvsr_tpu_torch.utils.bridge import flax_leaf, from_flax, to_flax
 from torch_parity import close, jax_model_and_vars, sentence_configs, to_np, torch_model, tt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 KEYS = ("loss", "loss_ctc", "loss_att", "loss_audio", "decoder_acc")
 FRAMES, LABEL_LEN = 10, 3   # every clip keeps >= 5 frames: CTC stays feasible

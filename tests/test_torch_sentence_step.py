@@ -35,6 +35,7 @@ from torch_parity import (
     torch_model,
     tt,
 )
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 AUG_KEY = jax.random.PRNGKey(11)
 METRICS = ("loss", "loss_ctc", "loss_att", "loss_audio", "learning_rate", "grad_norm")

@@ -32,6 +32,7 @@ from syncvsr_tpu_torch.models.conformer import rel_shift
 from syncvsr_tpu_torch.parallel import Mesh, batch_shardings, shard_batch, split_time
 from syncvsr_tpu_torch.parallel.mesh import AXES
 from torch_multiproc import spawn
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 GRIDS = [(1, 2, 1), (2, 2, 1), (1, 2, 2), (2, 2, 2), (1, 4, 2), (4, 2, 1), (1, 8, 1)]
 
@@ -141,6 +142,8 @@ def test_rel_shift_at_an_offset_matches_the_whole(t, parts):
 
 
 HALOS = [(2, 2), (3, 1), (0, 2), (5, 3)]   # (5, 3): wider than a rank's 2 frames
+# seconds for the file's four-process group: 3x the most measured (6.1 s), at least 60
+SPAWN_TIMEOUT = 60
 
 
 @pytest.fixture(scope="module")
@@ -150,7 +153,7 @@ def ops_runs(tmp_path_factory):
     x = rng.randn(2, t, 3).astype(np.float64)
     cot = rng.randn(seq, 2, t + 16, 3).astype(np.float64)
     job = {"kind": "seq_ops", "seq": seq, "x": x, "cot": cot, "halos": HALOS}
-    return x, cot, spawn(job, seq, tmp_path_factory.mktemp("seq_ops"))
+    return x, cot, spawn(job, seq, tmp_path_factory.mktemp("seq_ops"), timeout=SPAWN_TIMEOUT)
 
 
 @pytest.mark.parametrize("left,right", HALOS)

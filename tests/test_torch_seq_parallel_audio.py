@@ -44,6 +44,7 @@ from test_torch_parallel import SENTENCE_METRICS, assert_ranks_equal
 from test_torch_seq_parallel_sentence import assert_steps_close, jax_steps
 from torch_multiproc import spawn, train_steps
 from torch_parity import audio_configs, close
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 FRAMES = 16
 WIDTH = 4
@@ -51,6 +52,9 @@ WIDTH = 4
 CLIPS = {2: (2, 3, 6), 4: (4, 6, 8)}
 RTOL, ATOL = 1e-5, 1e-6
 LR = 1e-4   # tests/test_torch_audio.py's rate, for its reason
+# seconds for the two- and four-process groups: 3x the most measured
+# (12.5 and 12.7 s), at least 60
+SPAWN_TIMEOUT = {2: 60, 4: 60}
 
 
 def _resnet_job(seq, frames):
@@ -84,8 +88,8 @@ def runs(tmp_path_factory):
            "batch_stats": stats, "batch": batch, "steps": 2}
     one = train_steps(job)
     jobs = {seq: [_resnet_job(seq, f) for f in CLIPS[seq]] for seq in CLIPS}
-    two = spawn(jobs[2] + [dict(job, seq=2)], 2, tmp)
-    four = spawn(jobs[4], 4, tmp)
+    two = spawn(jobs[2] + [dict(job, seq=2)], 2, tmp, timeout=SPAWN_TIMEOUT[2])
+    four = spawn(jobs[4], 4, tmp, timeout=SPAWN_TIMEOUT[4])
     resnet = {(seq, f): (jobs[seq][i], outs) for seq, outs_all in ((2, two), (4, four))
               for i, (f, outs) in enumerate(zip(CLIPS[seq], outs_all))}
     return {"resnet": resnet, "step": (want, one, two[-1])}

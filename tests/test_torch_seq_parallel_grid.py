@@ -35,16 +35,21 @@ from test_torch_tensor_parallel_models import MIN_DIM, assert_tp_close
 from test_word_model import tiny_landmark_config
 from torch_multiproc import cli, spawn, train_steps
 from torch_parity import close, configs, jax_aug_sample, sentence_configs, uint8_batch
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 STEPS = 2
+# seconds for the file's two-process group: 3x the most measured (11.1 s), at least 60
+SPAWN_TIMEOUT = 60
+# seconds for the file's four-process group: 3x the most measured (17.5 s), at least 60
+GRID_TIMEOUT = 60
 DROPOUT = {"model.encoder.emb_dropout": 0.1, "model.encoder.msa_dropout": 0.1,
            "model.encoder.mlp_dropout": 0.1}
 
 
-@pytest.fixture(scope="module")
-def word_runs(tmp_path_factory):
+def word_cases():
     """The video word model (port draws) and the landmark one (JAX
-    reference) at 8 and 7 frames, the four two-process runs in one group."""
+    reference) at 8 and 7 frames: the two-process jobs and their
+    references."""
     jobs, refs = [], []
     for frames in (8, 7):
         _, cfg = configs(**{"data.batch_size": 4, "data.num_frames": frames,
@@ -64,8 +69,48 @@ def word_runs(tmp_path_factory):
                      "params": params, "batch_stats": stats, "batch": batch, "steps": STEPS,
                      "seq": 2})
         refs.append(want)
-    outs = spawn(jobs, 2, tmp_path_factory.mktemp("seq_word"))
-    return dict(zip(("video8", "video7", "landmark8", "landmark7"), zip(refs, outs)))
+    return jobs, refs
+
+
+DRIVER_RUNS = {"train": "train", "greedy": "evaluate", "word": "evaluate"}
+
+
+def driver_cases(tmp_path):
+    """The drivers' runs at one process (here; their summaries) and their
+    ``mesh.seq=2`` jobs, each in a working directory of its own."""
+    train_args = SENT_ARGS + ["optim.total_steps=3", "optim.lr=1e-3", "train.log_every=3",
+                              "train.eval_every=3", "train.ckpt_every=3",
+                              "model.encoder.mlp_dropout=0.0",
+                              "model.encoder.msa_dropout=0.0", "model.decoder.dropout=0.0"]
+    args_of = {"train": train_args, "greedy": SENT_ARGS + ["decode=greedy"], "word": WORD_ARGS}
+    one, jobs = {}, []
+    for name, module in DRIVER_RUNS.items():
+        for world in ("one", "two"):
+            extra = ([f"train.ckpt_dir={json.dumps(str(tmp_path / f'ck_{world}'))}"]
+                     if module == "train" else [])
+            cwd = tmp_path / f"{name}_{world}"
+            cwd.mkdir()
+            job = {"kind": "cli", "module": module, "cwd": str(cwd), "capture": True,
+                   "args": args_of[name] + extra + (["mesh.seq=2"] if world == "two" else [])}
+            if world == "one":
+                one[name] = cli(job)
+            else:
+                jobs.append(job)
+    return one, jobs
+
+
+@pytest.fixture(scope="module")
+def two_process_runs(tmp_path_factory):
+    """The word cases and the drivers' runs, every two-process run in one
+    group."""
+    jobs, refs = word_cases()
+    tmp = tmp_path_factory.mktemp("seq_drivers")
+    one, driver_jobs = driver_cases(tmp)
+    outs = spawn(jobs + driver_jobs, 2, tmp_path_factory.mktemp("seq_word"),
+                 timeout=SPAWN_TIMEOUT)
+    word = dict(zip(("video8", "video7", "landmark8", "landmark7"), zip(refs, outs)))
+    two = dict(zip(DRIVER_RUNS, (ranks[0] for ranks in outs[len(jobs):])))
+    return {"word": word, "drivers": (tmp, one, two)}
 
 
 def _fresh_variables(cfg):
@@ -77,12 +122,12 @@ def _fresh_variables(cfg):
 
 
 @pytest.mark.parametrize("frames", [8, 7])
-def test_word_seq_step_draws_as_one_process(word_runs, frames):
+def test_word_seq_step_draws_as_one_process(two_process_runs, frames):
     """The grad norm after the first update at 1e-4 (``test_torch_parallel.
     assert_jax_close``'s reason: the update moves the parameters of
     near-zero gradients, the attention key biases, by up to the rate either
     way, and the next gradients with them)."""
-    one, two = word_runs[f"video{frames}"]
+    one, two = two_process_runs["word"][f"video{frames}"]
     assert_ranks_equal(two)
     assert two[0]["dropout_draw"] == one["dropout_draw"]
     lr_sum = sum(m["learning_rate"] for m in one["metrics"])
@@ -92,8 +137,8 @@ def test_word_seq_step_draws_as_one_process(word_runs, frames):
 
 
 @pytest.mark.parametrize("frames", [8, 7])
-def test_landmark_word_seq_step_matches_jax(word_runs, frames):
-    want, two = word_runs[f"landmark{frames}"]
+def test_landmark_word_seq_step_matches_jax(two_process_runs, frames):
+    want, two = two_process_runs["word"][f"landmark{frames}"]
     assert_ranks_equal(two)
     assert_steps_close(two[0], want, LANDMARK_METRICS, 1e-5)
 
@@ -113,7 +158,7 @@ def grid_runs(tmp_path_factory):
            "aug_dtype": "float32"}
     fsdp, tp = spawn([dict(job, seq=2, fsdp=MIN_SIZE),
                       dict(job, seq=2, model=2, min_dim=MIN_DIM)], 4,
-                     tmp_path_factory.mktemp("seq_grid"))
+                     tmp_path_factory.mktemp("seq_grid"), timeout=GRID_TIMEOUT)
     return train_steps(job), {"data_seq_fsdp": fsdp, "seq_model": tp}
 
 
@@ -131,32 +176,14 @@ def test_seq_grid_matches_one_process(grid_runs, grid):
     assert outs[0]["resident"]["params"] < (0.6 if grid == "data_seq_fsdp" else 0.9) * whole
 
 
-def test_drivers_seq_axis_match_one_process(tmp_path):
+def test_drivers_seq_axis_match_one_process(two_process_runs):
     """``python -m syncvsr_tpu_torch.train`` and ``.evaluate`` with
-    ``mesh.seq=2`` over two processes: the sentence model trains on each
-    rank's frames to one process's metrics, and the greedy hypotheses and
-    the word meter equal one process's, each row written once."""
-    train_args = SENT_ARGS + ["optim.total_steps=3", "optim.lr=1e-3", "train.log_every=3",
-                              "train.eval_every=3", "train.ckpt_every=3",
-                              "model.encoder.mlp_dropout=0.0",
-                              "model.encoder.msa_dropout=0.0", "model.decoder.dropout=0.0"]
-    runs = {"train": (train_args, "train"), "greedy": (SENT_ARGS + ["decode=greedy"],
-                                                       "evaluate"),
-            "word": (WORD_ARGS, "evaluate")}
-    one, jobs = {}, []
-    for name, (args, module) in runs.items():
-        for world in ("one", "two"):
-            extra = ([f"train.ckpt_dir={json.dumps(str(tmp_path / f'ck_{world}'))}"]
-                     if module == "train" else [])
-            cwd = tmp_path / f"{name}_{world}"
-            cwd.mkdir()
-            job = {"kind": "cli", "module": module, "cwd": str(cwd), "capture": True,
-                   "args": args + extra + (["mesh.seq=2"] if world == "two" else [])}
-            if world == "one":
-                one[name] = cli(job)
-            else:
-                jobs.append(job)
-    two = dict(zip(runs, (ranks[0] for ranks in spawn(jobs, 2, tmp_path))))
+    ``mesh.seq=2`` over two processes (``driver_cases``): the sentence model
+    trains on each rank's frames to one process's metrics, and the greedy
+    hypotheses and the word meter equal one process's, each row written
+    once."""
+    tmp_path, one, two = two_process_runs["drivers"]
+    runs = DRIVER_RUNS
     # the synthetic sentence batches' 32 frames split 16 + 16
     assert "mesh data 1 x seq 2 x model 1" in two["train"]["stdout"]
     one, two = ({k: v["summary"] for k, v in d.items()} for d in (one, two))

@@ -43,10 +43,13 @@ from test_torch_parallel import AUG_KEY, SENTENCE_METRICS, _leaves, assert_ranks
 from test_torch_sentence_step import SRC, _jax_sentence_aug
 from test_torch_step import _adam_moments
 from torch_multiproc import spawn, train_steps
-from torch_parity import JitInit, close, jax_aug_sample, sentence_configs, to_np
+from torch_parity import JitInit, close, jax_aug_sample, replicated, sentence_configs, to_np
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 STEPS = 2
 FRAMES = 16
+# seconds for the file's two-process group: 3x the most measured (19.4 s), at least 60
+SPAWN_TIMEOUT = 60
 NO_DROPOUT = {"model.encoder.mlp_dropout": 0.0, "model.encoder.msa_dropout": 0.0,
               "model.decoder.dropout": 0.0}
 
@@ -58,6 +61,8 @@ def jax_steps(cfg_j, batch, init, aug_fn=None, mesh=None, steps=STEPS):
     state = jax_create_train_state(cfg_j, JitInit(jax_build_model(cfg_j)),
                                    {k: jnp.asarray(v) for k, v in init.items()})
     params, stats = to_np(state.params), to_np(state.batch_stats)
+    if mesh is not None:
+        state = replicated(mesh, state)
     step = jax_build_train_step(mesh, donate=False, aug_fn=aug_fn)
 
     def snapshot(state):
@@ -143,7 +148,7 @@ def runs(tmp_path_factory):
     one_remat = train_steps(remat_job)
 
     two = spawn([lm_job, video_job, draws_job, remat_job], 2,
-                tmp_path_factory.mktemp("seq_sentence"))
+                tmp_path_factory.mktemp("seq_sentence"), timeout=SPAWN_TIMEOUT)
     return {"landmark": (want_lm, two[0]), "conv3d": (want_video, one_video, two[1]),
             "draws": (one, two[2]), "remat": (one_remat, two[3])}
 

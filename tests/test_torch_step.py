@@ -26,6 +26,7 @@ from torch_parity import (
     tt,
     uint8_batch,
 )
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 AUG_KEY = jax.random.PRNGKey(7)
 METRICS = ("loss", "loss_word", "loss_audio", "learning_rate", "grad_norm")

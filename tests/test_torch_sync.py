@@ -13,6 +13,7 @@ from syncvsr_tpu.ops.sync_loss import sync_cross_entropy_reference as jax_sce_re
 from syncvsr_tpu_torch.ops.cuda_sync import fused_sync_cross_entropy, sync_ce_partials_plain
 from syncvsr_tpu_torch.ops.sync_loss import sync_cross_entropy, sync_cross_entropy_reference
 from torch_parity import close, tt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 A, G = 4, 2
 
@@ -36,8 +37,9 @@ def _torch_value_and_grads(fn, feats, kernel, bias, tokens, *args):
 
 
 def _jax_value_and_grads(fn, feats, kernel, bias, tokens, *args):
-    return jax.value_and_grad(lambda x, w, b: fn(x, w, b, jnp.asarray(tokens), *args),
-                              argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (feats, kernel, bias)))
+    return jax.jit(jax.value_and_grad(lambda x, w, b: fn(x, w, b, jnp.asarray(tokens), *args),
+                                      argnums=(0, 1, 2)))(
+        *(jnp.asarray(a) for a in (feats, kernel, bias)))
 
 
 # f32 throughout: both sides compute the same f32 sums in other orders, so

@@ -11,6 +11,7 @@ import torch
 from syncvsr_tpu.ops import pallas_sync as ps
 from syncvsr_tpu_torch.ops import cuda_sync
 from torch_parity import close, tt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 A, G, V = 4, 2, 320
 
@@ -100,7 +101,7 @@ def test_fused_sync_ce_t160_matches_pallas_split_interpret():
     def jax_loss(f, k, bb):
         return ps.pallas_sync_cross_entropy(f, k, bb, jnp.asarray(tokens), A, G, V, 128, True)
 
-    jl, jg = jax.value_and_grad(jax_loss, argnums=(0, 1, 2))(
+    jl, jg = jax.jit(jax.value_and_grad(jax_loss, argnums=(0, 1, 2)))(
         *(jnp.asarray(a) for a in (x, w, bias)))
     close(loss, jl, 1e-5, 1e-6, "loss")
     for name, got, want in zip(("dfeatures", "dkernel", "dbias"),

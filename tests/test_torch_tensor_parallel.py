@@ -22,6 +22,7 @@ from syncvsr_tpu_torch.models import build_model
 from syncvsr_tpu_torch.parallel import Mesh, create_mesh, host_local_batch, shard_batch
 from syncvsr_tpu_torch.parallel import state_shardings
 from syncvsr_tpu_torch.utils.bridge import flax_leaf, flax_perm
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 PRESETS = ("lrs3", "lrw_video", "lrw_dctcn", "lrw_landmark", "lrw1000")
 

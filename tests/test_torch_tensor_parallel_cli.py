@@ -24,9 +24,10 @@ from syncvsr_tpu_torch.models import build_model
 from syncvsr_tpu_torch.parallel import Mesh, state_shardings
 from syncvsr_tpu_torch.utils import checkpoint as tckpt
 from test_torch_parallel import _leaves
-from test_torch_parallel_cli import SENT_ARGS, WORD_ARGS, _cli
+from test_torch_parallel_cli import SENT_ARGS, WORD_ARGS, _cli, cli_job
 from torch_multiproc import spawn
 from torch_parity import close, tt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 # test_torch_parallel_cli.py's landmark model with 512-wide FFNs, a
 # 512-way word head and a 512-column sync head (the full-width rule's line)
@@ -41,19 +42,42 @@ ARGS = [
     "train.ckpt_every=3", "mesh.model=2"]
 
 
+# seconds for the file's two-process group: 3x the most measured (8.2 s), at least 60
+SPAWN_TIMEOUT = 60
+
+
+@pytest.fixture(scope="module")
+def two_rank_runs(tmp_path_factory):
+    """Every two-process driver run of this file in one group, one after
+    the other: the train driver at ``mesh.model=2`` without and with FSDP
+    (rank 0's captured summaries and output, and their directory), and
+    ``evaluate`` at ``mesh.model=2`` on the word and the greedy case (rank
+    0's summary)."""
+    train = tmp_path_factory.mktemp("train")
+    jobs = []
+    for name in ("whole", "split"):
+        (train / name).mkdir()
+        jobs.append({"kind": "cli", "module": "train", "capture": True, "cwd": str(train),
+                     "args": ARGS + [f"mesh.fsdp={'true' if name == 'split' else 'false'}",
+                                     f"train.ckpt_dir={json.dumps(str(train / name))}"]})
+    evals = {}
+    for mode in ("word", "greedy"):
+        d = evals[mode] = tmp_path_factory.mktemp(f"evaluate_{mode}")
+        args = WORD_ARGS if mode == "word" else SENT_ARGS + ["decode=greedy"]
+        jobs.append(cli_job("evaluate", args + ["mesh.model=2"], d / "two"))
+    whole, split, word, greedy = (ranks[0] for ranks in spawn(
+        jobs, 2, tmp_path_factory.mktemp("spawn"), timeout=SPAWN_TIMEOUT))
+    return {"train": (train, whole, split), "word": (evals["word"], word),
+            "greedy": (evals["greedy"], greedy)}
+
+
 def _held(stdout):
     m = re.search(r"params (\d+) B, Adam moments (\d+) B", stdout)
     return int(m.group(1)), int(m.group(2))
 
 
-def test_train_driver_model_axis(tmp_path):
-    jobs = []
-    for name in ("whole", "split"):
-        (tmp_path / name).mkdir()
-        jobs.append({"kind": "cli", "module": "train", "capture": True, "cwd": str(tmp_path),
-                     "args": ARGS + [f"mesh.fsdp={'true' if name == 'split' else 'false'}",
-                                     f"train.ckpt_dir={json.dumps(str(tmp_path / name))}"]})
-    whole, split = (runs[0] for runs in spawn(jobs, 2, tmp_path))
+def test_train_driver_model_axis(two_rank_runs):
+    tmp_path, whole, split = two_rank_runs["train"]
     over = parse_cli_overrides(ARGS)
     cfg = PRESETS[over.pop("preset")]().override(**over)
     batch = {k: tt(v) for k, v in word_batch(cfg).items()}
@@ -85,14 +109,14 @@ def test_train_driver_model_axis(tmp_path):
 
 
 @pytest.mark.parametrize("mode", ["word", "greedy"])
-def test_evaluate_model_axis_matches_one(mode, tmp_path):
+def test_evaluate_model_axis_matches_one(mode, two_rank_runs):
     """``python -m syncvsr_tpu_torch.evaluate`` with ``mesh.model=2`` over
     two processes: the weights stay whole on each rank and the rows split
     over the data axis (one index here), so the word meter and the greedy
     hypotheses equal one process's, written once."""
     args = WORD_ARGS if mode == "word" else SENT_ARGS + ["decode=greedy"]
+    tmp_path, two = two_rank_runs[mode]
     one = _cli("evaluate", args, tmp_path / "one")
-    two = _cli("evaluate", args + ["mesh.model=2"], tmp_path / "two", 2, tmp_path)
     assert set(one) == set(two)
     for k, v in one.items():
         if isinstance(v, float):

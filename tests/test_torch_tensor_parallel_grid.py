@@ -38,8 +38,13 @@ from test_torch_tensor_parallel_models import MIN_DIM, assert_tp_close, word_cas
 from test_word_model import tiny_landmark_config
 from torch_multiproc import spawn, train_steps
 from torch_parity import JitInit, to_np
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 STEPS = 2
+# seconds for the file's two-process group: 3x the most measured (9.2 s), at least 60
+SPAWN_TIMEOUT = 60
+# seconds for the file's four-process group: 3x the most measured (13.8 s), at least 60
+GRID_TIMEOUT = 60
 MIN_SIZE = 256   # the JAX package's tests' fsdp_min_size at toy widths
 # torch cannot draw JAX's dropout masks or CutMix spans
 NO_DRAWS = {"model.encoder.emb_dropout": 0.0, "model.encoder.msa_dropout": 0.0,
@@ -87,7 +92,7 @@ def test_tensor_parallel_matches_jax_model_mesh_step(tmp_path):
     job = {"kind": "train", "config": cfg_t.to_dict(), "params": params,
            "batch_stats": stats, "batch": batch, "steps": STEPS, "model": 2,
            "min_dim": MIN_DIM}
-    two = spawn(job, 2, tmp_path)
+    two = spawn(job, 2, tmp_path, timeout=SPAWN_TIMEOUT)
     lr_sum = sum(m["learning_rate"] for m in metrics)
     for out in two:
         assert_jax_close(out, want, LANDMARK_METRICS, lr_sum)
@@ -104,7 +109,8 @@ def grid_runs(tmp_path_factory):
            "batch_stats": stats, "batch": batch, "steps": STEPS, "aug": drawn,
            "cutmix": (RATIO, START)}
     grid = dict(job, model=2, min_dim=MIN_DIM)
-    tp, fsdp = spawn([grid, dict(grid, fsdp=MIN_SIZE)], 4, tmp_path_factory.mktemp("grid"))
+    tp, fsdp = spawn([grid, dict(grid, fsdp=MIN_SIZE)], 4, tmp_path_factory.mktemp("grid"),
+                      timeout=GRID_TIMEOUT)
     return cfg, train_steps(job), {"tp": tp, "tp_fsdp": fsdp}
 
 

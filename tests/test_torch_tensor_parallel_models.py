@@ -44,8 +44,11 @@ from test_torch_sentence_step import FRAMES, _uint8_batch
 from test_torch_tensor_parallel import _Shapes
 from torch_multiproc import spawn, train_steps
 from torch_parity import TINY, close, configs, sentence_configs, uint8_batch
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 STEPS = 2
+# seconds for the file's two-process group: 3x the most measured (30.5 s), at least 60
+SPAWN_TIMEOUT = 90
 MIN_DIM = 16
 
 MSTCN = dict(TINY, **{"data.batch_size": 4, "model.encoder.kind": "mstcn",
@@ -150,7 +153,7 @@ def tp_runs(tmp_path_factory):
     cases = _cases()
     names = sorted(cases)
     jobs = [dict(cases[n][1], model=2, min_dim=MIN_DIM) for n in names]
-    two = spawn(jobs, 2, tmp_path_factory.mktemp("tp"))
+    two = spawn(jobs, 2, tmp_path_factory.mktemp("tp"), timeout=SPAWN_TIMEOUT)
     return {n: (cases[n], train_steps(cases[n][1]), t) for n, t in zip(names, two)}
 
 

@@ -23,6 +23,7 @@ from syncvsr_tpu_torch.data.synthetic_ckpt import write_fairseq_vq, write_hf_wav
 from syncvsr_tpu_torch.tools import tokenize_audio as ttok
 from tests.conftest import make_lrw_tree
 from tests.test_tokenize_audio import _fake_vq_checkpoint
+import torch_threads  # one torch thread a test process
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL_CONVS = [(8, 10, 5), (8, 8, 4), (8, 4, 2), (8, 4, 2), (8, 4, 2), (8, 1, 1)]
@@ -119,7 +120,7 @@ def test_the_port_never_imports_transformers(hf_dirs, vq_ckpts):
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300,
-                         env=dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES=""))
+                         env=torch_threads.env(PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-2000:]
 
 

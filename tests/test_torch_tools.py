@@ -20,18 +20,9 @@ from syncvsr_tpu_torch.tools import (
     bisect_bs16,
     profile_step,
 )
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 CPU = ["--device", "cpu"]
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One CPU thread a tool: the suite runs six workers on the host, and the
-    toy shapes gain nothing from more."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 CASES = {
     "bench_loader": (bench_loader, ["--tiny", "--threads", "1,2"],
                      {"n_clips", "decoder", "results", "best_clips_per_sec", "batch"}),

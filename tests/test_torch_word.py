@@ -26,6 +26,7 @@ from torch_parity import (
     tt,
     uint8_batch,
 )
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 KEYS = ("loss", "loss_word", "loss_audio", "acc1", "acc5")
 

@@ -22,6 +22,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch_threads
 
 STEM = "['frontend']['stem_conv_kernel']"
 
@@ -59,7 +60,7 @@ def jax_f64_step(cfg_j, params, stats, batch):
         src, dst = os.path.join(d, "in.pkl"), os.path.join(d, "out.pkl")
         with open(src, "wb") as f:
             pickle.dump({"cfg": cfg_j, "params": params, "stats": stats, "batch": batch}, f)
-        env = dict(os.environ, JAX_PLATFORMS="cpu", JAX_ENABLE_X64="1")
+        env = torch_threads.env(JAX_PLATFORMS="cpu", JAX_ENABLE_X64="1")
         subprocess.run([sys.executable, __file__, "--jax64", src, dst], check=True, env=env,
                        timeout=600)
         with open(dst, "rb") as f:

@@ -17,6 +17,7 @@ from __future__ import annotations
 import contextlib
 import os
 import socket
+import sys
 import time
 from typing import Any, Dict, List
 
@@ -33,6 +34,7 @@ from syncvsr_tpu_torch.parallel import create_mesh, resident_bytes, shard_batch,
 from syncvsr_tpu_torch.parallel.mesh import seed_dropout
 from syncvsr_tpu_torch.utils import checkpoint as ckpt
 from syncvsr_tpu_torch.utils.bridge import load_flax, to_flax
+import torch_threads  # noqa: F401  (one torch thread a process, in the workers too)
 
 TIMEOUT = 240   # seconds for a whole spawn
 
@@ -213,7 +215,6 @@ JOBS = {"train": train_steps, "cli": cli, "seq_ops": seq_ops, "resnet1d": resnet
 
 
 def _worker(rank: int, world: int, port: int, path: str) -> None:
-    torch.set_num_threads(1)
     jobs = torch.load(path, weights_only=False)   # written by the parent test
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=world, rank=rank)
@@ -231,12 +232,14 @@ def _worker(rank: int, world: int, port: int, path: str) -> None:
 def spawn(job, world: int, tmp, timeout: float = TIMEOUT):
     """Run ``job`` in ``world`` gloo processes; every rank's result. A list
     of jobs runs in one group, one after the other: a list, per job, of
-    every rank's result."""
+    every rank's result. ``timeout`` bounds the whole group (a test file
+    gives its own: about 3x the time it measured, at least 60 s)."""
     jobs = job if isinstance(job, list) else [job]
     path = os.path.join(str(tmp), f"job_{jobs[0]['kind']}_{time.monotonic_ns()}.pt")
     torch.save(jobs, path)
     ctx = mp.spawn(_worker, args=(world, free_port(), path), nprocs=world, join=False)
-    deadline = time.monotonic() + timeout
+    start = time.monotonic()
+    deadline = start + timeout
     try:
         while not ctx.join(timeout=1.0):
             if time.monotonic() > deadline:
@@ -246,6 +249,9 @@ def spawn(job, world: int, tmp, timeout: float = TIMEOUT):
         for p in ctx.processes:
             if p.is_alive():
                 p.kill()
+    # the time a spawn takes, against its limit (pytest -rP shows it)
+    print(f"spawn: {len(jobs)} job(s) on {world} processes in "
+          f"{time.monotonic() - start:.1f} s of {timeout} s", file=sys.stderr)
     ranks = [torch.load(f"{path}.{r}", weights_only=False) for r in range(world)]
     per_job = [[ranks[r][i] for r in range(world)] for i in range(len(jobs))]
     return per_job if isinstance(job, list) else per_job[0]

@@ -13,6 +13,7 @@ from syncvsr_tpu.models import build_model as jax_build_model
 from syncvsr_tpu_torch import config as tcfg
 from syncvsr_tpu_torch.models import build_model as torch_build_model
 from syncvsr_tpu_torch.utils.bridge import load_flax
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TINY = {
     "model.encoder.layers": 2, "model.encoder.dim": 64, "model.encoder.heads": 2,
@@ -104,6 +105,13 @@ class JitInit:
 
     def init(self, rngs, **batch):
         return self._init(rngs, **batch)
+
+
+def replicated(mesh, state):
+    """A JAX train state committed replicated on ``mesh``, as a data-parallel
+    step returns it: fresh from ``create_train_state`` it is uncommitted,
+    and the step would compile again for its second call."""
+    return jax.device_put(state, jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec()))
 
 
 def torch_model(cfg_t, params, batch_stats):
