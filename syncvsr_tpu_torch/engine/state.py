@@ -39,6 +39,7 @@ from syncvsr_tpu_torch.config import Config, OptimConfig
 from syncvsr_tpu_torch.parallel.mesh import all_reduce_flat
 from syncvsr_tpu_torch.utils.bridge import flax_leaf
 from syncvsr_tpu_torch.utils.device import resolve_device
+from syncvsr_tpu_torch.utils.profiling import host_read
 
 f32 = np.float32
 
@@ -154,6 +155,7 @@ def all_finite(tensors: List[torch.Tensor], state: Optional[TrainState] = None) 
     on every rank's shards (one all-reduce), so the ranks decide alike."""
     ok = torch.stack([torch.isfinite(t).all() for t in tensors]).all()
     layout = None if state is None else (state.fsdp or state.tp)
+    host_read("engine.all_finite")
     if layout is not None:
         (bad,) = all_reduce_flat([(~ok).float()], layout.mesh.group)
         return not bool(bad)

@@ -24,6 +24,7 @@ import torch
 from syncvsr_tpu_torch.engine.state import TrainState, apply_gradients, grad_norm
 from syncvsr_tpu_torch.parallel import collectives, sequence
 from syncvsr_tpu_torch.parallel.mesh import Mesh, all_reduce_flat, split_time
+from syncvsr_tpu_torch.utils.profiling import span
 
 
 def build_train_step(aug_fn: Optional[Callable] = None,
@@ -58,26 +59,30 @@ def build_train_step(aug_fn: Optional[Callable] = None,
         with collectives.data_parallel(mesh), sequence.batch(getattr(batch, "time", None)):
             if layout is not None:
                 layout.gather()
-            if aug_fn is not None:
-                batch = aug_fn(state.mixup_gen, batch)
+            with span("step.forward"):
+                if aug_fn is not None:
+                    with span("step.augment"):
+                        batch = aug_fn(state.mixup_gen, batch)
+                for p in state.params:
+                    p.grad = None
+                out = state.model(**batch, det=False, mixup_gen=state.mixup_gen,
+                                  dropout_gen=state.dropout_gen)
+            with span("step.backward"):
+                out["loss"].backward()
+        with span("step.update"):
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in state.params]
             for p in state.params:
                 p.grad = None
-            out = state.model(**batch, det=False, mixup_gen=state.mixup_gen,
-                              dropout_gen=state.dropout_gen)
-            out["loss"].backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in state.params]
-        for p in state.params:
-            p.grad = None
-        if layout is not None:
-            grads = layout.reduce_gradients(grads)
-            layout.release()
-            if seq:
-                grads = all_reduce_flat(grads, mesh.seq_group)
-        elif distributed:
-            grads = all_reduce_flat(grads, mesh.over("data", "seq"))
-        norm = grad_norm(state, grads)
-        lr = apply_gradients(state, grads)
+            if layout is not None:
+                grads = layout.reduce_gradients(grads)
+                layout.release()
+                if seq:
+                    grads = all_reduce_flat(grads, mesh.seq_group)
+            elif distributed:
+                grads = all_reduce_flat(grads, mesh.over("data", "seq"))
+            norm = grad_norm(state, grads)
+            lr = apply_gradients(state, grads)
         metrics = {k: v.detach() for k, v in out.items()}
         metrics["learning_rate"] = torch.tensor(lr, dtype=torch.float32)
         metrics["grad_norm"] = norm

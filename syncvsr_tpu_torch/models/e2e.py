@@ -46,6 +46,7 @@ from syncvsr_tpu_torch.ops.masking import (
     length_mask,
 )
 from syncvsr_tpu_torch.parallel import collectives, sequence
+from syncvsr_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -85,13 +86,15 @@ class SentenceVSRModel(nn.Module):
         activations are recomputed in the backward too: at the 1800-frame
         bucket its per-frame activations, not the Conformer's, take most
         memory."""
-        if self.cfg.remat and not det:
-            feats = remat(None, lambda v: self.frontend(v, train=True), videos)
-        else:
-            feats = self.frontend(videos, train=not det)
+        with span("model.frontend"):
+            if self.cfg.remat and not det:
+                feats = remat(None, lambda v: self.frontend(v, train=True), videos)
+            else:
+                feats = self.frontend(videos, train=not det)
         pad_mask = length_mask(self.frame_lengths(videos, lengths),
                                sequence.total(feats.shape[1]))
-        return self.encoder(feats, pad_mask, det, gen)
+        with span("model.encoder"):
+            return self.encoder(feats, pad_mask, det, gen)
 
     def forward(self, videos: Tensor, lengths: Tensor, labels: Tensor, audio_tokens: Tensor,
                 sample_weight: Optional[Tensor] = None, det: bool = True,
@@ -134,7 +137,8 @@ class SentenceVSRModel(nn.Module):
         # attention decoder
         memory = self.proj_decoder(x) if hasattr(self, "proj_decoder") else x
         ys_in, ys_out, ys_lengths = add_sos_eos(labels, self.sos, self.eos, -1)
-        dec_logits = self.decoder(ys_in, ys_lengths, memory, pad_mask, det, dropout_gen)
+        with span("model.decoder"):
+            dec_logits = self.decoder(ys_in, ys_lengths, memory, pad_mask, det, dropout_gen)
         loss_att = label_smoothing_kl(dec_logits, ys_out, cfg.labels, cfg.lsm_weight,
                                       ignore_id=-1, sample_weight=sample_weight)
         acc = decoder_accuracy(dec_logits, ys_out, ignore_id=-1, sample_weight=sample_weight)

@@ -50,6 +50,7 @@ from syncvsr_tpu_torch.ops.cutmix import (
 from syncvsr_tpu_torch.ops.masking import weighted_mean
 from syncvsr_tpu_torch.ops.sync_loss import regroup_tokens, sync_cross_entropy
 from syncvsr_tpu_torch.parallel import collectives, sequence, tensor
+from syncvsr_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -191,7 +192,7 @@ class WordVSRModel(nn.Module):
                 inputs, onehot, audio_tokens, word_mask = temporal_cutmix_apply(
                     inputs, onehot, audio_tokens, word_mask, keep)
 
-        with sequence.region():   # this rank's frames under sequence parallel
+        with sequence.region(), span("model.frontend"):   # this rank's frames under seq
             hidden = self.frontend(inputs, train=not det)           # [B, T, width]
             if hasattr(self, "frontend_proj"):
                 hidden = self.frontend_proj(hidden)
@@ -206,7 +207,8 @@ class WordVSRModel(nn.Module):
             cls = torch.cat((cls[..., :-1], torch.zeros_like(cls[..., -1:])), dim=-1)
         hidden = torch.cat((cls.to(dtype).expand(b, 1, dim_backbone), hidden), dim=1)
         hidden = dropout(hidden, enc.emb_dropout, det, dropout_gen)
-        encoded = self.encoder(hidden, det=det, gen=dropout_gen)
+        with span("model.encoder"):
+            encoded = self.encoder(hidden, det=det, gen=dropout_gen)
 
         logits = self.category_classifier(encoded[:, 0].float())
         loss_word = weighted_mean(-(onehot * torch.log_softmax(logits, -1)).sum(-1),
@@ -243,14 +245,15 @@ class WordVSRModel(nn.Module):
             lam = sample_mixup(mixup_gen, self.cutmix_alpha)
             inputs = batch_mixup_apply(inputs, lam)
             lam = lam.to(inputs.device)   # f32, for the losses' lerp
-        with sequence.region():
+        with sequence.region(), span("model.frontend"):
             hidden = self.frontend(inputs, train=not det)           # [B, T, width]
         hidden = sequence.gather_time(hidden)
         if cfg.use_word_boundary:
             if word_mask is None:
                 raise ValueError("use_word_boundary needs a word_mask")
             hidden = torch.cat((hidden, word_mask[:, :, None].to(dtype)), dim=-1)
-        feats = self.encoder(hidden, not det, dropout_gen).float()   # [B, T, C]
+        with span("model.encoder"):
+            feats = self.encoder(hidden, not det, dropout_gen).float()   # [B, T, C]
         if attention_mask is None:
             am = torch.ones(feats.shape[:2] + (1,), device=feats.device)
         else:

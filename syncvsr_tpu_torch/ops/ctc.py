@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from syncvsr_tpu_torch.ops.masking import weighted_mean
+from syncvsr_tpu_torch.utils.profiling import host_read
 
 Tensor = torch.Tensor
 
@@ -90,6 +91,7 @@ def ctc_loss(logits: Tensor, logit_lengths: Tensor, labels: Tensor, label_length
     safe = torch.where(label_pad, torch.zeros_like(labels), labels).long()
     log_probs = torch.log_softmax(logits.float(), dim=-1)
     bad = infeasible_rows(logit_lengths, safe, label_lengths, label_pad)
+    host_read("ops.ctc_loss")
     any_bad = bool(bad.any())
     per_seq = F.ctc_loss(log_probs.transpose(0, 1), safe, logit_lengths.long(),
                          label_lengths.long(), blank=blank_id, reduction="none",

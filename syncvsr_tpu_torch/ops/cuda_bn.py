@@ -44,6 +44,7 @@ from torch import nn
 from syncvsr_tpu_torch.models.layers import recomputing
 from syncvsr_tpu_torch.parallel import collectives
 from syncvsr_tpu_torch.utils import kernels
+from syncvsr_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -255,7 +256,8 @@ class _BatchNormTrain(torch.autograd.Function):
         c = x.shape[-1]
         x2d = x.view(-1, c)
         m = x2d.shape[0]
-        s, s2 = bn_stats(x2d)
+        with span("kernel.bn_stats"):
+            s, s2 = bn_stats(x2d)
         over = collectives.span()
         if over is not None:
             # the global batch's sums, between K3 and the division (the batch,
@@ -283,7 +285,8 @@ class _BatchNormTrain(torch.autograd.Function):
         c = x.shape[-1]
         gy = gy.contiguous()
         n = x.numel() // c
-        s1, s2 = bn_bwd_stats(gy.view(n, c), x.view(n, c), mean, inv)
+        with span("kernel.bn_stats.bwd"):
+            s1, s2 = bn_bwd_stats(gy.view(n, c), x.view(n, c), mean, inv)
         # the scale's and bias's gradients are this rank's terms (the step
         # sums them over the mesh); dx needs the global batch's sums, over
         # the forward's ranks

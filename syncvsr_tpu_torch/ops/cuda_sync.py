@@ -47,6 +47,7 @@ from syncvsr_tpu_torch.ops.sync_loss import (
 )
 from syncvsr_tpu_torch.parallel import collectives
 from syncvsr_tpu_torch.utils import kernels
+from syncvsr_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -239,8 +240,9 @@ class _FusedSyncCE(torch.autograd.Function):
         b, t, d = features.shape
         slots = alignment * groups
         tok = regroup_tokens(tokens, b, t, alignment, groups)
-        ce_sum, count = sync_ce_partials(features.reshape(b * t, d), kernel, bias,
-                                         tok.reshape(b * t, slots))
+        with span("kernel.sync_ce"):
+            ce_sum, count = sync_ce_partials(features.reshape(b * t, d), kernel, bias,
+                                             tok.reshape(b * t, slots))
         feats, tok_p, cnt = make_chunk_residuals(features, tokens, alignment, groups, chunk)
         if collectives.reduces(model):
             # K1/K2's (ce_sum, count) summed over the global batch (and the
@@ -256,8 +258,9 @@ class _FusedSyncCE(torch.autograd.Function):
     def backward(ctx, g):
         feats, kernel, bias, tok, count = ctx.saved_tensors
         t, alignment, groups, vocab, chunk = ctx.meta
-        df, dk, db = chunked_backward(feats, kernel, bias, tok, count, t, alignment,
-                                      groups, vocab, chunk, g)
+        with span("kernel.sync_ce.bwd"):
+            df, dk, db = chunked_backward(feats, kernel, bias, tok, count, t, alignment,
+                                          groups, vocab, chunk, g)
         return df, dk, db, None, None, None, None, None, None
 
 

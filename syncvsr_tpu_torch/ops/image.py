@@ -30,6 +30,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from syncvsr_tpu_torch.parallel import collectives, sequence
+from syncvsr_tpu_torch.utils.profiling import host_read
 
 Tensor = torch.Tensor
 
@@ -113,8 +114,11 @@ def sample_train_aug(gen: torch.Generator, b: int, t: int, h: int, w: int,
     flip = u() < hflip_prob
     frames = torch.arange(t)[None, :]
     hit = torch.zeros((b, t), dtype=torch.bool)
-    limit = (torch.full((b,), t, dtype=torch.float32) if lengths is None
-             else lengths.detach().cpu().float())
+    if lengths is None:
+        limit = torch.full((b,), t, dtype=torch.float32)
+    else:
+        host_read("ops.image_aug")
+        limit = lengths.detach().cpu().float()
     for _ in range(time_mask_n):
         span = torch.randint(0, time_mask_span + 1, (world * b,), generator=gen)[rows]
         start = (u() * torch.clamp(limit - span, min=1.0)).long()

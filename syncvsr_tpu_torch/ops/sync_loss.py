@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from syncvsr_tpu_torch.parallel import collectives
+from syncvsr_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -122,11 +123,12 @@ class _ChunkedSyncCE(torch.autograd.Function):
         t = features.shape[1]
         feats, tok, count = make_chunk_residuals(features, tokens, alignment, groups, chunk)
         total = torch.zeros((), dtype=torch.float32, device=features.device)
-        for c0 in range(0, feats.shape[1], chunk):
-            logits = sync_logits(feats[:, c0:c0 + chunk], kernel, bias,
-                                 alignment, groups, vocab)
-            s, _ = _masked_ce(logits, tok[:, c0:c0 + chunk])
-            total = total + s
+        with span("kernel.sync_ce"):
+            for c0 in range(0, feats.shape[1], chunk):
+                logits = sync_logits(feats[:, c0:c0 + chunk], kernel, bias,
+                                     alignment, groups, vocab)
+                s, _ = _masked_ce(logits, tok[:, c0:c0 + chunk])
+                total = total + s
         if collectives.reduces(model):   # the global sum and slot count
             total, count = collectives.reduce_sums(total, (tok >= 0).sum(), model=model)
             count = torch.clamp(count, min=1.0)
@@ -138,8 +140,9 @@ class _ChunkedSyncCE(torch.autograd.Function):
     def backward(ctx, g):
         feats, kernel, bias, tok, count = ctx.saved_tensors
         t, alignment, groups, vocab, chunk = ctx.meta
-        df, dk, db = chunked_backward(feats, kernel, bias, tok, count, t, alignment,
-                                      groups, vocab, chunk, g)
+        with span("kernel.sync_ce.bwd"):
+            df, dk, db = chunked_backward(feats, kernel, bias, tok, count, t, alignment,
+                                          groups, vocab, chunk, g)
         return df, dk, db, None, None, None, None, None, None
 
 
@@ -155,8 +158,9 @@ def sync_cross_entropy(features: Tensor, kernel: Tensor, bias: Tensor, tokens: T
     b, t, _ = features.shape
     if chunk is None or chunk >= t:
         tok = regroup_tokens(tokens, b, t, alignment, groups)
-        logits = sync_logits(features, kernel, bias, alignment, groups, vocab)
-        total, count = _masked_ce(logits, tok)
+        with span("kernel.sync_ce"):
+            logits = sync_logits(features, kernel, bias, alignment, groups, vocab)
+            total, count = _masked_ce(logits, tok)
         return collectives.global_mean(total, count, floor=1, model=model)
     return _ChunkedSyncCE.apply(features, kernel, bias, tokens, alignment, groups,
                                 vocab, chunk, model)

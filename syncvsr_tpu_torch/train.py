@@ -15,11 +15,14 @@ every ``train.ckpt_every`` steps in the JAX package's format (either
 package resumes from the other's), ``resume=auto`` continues from the
 newest, ``train.pretrained`` warm-starts by intersection, and
 ``train.profile_steps=a:b`` profiles steps a..b with torch.profiler into
-``train.profile_dir``. ``metrics.jsonl`` in ``train.ckpt_dir`` holds every
-logged record; besides the JAX driver's keys, each train record has
-``train/launches/<kernel>``, the hand-written kernels' launches a train
-step over the steps since the last record (0 on the CPU, where the plain
-versions run).
+``train.profile_dir``, with the spans of ``utils/profiling.py`` on.
+``metrics.jsonl`` in ``train.ckpt_dir`` holds every logged record; besides
+the keys the JAX package logs, each train record has, over the steps since
+the last record, a step's ``train/launches/<kernel>`` (the hand-written
+kernels' launches; 0 on the CPU, where the plain versions run),
+``train/loader_wait_ms`` (the host's wait for the loader's next batch, the
+``train.loader_wait`` span) and ``train/host_reads`` (the host's reads of
+device values in the step and the lagged metrics' read).
 
 ``model.codec.in_step=true model.codec.ckpt=<vq-wav2vec .pt>`` quantizes
 the loader's raw waveforms inside the step (``ops/codec.py``): the frozen
@@ -60,7 +63,7 @@ import json
 import os
 import sys
 import time
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -82,7 +85,8 @@ from syncvsr_tpu_torch.parallel.mesh import seed_dropout
 from syncvsr_tpu_torch.utils import checkpoint as ckpt
 from syncvsr_tpu_torch.utils.device import resolve_device
 from syncvsr_tpu_torch.utils.metrics import AverageMeter, MetricLogger, split_eval_weights
-from syncvsr_tpu_torch.utils.profiling import StepTimer, Trace
+from syncvsr_tpu_torch.utils.profiling import (StepTimer, Trace, host_read, host_read_counts,
+                                                span)
 
 
 def load_config(argv: Sequence[str]) -> Config:
@@ -138,11 +142,30 @@ def init_distributed(config: Config, device: Optional[Union[str, torch.device]] 
 
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()}
+    with span("train.to_device"):
+        return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()}
 
 
 def host_metrics(metrics: Dict[str, Any]) -> Dict[str, float]:
-    return {k: float(v) for k, v in metrics.items()}
+    """Each metric read to the host: one host read a key the step computed
+    (``learning_rate`` is made on the host, so its read waits on nothing)."""
+    with span("train.host_metrics"):
+        host_read("train.host_metrics", sum(k != "learning_rate" for k in metrics))
+        return {k: float(v) for k, v in metrics.items()}
+
+
+def waited(loader, seconds: List[float]):
+    """The loader's batches; the host's wait for each (the
+    ``train.loader_wait`` span) is added to ``seconds[0]``."""
+    batches = iter(loader)
+    while True:
+        t0 = time.perf_counter()
+        with span("train.loader_wait"):
+            batch = next(batches, None)
+        seconds[0] += time.perf_counter() - t0
+        if batch is None:
+            return
+        yield batch
 
 
 def transforms(config: Config):
@@ -281,12 +304,13 @@ def _train(config: Config, dev: torch.device) -> Dict[str, float]:
     # the device, so it happens after step N+1 is enqueued
     pending_metrics = None
     launched, window_steps = dict.fromkeys(launch_counts(), 0), 0
+    wait_s, reads = [0.0], 0
     try:
         for epoch in range(config.train.epochs):
-            for batch in train_loader:
+            for batch in waited(train_loader, wait_s):
                 if prof_range and step == prof_range[0]:
                     prof.start()
-                before = launch_counts()
+                before, reads_before = launch_counts(), host_read_counts()
                 with timer:
                     state, metrics = train_step(state, to_device(batch, dev))
                     if pending_metrics is not None:
@@ -294,6 +318,7 @@ def _train(config: Config, dev: torch.device) -> Dict[str, float]:
                     pending_metrics = metrics
                 for k, n in launch_counts().items():
                     launched[k] += n - before[k]
+                reads += sum(host_read_counts().values()) - sum(reads_before.values())
                 step += 1
                 window_steps += 1
                 if prof_range and step == prof_range[1]:
@@ -307,7 +332,10 @@ def _train(config: Config, dev: torch.device) -> Dict[str, float]:
                         summary["train/step_ms_ema"] = timer.avg_ms
                     summary.update({f"train/launches/{k}": n / window_steps
                                     for k, n in launched.items()})
+                    summary["train/loader_wait_ms"] = 1e3 * wait_s[0] / window_steps
+                    summary["train/host_reads"] = reads / window_steps
                     launched, window_steps = dict.fromkeys(launched, 0), 0
+                    wait_s[0], reads = 0.0, 0
                     t_start = time.time()
                     logger.log(summary, step)
                     if lead:

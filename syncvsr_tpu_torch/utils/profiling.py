@@ -6,26 +6,145 @@ as the JAX copy does: on the GPU with CUDA events recorded at the start and
 the end of the step, read one step later (so the timer adds no host wait:
 the train loop still reads a step's metrics only after it has enqueued the
 next), on the CPU with the host clock. ``Trace`` is a ``torch.profiler``
-window (CPU and CUDA activities) that writes a Chrome trace.
+window (CPU and CUDA activities) that writes a Chrome trace, with the
+spans on.
+
+Spans and counters inside the train step. ``span(name)`` marks a layer
+boundary of the step by one of the names of ``SPANS``. Off (the default)
+it returns one shared no-op context after a single flag read; on (inside
+``spans()``, or a ``Trace`` window) it records ``(name, thread id,
+start ns, end ns)`` on ``CLOCK``, the clock ``torch.profiler``'s events
+are on, and while a profiler runs it also enters
+``torch.profiler.record_function(name)``, so the span shows in the
+Chrome trace and among the profiler's events. Backward spans run on the
+autograd engine's thread; the thread id tells them apart.
+``host_read(site)`` counts the host's reads of device values (``float``,
+``.item()``, ``bool``, ``.cpu()`` of a tensor) by site, whether spans are
+on or not; ``host_read_counts()`` returns the counts so far.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
-from typing import Optional, Tuple
+from contextlib import contextmanager
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
+# every span of the port, and what reads it: the train loop's log
+# (``train.loader_wait``), and the device ms and idle ms a step that the
+# benchmark's traced runs put down to each span
+SPANS = (
+    "train.to_device",        # a batch's host-to-device copies
+    "train.host_metrics",     # the lagged read of a step's metrics
+    "train.loader_wait",      # the loader's next batch (train/loader_wait_ms)
+    "step.forward",           # augmentation and the model call
+    "step.backward",          # loss.backward()
+    "step.update",            # gradients' collection, grad_norm, apply_gradients
+    "step.augment",           # aug_fn
+    "model.frontend",         # the frontend (and its projection)
+    "model.encoder",          # the word or sentence encoder
+    "model.decoder",          # the attention decoder
+    "kernel.sync_ce",         # sync head projection + CE forward (K1, K2 or plain)
+    "kernel.sync_ce.bwd",     # its backward
+    "kernel.bn_stats",        # BatchNorm statistics in the forward (K3 or plain)
+    "kernel.bn_stats.bwd",    # BatchNorm statistics in the backward (K4 or plain)
+)
+
+# kineto's host events carry wall-clock ns (a record_function's start lies
+# a fraction of a millisecond after time.time_ns() taken just before it),
+# so spans do too
+CLOCK = time.time_ns
+SPAN_LIMIT = 1 << 20   # records held at once; later ones are dropped
+
+SpanRecord = Tuple[str, int, int, int]
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NO_SPAN = _NoSpan()
+_on = False
+_records: List[SpanRecord] = []
+_host_reads: Dict[str, int] = {}
+
+
+class _Span:
+    __slots__ = ("name", "start", "mirror")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> None:
+        self.mirror = None
+        if torch.autograd.profiler._is_profiler_enabled:
+            self.mirror = torch.profiler.record_function(self.name)
+            self.mirror.__enter__()
+        self.start = CLOCK()
+
+    def __exit__(self, *exc) -> bool:
+        end = CLOCK()
+        if self.mirror is not None:
+            self.mirror.__exit__(*exc)
+        if len(_records) < SPAN_LIMIT:
+            _records.append((self.name, threading.get_ident(), self.start, end))
+        return False
+
+
+def span(name: str):
+    """The context of the span ``name`` (one of ``SPANS``): the shared
+    no-op while spans are off."""
+    if not _on:
+        return _NO_SPAN
+    return _Span(name)
+
+
+@contextmanager
+def spans() -> Iterator[List[SpanRecord]]:
+    """Turns the spans on; the list it gives holds, once the block has
+    closed, every span that ended inside it, in order of their start."""
+    global _on
+    was, _on = _on, True
+    first = len(_records)
+    out: List[SpanRecord] = []
+    try:
+        yield out
+    finally:
+        _on = was
+        out.extend(sorted(_records[first:], key=lambda r: r[2]))
+        if not was:
+            _records.clear()
+
+
+def host_read(site: str, n: int = 1) -> None:
+    """Counts ``n`` reads of device values by the host at ``site``."""
+    _host_reads[site] = _host_reads.get(site, 0) + n
+
+
+def host_read_counts() -> Dict[str, int]:
+    """The host's reads of device values in this process so far, by site."""
+    return dict(_host_reads)
+
 
 class Trace:
-    """A torch.profiler window over CPU and CUDA activities: ``start()``,
-    then ``stop()`` writes ``<log_dir>/trace.json`` (chrome://tracing,
-    Perfetto) and ``<log_dir>/ops.txt`` (device and host time by op)."""
+    """A torch.profiler window over CPU and CUDA activities, with the spans
+    on: ``start()``, then ``stop()`` writes ``<log_dir>/trace.json``
+    (chrome://tracing, Perfetto; the spans as ``record_function`` ranges)
+    and ``<log_dir>/ops.txt`` (device and host time by op)."""
 
     def __init__(self, log_dir: str):
         self.log_dir = log_dir
         self._prof = None
+        self._spans = None
 
     def start(self) -> None:
         from torch.profiler import ProfilerActivity, profile
@@ -35,9 +154,13 @@ class Trace:
             activities.append(ProfilerActivity.CUDA)
         self._prof = profile(activities=activities)
         self._prof.__enter__()
+        self._spans = spans()
+        self._spans.__enter__()
 
     def stop(self) -> None:
         prof, self._prof = self._prof, None
+        self._spans.__exit__(None, None, None)
+        self._spans = None
         prof.__exit__(None, None, None)
         os.makedirs(self.log_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(self.log_dir, "trace.json"))

@@ -64,6 +64,10 @@ def test_train_end_to_end_and_resume(tmp_path):
     assert [r["step"] for r in train_logs] == [4, 8, 12, 16]
     assert all(r["train/launches/bn_stats_fwd"] == 0.0 for r in train_logs)
     assert all(np.isfinite(r["train/loss"]) for r in train_logs)
+    # the lagged metrics' read, 6 keys a step (learning_rate is made on the
+    # host) from the second step on
+    assert [r["train/host_reads"] for r in train_logs] == [4.5, 6.0, 6.0, 6.0]
+    assert all(r["train/loader_wait_ms"] >= 0.0 for r in train_logs)
 
     final2 = ttrain.main(args + ['train.resume="auto"'], device="cpu")
     assert np.isfinite(final2["val/loss"])
@@ -75,7 +79,8 @@ def test_train_end_to_end_and_resume(tmp_path):
 
 def test_train_pretrained_and_profile_window(tmp_path, capsys):
     """train.pretrained warm-starts every leaf of a checkpoint's params by
-    intersection; train.profile_steps=a:b writes a torch.profiler trace."""
+    intersection; train.profile_steps=a:b writes a torch.profiler trace,
+    with the port's spans."""
     first = tmp_path / "first"
     args = WORD_ARGS + ["optim.total_steps=2", "train.log_every=1", "train.eval_every=100",
                         "train.ckpt_every=100"]
@@ -89,6 +94,10 @@ def test_train_pretrained_and_profile_window(tmp_path, capsys):
     assert "[ckpt] loaded 41/41 params from pretrained tree" in out
     assert f"[trace] wrote {trace}" in out
     assert (trace / "trace.json").stat().st_size > 0 and (trace / "ops.txt").exists()
+    # the window carries the step's spans as record_function ranges
+    text = (trace / "trace.json").read_text()
+    assert all(f'"{name}"' in text for name in ("step.forward", "step.backward",
+                                                "step.update", "model.frontend"))
 
 
 def test_train_raises_for_what_is_not_ported(tmp_path, monkeypatch):
