@@ -53,7 +53,9 @@ non-zero before the last line is printed:
    a ragged attention mask; ``lrw1000_dctcn``: ``lrw1000``'s batch under
    that DC-TCN, K2 at 4 slots of 640; bf16, augmentation and dropout as
    configured), 3 warm-up and two windows of 5 timed steps with the
-   kernels' launches counted from 0, then one eval step; the audio stem
+   kernels' launches counted from 0 and how the steps ran (``graph_steps``:
+   a word path's are CUDA-graph replays, ``engine/graph.py``, whose
+   wrapper counts are their capture's), then one eval step; the audio stem
    conv timed alone; ``lrs3`` also times 5 steps of a batch whose last
    clip is shorter than its labels (the CTC recursion's cost);
    ``lrs3_1800`` (``train_1800``): the full-width ``lrs3`` model at batch 2
@@ -168,7 +170,11 @@ non-zero before the last line is printed:
    has traced can pay more host time a launch from then on): each kernel's
    own device time (``device_ms``) over the calls phase 3 timed (K1's with
    its features' pad copy), each held to one kernel of its own a call (K3
-   and K4 to one device kernel); with ``--profile DIR``, 3 profiled steps of
+   and K4 to one device kernel); each path whose timed steps replayed a
+   CUDA graph once more in a fresh state (``replayed_launches``): 6
+   replays, 5 of them profiled, every one a replay, K1-K4's launches a
+   step read by kernel name from the trace and counted by the wrappers
+   from 0, both equal to the path's; with ``--profile DIR``, 3 profiled steps of
    each path (device time by kernel group and the device's idle share), and
    of ``lrs3``'s batch with the infeasible row;
    then K4 at the Conformer's shape timed again, beside its phase-3 time;
@@ -832,15 +838,13 @@ def f32_sentence_aug(torch, d):
     few of the bf16 clips' pixels round to the other side of a tie on the
     card than on the CPU (the resize's sums differ in the last bit), and
     each moves the ReLU inputs downstream by ~1e-4 of their scale."""
-    from syncvsr_tpu_torch.ops.image import fused_train_aug
+    from syncvsr_tpu_torch.ops.image import TrainAug, build_sentence_aug, fused_train_aug_apply
 
-    def aug(gen, batch):
-        return dict(batch, videos=fused_train_aug(
-            gen, batch["videos"], d.crop_size, (0.7, 1.0), hflip_prob=0.5, time_mask_span=10,
-            time_mask_n=2, mean=d.mean, std=d.std, lengths=batch["lengths"],
-            dtype=torch.float32))
+    def apply(batch, drawn):
+        return dict(batch, videos=fused_train_aug_apply(batch["videos"], drawn, d.crop_size,
+                                                        d.mean, d.std, torch.float32))
 
-    return aug
+    return TrainAug(build_sentence_aug(d).draw, apply)
 
 
 def check_reference(torch, np, path):
@@ -1020,12 +1024,14 @@ def check_reference(torch, np, path):
 
 def train_full_width(torch, np, path, profile_dir=None):
     """The full-width train step of ``path``; returns (launches in the timed
-    steps, summary, the profiled window to run after every timing, or
-    None without ``profile_dir``)."""
+    steps, summary, the window to run after every timing, or None: where
+    the timed steps replayed a CUDA graph, ``replayed_launches``; with
+    ``profile_dir``, the profiled steps)."""
     from syncvsr_tpu_torch.data.synthetic import sentence_batch
     from syncvsr_tpu_torch.engine import build_eval_step, build_train_step, create_train_state
     from syncvsr_tpu_torch.models import build_model
     from syncvsr_tpu_torch.ops import image
+    from syncvsr_tpu_torch.utils.profiling import graph_counts
 
     aug = transform = None
     near_ln = {}
@@ -1125,6 +1131,7 @@ def train_full_width(torch, np, path, profile_dir=None):
         raise AssertionError(f"non-finite first-step metrics: {first}")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    graphs0 = graph_counts()
     windows = []
     for _ in range(2):
         t0 = time.perf_counter()
@@ -1134,6 +1141,7 @@ def train_full_width(torch, np, path, profile_dir=None):
         windows.append((time.perf_counter() - t0) / TIMED_STEPS)
     dt = sum(windows) / len(windows)
     launches = read_counts()
+    graphs = graph_counts_since(graphs0)
     last = {k: float(v) for k, v in m.items()}
     peak = torch.cuda.max_memory_allocated() - held
     if not all(math.isfinite(v) for v in last.values()):
@@ -1143,7 +1151,7 @@ def train_full_width(torch, np, path, profile_dir=None):
         f"{TIMED_STEPS}: {', '.join(f'{w * 1e3:.2f}' for w in windows)} ms/step), "
         f"{b * frames / dt:.1f} frames/s, peak memory {peak / 2**30:.2f} GiB (above "
         f"{held / 2**30:.2f} GiB held before the path); last step {last}")
-    log(f"  launches {launches} (expected {want})")
+    log(f"  launches {launches} (expected {want}); the timed steps ran {graphs}")
     if launches != want:
         raise AssertionError(f"{path}: launches {launches} != {want}")
     before = read_counts()
@@ -1158,7 +1166,7 @@ def train_full_width(torch, np, path, profile_dir=None):
     if got != {k: int(k == sync) for k in got}:
         raise AssertionError(f"the {path} eval step launched {got}, expected one {sync}")
     summary = {"step_ms": dt * 1e3, "frames_per_s": b * frames / dt, "peak_bytes": peak,
-               "launches_per_step": per_step}
+               "launches_per_step": per_step, "graph_steps": graphs}
     if cfg.model.frontend.kind == "conv1d_resnet":
         summary["stem_conv"] = time_stem_conv(torch, state.model, batch[video])
     bad = None
@@ -1178,14 +1186,76 @@ def train_full_width(torch, np, path, profile_dir=None):
         if not (all(math.isfinite(v) for v in m.values()) and m["loss_ctc"] > 1e3):
             raise AssertionError(f"lrs3 with an infeasible row: {m}")
         summary["infeasible_row_step_ms"] = bad_s * 1e3
-    window = None
+    jobs = []
+    if graphs["replays"]:
+        # a replay's counts above are its capture's (engine/graph.py): read
+        # what ran from a trace, in a fresh state once every timing is done
+        jobs.append(lambda: summary.update(replayed=replayed_launches(
+            torch, cfg, batch_np, aug, per_step, path)))
     if profile_dir:
-        def window():
+        def profiled():
             profile_steps(torch, state, step, batch, profile_dir, path, dt)
             if bad is not None:
                 profile_steps(torch, state, step, bad, profile_dir, path + "_infeasible",
                               bad_s)
+        jobs.append(profiled)
+    window = None
+    if jobs:
+        def window():
+            for job in jobs:
+                job()
     return launches, summary, window
+
+
+def graph_counts_since(before):
+    """The train steps since ``before`` (``graph_counts()``) by how they ran."""
+    from syncvsr_tpu_torch.utils.profiling import graph_counts
+
+    now = graph_counts()
+    eager = {k: n - before["eager"].get(k, 0) for k, n in now["eager"].items()}
+    return {"captures": now["captures"] - before["captures"],
+            "replays": now["replays"] - before["replays"],
+            "eager": {k: n for k, n in eager.items() if n}}
+
+
+def replayed_launches(torch, cfg, batch_np, aug, per_step, path, n=TIMED_STEPS):
+    """``path``'s train step replayed as a CUDA graph, in a fresh state of
+    ``cfg``: a warm-up and a capture step, then ``n`` replays under
+    torch.profiler after one unprofiled replay (``profile_window``), the
+    kernels' counts set to 0 just before. The hand-written kernels'
+    launches a step, read by kernel name from the trace
+    (``ops.traced_launches``) and counted by their wrappers, must both be
+    ``per_step``, and every step a replay."""
+    from syncvsr_tpu_torch.engine import build_train_step, create_train_state
+    from syncvsr_tpu_torch.models import build_model
+    from syncvsr_tpu_torch.ops import traced_launches
+    from syncvsr_tpu_torch.utils.benchmark import profile_window
+    from syncvsr_tpu_torch.utils.profiling import graph_counts
+
+    dev = torch.device("cuda")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+    state = create_train_state(cfg, build_model(cfg), batch)
+    step = build_train_step(aug_fn=aug)
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.synchronize()
+    reset_counts()
+    before = graph_counts()
+    window = profile_window(lambda: step(state, batch), dev, n)
+    graphs = graph_counts_since(before)
+    counted = {k: v / (n + 1) for k, v in read_counts().items()}
+    traced = traced_launches((name, calls) for name, _, calls in window["kernels"])
+    log(f"replayed {path}: {graphs}; launches a step traced {traced}, counted {counted} "
+        f"(expected {per_step}); {window['launches']:.0f} device kernels a step")
+    del state, step
+    torch.cuda.empty_cache()
+    if graphs != {"captures": 0, "replays": n + 1, "eager": {}}:
+        raise AssertionError(f"replayed {path}: the steps ran {graphs}")
+    if traced != per_step or counted != per_step:
+        raise AssertionError(f"replayed {path}: launches a step traced {traced}, counted "
+                             f"{counted}, expected {per_step}")
+    return {"traced_per_step": traced, "counted_per_step": counted,
+            "device_kernels_per_step": window["launches"]}
 
 
 def train_1800(torch, np, path, profile_dir=None):
@@ -1322,10 +1392,7 @@ def instep_aug(cfg, base):
     (``train.py``'s composition; the codec is built once a device)."""
     from syncvsr_tpu_torch.train import instep_tokenizer
 
-    def aug(gen, batch):
-        return base(gen, instep_tokenizer(cfg, batch["audio"].device)(batch))
-
-    return aug
+    return base.after(lambda batch: instep_tokenizer(cfg, batch["audio"].device)(batch))
 
 
 def codec_flops(b, samples):
@@ -1433,7 +1500,7 @@ def train_instep(torch, np, path, profile_dir=None):
         "layers, dtype bfloat16")
     model = build_model(cfg)
     state = create_train_state(cfg, model, batch)
-    step = build_train_step(aug_fn=lambda gen, x: aug(gen, tokenize(x)))
+    step = build_train_step(aug_fn=aug.after(tokenize))
     first = None
     for _ in range(WARMUP_STEPS):
         state, m = step(state, batch)
@@ -2538,7 +2605,9 @@ def _flat(torch, state, moments=True):
 def _steps(torch, state, step, batch, n):
     """``n`` train steps, the kernels' counts set to 0 just before and read
     just after; (metrics of each, launches a step, ms a step after the
-    first)."""
+    first). A step replayed as a CUDA graph (a world-1 word step from its
+    second on) counts its capture's launches; ``replayed_launches`` reads
+    what such steps run from a trace."""
     def sync():
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()

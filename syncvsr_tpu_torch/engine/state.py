@@ -42,6 +42,7 @@ from syncvsr_tpu_torch.utils.device import resolve_device
 from syncvsr_tpu_torch.utils.profiling import host_read
 
 f32 = np.float32
+Scalar = Union[float, torch.Tensor]
 
 
 def make_schedule(cfg: OptimConfig) -> Callable[[int], float]:
@@ -162,14 +163,44 @@ def all_finite(tensors: List[torch.Tensor], state: Optional[TrainState] = None) 
     return bool(ok)
 
 
+def take_grads(state: TrainState) -> List[torch.Tensor]:
+    """The parameters' gradients after a backward (zeros where a leaf got
+    none), taken off the parameters."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in state.params]
+    for p in state.params:
+        p.grad = None
+    return grads
+
+
+def update_scalars(state: TrainState) -> Tuple[float, int, float, float]:
+    """The host's part of the next inner update: its learning rate
+    ``schedule(count)``, the count after it, and Adam's bias corrections
+    at that count, in f32 (as optax computes them)."""
+    cfg = state.optim
+    count = state.count + 1
+    return (state.schedule(state.count), count,
+            float(f32(1) - f32(cfg.b1) ** f32(count)),
+            float(f32(1) - f32(cfg.b2) ** f32(count)))
+
+
+def _divide(tensors: List[torch.Tensor], s: Scalar) -> List[torch.Tensor]:
+    """``tensors / s`` with the bits of a division by the Python float
+    ``s``, also where ``s`` is the f32 0-dim tensor holding it: PyTorch's
+    CUDA kernels divide by a Python float as a product with its f32
+    reciprocal, by a tensor truly; its CPU kernels divide truly by both."""
+    if isinstance(s, torch.Tensor) and s.is_cuda:
+        return torch._foreach_mul(tensors, torch.reciprocal(s))
+    return torch._foreach_div(tensors, s)
+
+
 @torch.no_grad()
-def _adamw(state: TrainState, grads: List[torch.Tensor], dry: bool = False) -> None:
-    """clip_by_global_norm -> AdamW(masked decay) -> params += update, in
-    place, at ``schedule(count)``; ``grads`` are clipped in place unless
-    they are the running mean of accumulation (optax resets it from its
-    unclipped values). ``dry``: the update of a mini-step that does not
-    apply it, which optax ``MultiSteps`` still adds to the parameters times
-    0 (NaN where the update is not finite); nothing else moves."""
+def adamw_apply(state: TrainState, grads: List[torch.Tensor], lr: Scalar, bc1: Scalar,
+                bc2: Scalar, dry: bool = False) -> None:
+    """The device part of ``_adamw``: clip_by_global_norm -> AdamW(masked
+    decay) -> params += update, in place, at learning rate ``lr`` with
+    bias corrections ``bc1``, ``bc2`` (floats, or f32 0-dim tensors on the
+    parameters' device, which a CUDA graph reads anew at each replay; both
+    give the same bits)."""
     cfg = state.optim
     mu, nu = state.mu, state.nu
     if dry:
@@ -181,18 +212,14 @@ def _adamw(state: TrainState, grads: List[torch.Tensor], dry: bool = False) -> N
             grads = torch._foreach_mul(grads, scale)
         else:
             torch._foreach_mul_(grads, scale)
-    lr = state.schedule(state.count)
-    count = state.count + 1
     torch._foreach_mul_(mu, cfg.b1)
     torch._foreach_add_(mu, grads, alpha=1.0 - cfg.b1)
     torch._foreach_mul_(nu, cfg.b2)
     torch._foreach_addcmul_(nu, grads, grads, value=1.0 - cfg.b2)
-    bc1 = float(f32(1) - f32(cfg.b1) ** f32(count))
-    bc2 = float(f32(1) - f32(cfg.b2) ** f32(count))
-    den = torch._foreach_div(nu, bc2)
+    den = _divide(nu, bc2)
     torch._foreach_sqrt_(den)
     torch._foreach_add_(den, cfg.eps)
-    upd = torch._foreach_div(mu, bc1)
+    upd = _divide(mu, bc1)
     torch._foreach_div_(upd, den)
     decayed = [i for i, d in enumerate(state.decay) if d]
     if cfg.weight_decay and decayed:
@@ -200,6 +227,17 @@ def _adamw(state: TrainState, grads: List[torch.Tensor], dry: bool = False) -> N
                             alpha=cfg.weight_decay)
     torch._foreach_mul_(upd, 0.0 if dry else -lr)
     torch._foreach_add_(state.params, upd)
+
+
+def _adamw(state: TrainState, grads: List[torch.Tensor], dry: bool = False) -> None:
+    """clip_by_global_norm -> AdamW(masked decay) -> params += update, in
+    place, at ``schedule(count)``; ``grads`` are clipped in place unless
+    they are the running mean of accumulation (optax resets it from its
+    unclipped values). ``dry``: the update of a mini-step that does not
+    apply it, which optax ``MultiSteps`` still adds to the parameters times
+    0 (NaN where the update is not finite); nothing else moves."""
+    lr, count, bc1, bc2 = update_scalars(state)
+    adamw_apply(state, grads, lr, bc1, bc2, dry)
     if not dry:
         state.count, state.lr = count, lr
 

@@ -7,9 +7,9 @@ head + attention decoder + sync head.
 with att the label-smoothed KL divided by the batch, ctc batch-averaged
 and the per-frame audio sync CE over the valid frames only. Token
 conventions: blank 0, sos = eos = labels - 1, ignore -1. In train mode
-(``det=False``) dropout draws from ``dropout_gen``; ``mixup_gen`` is
-accepted for the train step's calling shape and not used (the sentence
-recipe has no CutMix).
+(``det=False``) dropout draws from ``dropout_gen``; ``mix`` is accepted
+for the train step's calling shape and not used (the sentence recipe has
+no CutMix).
 
 Under sequence parallel (``parallel/sequence.py``) the frontend, the
 Conformer and the sync head run on this rank's frames (the region), the
@@ -96,10 +96,15 @@ class SentenceVSRModel(nn.Module):
         with span("model.encoder"):
             return self.encoder(feats, pad_mask, det, gen)
 
+    def draw_mix(self, gen: torch.Generator, batch: Dict[str, Tensor]) -> None:
+        """The host draws of a train-mode forward (``WordVSRModel.draw_mix``):
+        none, as the sentence recipe has no CutMix."""
+        return None
+
     def forward(self, videos: Tensor, lengths: Tensor, labels: Tensor, audio_tokens: Tensor,
                 sample_weight: Optional[Tensor] = None, det: bool = True,
-                mixup_gen: Optional[torch.Generator] = None,
-                dropout_gen: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
+                dropout_gen: Optional[torch.Generator] = None,
+                mix: Optional[Dict[str, Tensor]] = None) -> Dict[str, Tensor]:
         cfg, codec = self.cfg, self.cfg.codec
         a = codec.audio_alignment
         with sequence.region():

@@ -21,8 +21,9 @@ backward); CutMix's keep mask covers the whole clip, its slice the
 rank's frames. A clip whose length does not divide the seq axis stays
 whole on every seq rank.
 
-In train mode (``det=False``) CutMix and mixup sample from the
-``mixup_gen`` CPU generator and dropout draws from ``dropout_gen`` on the
+In train mode (``det=False``) CutMix and mixup take the values that
+``draw_mix`` drew from the ``mixup_gen`` CPU generator before the step's
+device work (``mix``), and dropout draws from ``dropout_gen`` on the
 activations' device. ``model.remat`` recomputes the transformer's blocks in
 the backward; the TCN path ignores it, as the JAX package's does.
 """
@@ -159,12 +160,29 @@ class WordVSRModel(nn.Module):
         self.audio_classifier = SyncHead(out, codec.audio_alignment, codec.vq_groups,
                                          codec.audio_vocab_size)
 
+    def draw_mix(self, gen: torch.Generator, batch: Dict[str, Tensor]
+                 ) -> Optional[Dict[str, Tensor]]:
+        """What a train-mode forward of ``batch`` draws from ``gen``, drawn
+        as it draws it, for its ``mix``: CutMix's keep mask [T] (bool;
+        ``keep``) or the TCN path's mixup weight (``lam``); None where it
+        draws nothing."""
+        if self.cutmix_alpha <= 0:
+            return None
+        if self.cfg.encoder.kind in TCN_KINDS:
+            return {"lam": sample_mixup(gen, self.cutmix_alpha)}
+        if not self.use_cutmix:
+            return None
+        t_in = sequence.total(batch["inputs"].shape[1])
+        return {"keep": cutmix_keep(t_in, *sample_cutmix(gen, self.cutmix_alpha))}
+
     def forward(self, inputs: Tensor, labels: Tensor, audio_tokens: Tensor,
                 word_mask: Optional[Tensor] = None,
                 attention_mask: Optional[Tensor] = None,
                 sample_weight: Optional[Tensor] = None, det: bool = True,
-                mixup_gen: Optional[torch.Generator] = None,
-                dropout_gen: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
+                dropout_gen: Optional[torch.Generator] = None,
+                mix: Optional[Dict[str, Tensor]] = None) -> Dict[str, Tensor]:
+        """``mix``: what ``draw_mix`` drew for this batch (train mode; None
+        mixes nothing)."""
         # ``attention_mask`` belongs to the TCN path; the transformer path ignores it
         cfg, enc, codec, dtype = self.cfg, self.cfg.encoder, self.cfg.codec, self.dtype
         if inputs.dim() == 3:   # landmark pad sentinel -> 0
@@ -184,13 +202,12 @@ class WordVSRModel(nn.Module):
                                        torch.full_like(audio_tokens, -1))
         if enc.kind in TCN_KINDS:
             return self._tcn_forward(inputs, onehot, audio_tokens, word_mask, attention_mask,
-                                     sample_weight, det, mixup_gen, dropout_gen)
+                                     sample_weight, det, dropout_gen, mix)
         if not det:
             onehot = smooth_labels(onehot, cfg.label_smoothing)
-            if self.use_cutmix and self.cutmix_alpha > 0:
-                keep = cutmix_keep(t_in, *sample_cutmix(mixup_gen, self.cutmix_alpha))
+            if mix is not None:
                 inputs, onehot, audio_tokens, word_mask = temporal_cutmix_apply(
-                    inputs, onehot, audio_tokens, word_mask, keep)
+                    inputs, onehot, audio_tokens, word_mask, mix["keep"])
 
         with sequence.region(), span("model.frontend"):   # this rank's frames under seq
             hidden = self.frontend(inputs, train=not det)           # [B, T, width]
@@ -236,13 +253,13 @@ class WordVSRModel(nn.Module):
         return out
 
     def _tcn_forward(self, inputs, onehot, audio_tokens, word_mask, attention_mask,
-                     sample_weight, det, mixup_gen, dropout_gen):
+                     sample_weight, det, dropout_gen, mix):
         """``_dense_tcn_path`` of the JAX model (its mixup ignores
         ``use_cutmix``, as there; labels are not smoothed)."""
         cfg, dtype = self.cfg, self.dtype
-        mixing = not det and self.cutmix_alpha > 0
+        mixing = not det and mix is not None
         if mixing:
-            lam = sample_mixup(mixup_gen, self.cutmix_alpha)
+            lam = mix["lam"]
             inputs = batch_mixup_apply(inputs, lam)
             lam = lam.to(inputs.device)   # f32, for the losses' lerp
         with sequence.region(), span("model.frontend"):

@@ -1,7 +1,7 @@
 """Compute-path ops: in-step augmentation, CutMix, fused losses, BatchNorm,
 and the wrappers of the hand-written CUDA kernels."""
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Iterable, Tuple
 
 
 def kernel_wrappers() -> Dict[str, Callable]:
@@ -18,3 +18,19 @@ def kernel_wrappers() -> Dict[str, Callable]:
 def launch_counts() -> Dict[str, int]:
     """Launches of each hand-written kernel in this process so far."""
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+# the device kernel that each wrapper launches, once a call, by the name a
+# profiler's trace gives it (a substring of the demangled or mangled name)
+DEVICE_KERNELS = {"sync_ce_fwd": "sync_ce_kernel", "sync_ce_split_fwd": "sync_ce_split_kernel",
+                  "bn_stats_fwd": "stats_fwd_fused", "bn_stats_bwd": "stats_bwd_fused"}
+
+
+def traced_launches(kernels: Iterable[Tuple[str, float]]) -> Dict[str, float]:
+    """Each wrapper's launches among a trace's device kernels, given as
+    (name, launches) pairs: those of the kernel ``DEVICE_KERNELS`` names.
+    A CUDA graph's replay shows its kernels in the trace, so this counts
+    what ran where the wrappers' counts (``launch_counts``) of a replay
+    are its capture's."""
+    kernels = list(kernels)
+    return {w: sum(n for name, n in kernels if k in name) for w, k in DEVICE_KERNELS.items()}

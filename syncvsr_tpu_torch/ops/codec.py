@@ -120,7 +120,7 @@ def make_instep_tokenizer(codec_params: Dict[str, Any], alignment: int = 4,
     e2e_asr_transformer.py:167-174 + the :195-196 truncation). Tokens past a
     sample's real frame length are -1 (ignored by the sync loss), as are
     the rows a conv-arithmetic shortfall leaves. Compose with the
-    augmentation hook: ``aug_fn=lambda gen, b: aug(gen, tokenize(b))``."""
+    augmentation: ``aug_fn=aug.after(tokenize)`` (``ops.image.TrainAug``)."""
 
     def tokenize(batch: Dict[str, Any]) -> Dict[str, Any]:
         batch = dict(batch)

@@ -1,11 +1,13 @@
 """On-device video augmentation (port of ``syncvsr_tpu/ops/image.py``).
 
 Train: horizontal flip + RandomResizedCrop + time mask + normalize in one
-pass (``fused_train_aug``), split into a sampling part (crop boxes, flips and
-time-mask spans, drawn from a CPU ``torch.Generator``) and a deterministic
-apply part on the device: the bilinear resample as two small interpolation
-matmuls straight from the uint8 source, with the flip folded into the x
-coordinates as a mirrored ramp, the clip-mean fill and the normalisation.
+pass (``build_word_aug``, ``build_sentence_aug``), a ``TrainAug`` split
+into a sampling part (``draw``: crop boxes, flips and time-mask spans,
+drawn from a CPU ``torch.Generator``) and a deterministic apply part on
+the device (``apply``): the
+bilinear resample as two small interpolation matmuls straight from the
+uint8 source, with the flip folded into the x coordinates as a mirrored
+ramp, the clip-mean fill and the normalisation.
 
 Eval: ``to_float`` -> ``center_crop_resize`` -> ``normalize``.
 
@@ -25,7 +27,7 @@ time masks by its true length.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -155,36 +157,66 @@ def fused_train_aug_apply(videos: Tensor, p: Dict[str, Tensor], out_size: int,
     return ((v - mean) / std).to(dtype)
 
 
-def fused_train_aug(gen: torch.Generator, videos: Tensor, out_size: int,
-                    scale: Tuple[float, float] = (0.6, 1.0),
-                    ratio: Tuple[float, float] = (3 / 4, 4 / 3),
-                    hflip_prob: float = 0.5, time_mask_span: int = 15,
-                    time_mask_n: int = 1, mean: float = 0.421, std: float = 0.165,
-                    lengths: Optional[Tensor] = None,
-                    dtype: torch.dtype = torch.bfloat16) -> Tensor:
-    b, t, h, w, _ = videos.shape
-    p = sample_train_aug(gen, b, sequence.total(t), h, w, scale, ratio, hflip_prob,
-                         time_mask_span, time_mask_n, lengths, collectives.shard())
-    return fused_train_aug_apply(videos, p, out_size, mean, std, dtype)
+class TrainAug:
+    """A train augmentation in its two parts: ``draw(gen, batch)``, the
+    values it samples from the CPU generator ``gen``, on the host (None
+    where it draws nothing), and ``apply(batch, drawn) -> batch``, its
+    device work. The train step draws before its device work and applies
+    inside it (``engine/steps.py``); ``aug(gen, batch)`` does both."""
+
+    def __init__(self, draw: Callable, apply: Callable):
+        self.draw, self.apply = draw, apply
+
+    def __call__(self, gen: torch.Generator, batch):
+        return self.apply(batch, self.draw(gen, batch))
+
+    def after(self, fn: Callable) -> "TrainAug":
+        """This augmentation of ``fn(batch)``: the device hook ``fn``, which
+        draws nothing (the in-step codec's tokenizer), runs before the
+        apply; the draws read the batch as given."""
+        return TrainAug(self.draw, lambda batch, drawn: self.apply(fn(batch), drawn))
+
+
+def batch_hook(fn: Callable) -> TrainAug:
+    """The device hook ``fn(batch) -> batch``, which draws nothing, as a
+    train step's augmentation."""
+    return TrainAug(lambda gen, batch: None, lambda batch, drawn: fn(batch))
+
+
+def _split_aug(key: str, out_size: int, mean: float, std: float, lengths: bool = False,
+               **draw_kw) -> TrainAug:
+    """The fused train augmentation of ``batch[key]`` (a 5-D clip batch;
+    any other input passes through): ``draw`` samples its values
+    (``sample_train_aug``; ``draw_kw`` are its arguments, and ``lengths``
+    bounds the time masks by ``batch["lengths"]``), ``apply`` runs
+    ``fused_train_aug_apply``."""
+
+    def draw(gen: torch.Generator, batch) -> Optional[Dict[str, Tensor]]:
+        videos = batch[key]
+        if videos.dim() != 5:
+            return None
+        b, t, h, w, _ = videos.shape
+        return sample_train_aug(gen, b, sequence.total(t), h, w,
+                                lengths=batch.get("lengths") if lengths else None,
+                                shard=collectives.shard(), **draw_kw)
+
+    def apply(batch, drawn: Optional[Dict[str, Tensor]]):
+        if drawn is None:
+            return batch
+        return dict(batch, **{key: fused_train_aug_apply(batch[key], drawn, out_size,
+                                                         mean, std)})
+
+    return TrainAug(draw, apply)
 
 
 def build_word_aug(data_cfg):
     """Train-time augmentation of the LRW video workload, the ``aug_fn`` of
-    engine.build_train_step: ``aug(gen, batch) -> batch``."""
-
-    def aug(gen: torch.Generator, batch):
-        videos = batch["inputs"]
-        if videos.dim() != 5:
-            return batch  # landmark inputs: augmented in the loader
-        v = fused_train_aug(
-            gen, videos, data_cfg.crop_size, tuple(data_cfg.rrc_scale),
-            hflip_prob=data_cfg.hflip_prob,
-            time_mask_span=data_cfg.time_mask_window,
-            time_mask_n=data_cfg.time_mask_stride,
-            mean=data_cfg.mean, std=data_cfg.std)
-        return dict(batch, inputs=v)
-
-    return aug
+    engine.build_train_step, a ``TrainAug`` (landmark inputs, augmented in
+    the loader, pass through)."""
+    return _split_aug("inputs", data_cfg.crop_size, data_cfg.mean, data_cfg.std,
+                      scale=tuple(data_cfg.rrc_scale), hflip_prob=data_cfg.hflip_prob,
+                      time_mask_span=data_cfg.time_mask_window,
+                      time_mask_n=data_cfg.time_mask_stride)
 
 
 def build_eval_transform(data_cfg):
@@ -202,20 +234,13 @@ def build_sentence_aug(data_cfg):
     """Train-time augmentation of the LRS sentence workload (RandomResizedCrop
     scale 0.7-1.0, flip 0.5, two time masks of up to 10 frames each bounded
     by the clip's length when ``data.adaptive_time_mask``, clip-mean fill,
-    normalise), the ``aug_fn`` of engine.build_train_step."""
-
-    def aug(gen: torch.Generator, batch):
-        videos = batch["videos"]
-        if videos.dim() != 5:
-            return batch  # landmark or waveform inputs pass through
-        adaptive = data_cfg.adaptive_time_mask
-        v = fused_train_aug(
-            gen, videos, data_cfg.crop_size, (0.7, 1.0), hflip_prob=0.5,
-            time_mask_span=10 if adaptive else 0, time_mask_n=2 if adaptive else 0,
-            mean=data_cfg.mean, std=data_cfg.std, lengths=batch.get("lengths"))
-        return dict(batch, videos=v)
-
-    return aug
+    normalise), the ``aug_fn`` of engine.build_train_step, a ``TrainAug``;
+    landmark or waveform inputs pass through."""
+    adaptive = data_cfg.adaptive_time_mask
+    return _split_aug("videos", data_cfg.crop_size, data_cfg.mean, data_cfg.std,
+                      scale=(0.7, 1.0), hflip_prob=0.5,
+                      time_mask_span=10 if adaptive else 0,
+                      time_mask_n=2 if adaptive else 0, lengths=True)
 
 
 def build_sentence_eval_transform(data_cfg, dataset: str = "lrs3"):

@@ -123,7 +123,8 @@ def main(argv=None) -> dict:
                 x = model.encode(b["videos"], b["lengths"], det=False, gen=gen)
                 return (x.float() ** 2).sum()
             if variant in ("model", "modelmetrics"):
-                out = model(**b, det=False, mixup_gen=state.mixup_gen, dropout_gen=gen)
+                out = model(**b, det=False, dropout_gen=gen,
+                            mix=model.draw_mix(state.mixup_gen, b))
                 if variant == "model":
                     return out["loss"]
                 return sum(v.float().sum() for v in out.values())

@@ -21,8 +21,10 @@ the keys the JAX package logs, each train record has, over the steps since
 the last record, a step's ``train/launches/<kernel>`` (the hand-written
 kernels' launches; 0 on the CPU, where the plain versions run),
 ``train/loader_wait_ms`` (the host's wait for the loader's next batch, the
-``train.loader_wait`` span) and ``train/host_reads`` (the host's reads of
-device values in the step and the lagged metrics' read).
+``train.loader_wait`` span), ``train/host_reads`` (the host's reads of
+device values in the step and the lagged metrics' read) and
+``train/graph_replay_share`` (the share of the steps replayed as a CUDA
+graph, ``engine/graph.py``).
 
 ``model.codec.in_step=true model.codec.ckpt=<vq-wav2vec .pt>`` quantizes
 the loader's raw waveforms inside the step (``ops/codec.py``): the frozen
@@ -85,8 +87,8 @@ from syncvsr_tpu_torch.parallel.mesh import seed_dropout
 from syncvsr_tpu_torch.utils import checkpoint as ckpt
 from syncvsr_tpu_torch.utils.device import resolve_device
 from syncvsr_tpu_torch.utils.metrics import AverageMeter, MetricLogger, split_eval_weights
-from syncvsr_tpu_torch.utils.profiling import (StepTimer, Trace, host_read, host_read_counts,
-                                                span)
+from syncvsr_tpu_torch.utils.profiling import (StepTimer, Trace, graph_counts, host_read,
+                                                host_read_counts, span)
 
 
 def load_config(argv: Sequence[str]) -> Config:
@@ -214,8 +216,7 @@ def _train(config: Config, dev: torch.device) -> Dict[str, float]:
         return tokenize(batch) if tokenize is not None and "audio" in batch else batch
 
     if tokenize is not None:
-        base_aug = aug_fn
-        aug_fn = lambda gen, b: base_aug(gen, tokenize(b))  # noqa: E731
+        aug_fn = aug_fn.after(tokenize)
 
     example = next(iter(train_loader))
     state = create_train_state(config, model, eval_transform(to_device(example, dev)),
@@ -304,13 +305,14 @@ def _train(config: Config, dev: torch.device) -> Dict[str, float]:
     # the device, so it happens after step N+1 is enqueued
     pending_metrics = None
     launched, window_steps = dict.fromkeys(launch_counts(), 0), 0
-    wait_s, reads = [0.0], 0
+    wait_s, reads, replayed = [0.0], 0, 0
     try:
         for epoch in range(config.train.epochs):
             for batch in waited(train_loader, wait_s):
                 if prof_range and step == prof_range[0]:
                     prof.start()
                 before, reads_before = launch_counts(), host_read_counts()
+                replays_before = graph_counts()["replays"]
                 with timer:
                     state, metrics = train_step(state, to_device(batch, dev))
                     if pending_metrics is not None:
@@ -319,6 +321,7 @@ def _train(config: Config, dev: torch.device) -> Dict[str, float]:
                 for k, n in launch_counts().items():
                     launched[k] += n - before[k]
                 reads += sum(host_read_counts().values()) - sum(reads_before.values())
+                replayed += graph_counts()["replays"] - replays_before
                 step += 1
                 window_steps += 1
                 if prof_range and step == prof_range[1]:
@@ -334,8 +337,9 @@ def _train(config: Config, dev: torch.device) -> Dict[str, float]:
                                     for k, n in launched.items()})
                     summary["train/loader_wait_ms"] = 1e3 * wait_s[0] / window_steps
                     summary["train/host_reads"] = reads / window_steps
+                    summary["train/graph_replay_share"] = replayed / window_steps
                     launched, window_steps = dict.fromkeys(launched, 0), 0
-                    wait_s[0], reads = 0.0, 0
+                    wait_s[0], reads, replayed = 0.0, 0, 0
                     t_start = time.time()
                     logger.log(summary, step)
                     if lead:

@@ -20,8 +20,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+from contextlib import contextmanager
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 from syncvsr_tpu_torch.utils.compile_cache import build_root
 
@@ -48,6 +49,7 @@ _lib: Optional[ctypes.CDLL] = None
 _scratch = {}         # (name, device) -> (elements, address, buffer)
 _ARENA_FLOATS = 1 << 20
 _arena = {}           # device -> [next free float, floats, address, buffer]
+_retained: Optional[List] = None   # the buffers handed out inside ``retained()``
 
 
 def _nvcc() -> str:
@@ -155,6 +157,8 @@ def scratch(name: str, device, numel: int, dtype=None) -> Tuple[int, int, "torch
     if slot is None or slot[0] < numel:
         buf = torch.zeros(numel, device=device, dtype=dtype or torch.float32)
         slot = _scratch[name, device] = (numel, buf.data_ptr(), buf)
+    if _retained is not None:
+        _retained.append(slot[2])
     return slot
 
 
@@ -173,4 +177,23 @@ def result(device, floats: int) -> Tuple[int, "torch.Tensor"]:
         slot = _arena[device] = [0, size, buf.data_ptr(), buf]
     off, _, base, buf = slot
     slot[0] = off + floats
+    if _retained is not None:
+        _retained.append(buf)
     return base + 4 * off, buf[off:off + floats]
+
+
+@contextmanager
+def retained() -> Iterator[List]:
+    """The scratch and arena buffers handed out inside the block, each as
+    often as it was. A CUDA graph captured inside bakes their addresses in,
+    so its record holds the list: a buffer that a later call replaces (a
+    full arena, a scratch grown) is then not freed, nor reused by another
+    tensor, while the graph may replay."""
+    global _retained
+    prev, _retained = _retained, []
+    try:
+        yield _retained
+    finally:
+        if prev is not None:
+            prev.extend(_retained)
+        _retained = prev

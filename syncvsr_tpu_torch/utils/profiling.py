@@ -21,6 +21,9 @@ autograd engine's thread; the thread id tells them apart.
 ``host_read(site)`` counts the host's reads of device values (``float``,
 ``.item()``, ``bool``, ``.cpu()`` of a tensor) by site, whether spans are
 on or not; ``host_read_counts()`` returns the counts so far.
+``graph_step(kind)`` counts train steps by how they ran
+(``engine/graph.py``: captured and replayed as a CUDA graph, replayed, or
+eager and why); ``graph_counts()`` returns the counts so far.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import os
 import threading
 import time
 from contextlib import contextmanager
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -74,8 +77,10 @@ class _NoSpan:
 
 _NO_SPAN = _NoSpan()
 _on = False
+_step_spans = False   # a ``spans()`` block keeps the train steps eager
 _records: List[SpanRecord] = []
 _host_reads: Dict[str, int] = {}
+_graph_steps: Dict[str, int] = {}
 
 
 class _Span:
@@ -100,6 +105,17 @@ class _Span:
         return False
 
 
+def spans_on() -> bool:
+    """Whether the spans are on."""
+    return _on
+
+
+def step_spans() -> bool:
+    """Whether a ``spans()`` block that times the train steps' phases is
+    open (``engine/graph.py`` then runs every step eagerly)."""
+    return _step_spans
+
+
 def span(name: str):
     """The context of the span ``name`` (one of ``SPANS``): the shared
     no-op while spans are off."""
@@ -109,17 +125,23 @@ def span(name: str):
 
 
 @contextmanager
-def spans() -> Iterator[List[SpanRecord]]:
+def spans(steps: bool = True) -> Iterator[List[SpanRecord]]:
     """Turns the spans on; the list it gives holds, once the block has
-    closed, every span that ended inside it, in order of their start."""
-    global _on
-    was, _on = _on, True
+    closed, every span that ended inside it, in order of their start.
+    ``steps``: the train steps inside run eagerly, so their phases and
+    modules have spans; without it (a ``Trace`` window) a step whose
+    signature has a CUDA graph replays, as outside the block, and only the
+    train loop's spans and the eager steps' are recorded
+    (``engine/graph.py``)."""
+    global _on, _step_spans
+    was, was_steps = _on, _step_spans
+    _on, _step_spans = True, was_steps or steps
     first = len(_records)
     out: List[SpanRecord] = []
     try:
         yield out
     finally:
-        _on = was
+        _on, _step_spans = was, was_steps
         out.extend(sorted(_records[first:], key=lambda r: r[2]))
         if not was:
             _records.clear()
@@ -135,11 +157,33 @@ def host_read_counts() -> Dict[str, int]:
     return dict(_host_reads)
 
 
+def graph_step(kind: str) -> None:
+    """Counts a train step as ``kind``: ``capture`` (captured as a CUDA
+    graph, then replayed), ``replay``, or ``eager.<reason>``."""
+    _graph_steps[kind] = _graph_steps.get(kind, 0) + 1
+
+
+def graph_counts() -> Dict[str, Any]:
+    """The train steps of this process so far by how they ran:
+    ``captures``, ``replays`` (a captured step counts in both: its capture
+    launches nothing, its replay runs it) and ``eager``, the steps that ran
+    eagerly by reason (``engine/graph.py::REASONS``)."""
+    eager = {k.split(".", 1)[1]: n for k, n in _graph_steps.items()
+             if k.startswith("eager.")}
+    captures = _graph_steps.get("capture", 0)
+    return {"captures": captures, "replays": captures + _graph_steps.get("replay", 0),
+            "eager": eager}
+
+
 class Trace:
     """A torch.profiler window over CPU and CUDA activities, with the spans
     on: ``start()``, then ``stop()`` writes ``<log_dir>/trace.json``
     (chrome://tracing, Perfetto; the spans as ``record_function`` ranges)
-    and ``<log_dir>/ops.txt`` (device and host time by op)."""
+    and ``<log_dir>/ops.txt`` (device and host time by op). A train step
+    whose signature has a CUDA graph replays in the window, as it does
+    outside it, so the trace shows the replayed step (without the step's
+    own spans); one without a graph yet runs eagerly, with its spans
+    (``spans(steps=False)``)."""
 
     def __init__(self, log_dir: str):
         self.log_dir = log_dir
@@ -154,7 +198,7 @@ class Trace:
             activities.append(ProfilerActivity.CUDA)
         self._prof = profile(activities=activities)
         self._prof.__enter__()
-        self._spans = spans()
+        self._spans = spans(steps=False)
         self._spans.__enter__()
 
     def stop(self) -> None:

@@ -68,6 +68,8 @@ def test_train_end_to_end_and_resume(tmp_path):
     # host) from the second step on
     assert [r["train/host_reads"] for r in train_logs] == [4.5, 6.0, 6.0, 6.0]
     assert all(r["train/loader_wait_ms"] >= 0.0 for r in train_logs)
+    # on the CPU every step runs eagerly (engine/graph.py)
+    assert all(r["train/graph_replay_share"] == 0.0 for r in train_logs)
 
     final2 = ttrain.main(args + ['train.resume="auto"'], device="cpu")
     assert np.isfinite(final2["val/loss"])

@@ -30,7 +30,7 @@ from syncvsr_tpu_torch.data.synthetic_ckpt import write_fairseq_vq
 from syncvsr_tpu_torch.data.synthetic_tree import write_lrs_tree
 from syncvsr_tpu_torch.engine import build_train_step, create_train_state
 from syncvsr_tpu_torch.ops import codec
-from syncvsr_tpu_torch.ops.image import build_sentence_eval_transform
+from syncvsr_tpu_torch.ops.image import batch_hook, build_sentence_eval_transform
 from syncvsr_tpu_torch.utils import checkpoint as tckpt
 from torch_parity import JitInit, close, sentence_configs, to_np, torch_model, tt
 import torch_threads  # noqa: F401  (one torch thread a test process)
@@ -124,7 +124,7 @@ def test_instep_train_step_matches_jax(ckpts):
     tb = {k: tt(v) for k, v in batch.items()}
     state = create_train_state(cfg_t, model, ev_t(tok_t(tb)), device="cpu")
     step_j = jax_build_train_step(donate=False, aug_fn=lambda r, x: ev_j(tok_j(x)))
-    step = build_train_step(aug_fn=lambda g, x: ev_t(tok_t(x)))
+    step = build_train_step(aug_fn=batch_hook(lambda x: ev_t(tok_t(x))))
     for i in range(2):
         state_j, m_j = step_j(state_j, jb)
         state, m = step(state, tb)

@@ -18,6 +18,7 @@ from syncvsr_tpu.ops.image import fused_train_aug
 from syncvsr_tpu_torch.data.synthetic import sentence_batch
 from syncvsr_tpu_torch.engine import build_eval_step, build_train_step, create_train_state
 from syncvsr_tpu_torch.ops.image import (
+    batch_hook,
     build_sentence_aug,
     build_sentence_eval_transform,
     fused_train_aug_apply,
@@ -104,7 +105,7 @@ def runs():
 
     step_j = jax_build_train_step(donate=False,
                                   aug_fn=_jax_sentence_aug(cfg_j.data, dtype=jnp.float32))
-    step = build_train_step(aug_fn=torch_aug)
+    step = build_train_step(aug_fn=batch_hook(lambda bt: torch_aug(None, bt)))
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     tb = {k: tt(v) for k, v in batch.items()}
     snaps, lr_sum = {}, 0.0
@@ -259,7 +260,7 @@ def test_sentence_step_f32_matches_f64_at_16_frames(monkeypatch):
         if dtype == torch.float64:
             clips = aug(None, tb)["videos"].numpy()
         state = create_train_state(c, model, tb, device="cpu")
-        state, m = build_train_step(aug_fn=aug)(state, tb)
+        state, m = build_train_step(aug_fn=batch_hook(lambda bt: aug(None, bt)))(state, tb)
         out[dtype] = ({"mu": [x.double() for x in state.mu],
                        "nu": [x.double() for x in state.nu],
                        "params": [p.detach().double() for p in state.params]},

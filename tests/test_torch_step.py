@@ -14,7 +14,7 @@ from syncvsr_tpu.engine import create_train_state as jax_create_train_state
 from syncvsr_tpu.models import build_model as jax_build_model
 from syncvsr_tpu.ops.image import fused_train_aug
 from syncvsr_tpu_torch.engine import build_eval_step, build_train_step, create_train_state
-from syncvsr_tpu_torch.ops.image import fused_train_aug_apply
+from syncvsr_tpu_torch.ops.image import batch_hook, fused_train_aug_apply
 from syncvsr_tpu_torch.utils.bridge import to_flax
 from torch_parity import (
     JitInit,
@@ -69,7 +69,7 @@ def runs():
     state = create_train_state(cfg_t, model, batch, device="cpu")
 
     step_j = jax_build_train_step(donate=False, aug_fn=jax_aug)
-    step = build_train_step(aug_fn=torch_aug)
+    step = build_train_step(aug_fn=batch_hook(lambda bt: torch_aug(None, bt)))
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     tb = {k: tt(v) for k, v in batch.items()}
     snaps, lr_sum = {}, 0.0

@@ -116,7 +116,7 @@ def one_step(frames: int):
     import test_torch_seq_parallel_sentence as seq_test
     from syncvsr_tpu_torch.engine import build_train_step, create_train_state
     from syncvsr_tpu_torch.models import build_model
-    from syncvsr_tpu_torch.ops.image import fused_train_aug_apply
+    from syncvsr_tpu_torch.ops.image import batch_hook, fused_train_aug_apply
     from syncvsr_tpu_torch.utils.bridge import load_flax, to_flax
     from torch_parity import jax_aug_sample, sentence_configs, tt
 
@@ -151,7 +151,7 @@ def one_step(frames: int):
         if dtype == torch.float64:
             clips = aug(None, tb)["videos"].numpy()
         state = create_train_state(c, model, tb, device="cpu")
-        state, m = build_train_step(aug_fn=aug)(state, tb)
+        state, m = build_train_step(aug_fn=batch_hook(lambda bt: aug(None, bt)))(state, tb)
         patch.undo()
         out[str(dtype).split(".")[1]] = {
             k: flat(to_flax(dict(zip(state.names, getattr(state, k))))[0])

@@ -29,7 +29,8 @@ import torch.multiprocessing as mp
 from syncvsr_tpu_torch.config import Config
 from syncvsr_tpu_torch.engine import build_eval_step, build_train_step, create_train_state
 from syncvsr_tpu_torch.models import build_model, word
-from syncvsr_tpu_torch.ops.image import build_sentence_aug, build_word_aug, fused_train_aug_apply
+from syncvsr_tpu_torch.ops.image import (batch_hook, build_sentence_aug, build_word_aug,
+                                         fused_train_aug_apply)
 from syncvsr_tpu_torch.parallel import create_mesh, resident_bytes, shard_batch, shard_state
 from syncvsr_tpu_torch.parallel.mesh import seed_dropout
 from syncvsr_tpu_torch.utils import checkpoint as ckpt
@@ -92,10 +93,8 @@ def train_steps(job: Dict[str, Any], mesh=None) -> Dict[str, Any]:
         d = cfg.data
         key = "inputs" if cfg.model.task == "word" else "videos"
         dtype = getattr(torch, job.get("aug_dtype", "bfloat16"))
-
-        def aug_fn(gen, bt):
-            return dict(bt, **{key: fused_train_aug_apply(bt[key], drawn, d.crop_size,
-                                                         d.mean, d.std, dtype)})
+        aug_fn = batch_hook(lambda bt: dict(bt, **{key: fused_train_aug_apply(
+            bt[key], drawn, d.crop_size, d.mean, d.std, dtype)}))
     if job.get("port_aug"):
         aug_fn = (build_word_aug if cfg.model.task == "word" else build_sentence_aug)(cfg.data)
     if job.get("cutmix") is not None:
